@@ -1,0 +1,323 @@
+// Flash-attention forward for Hopper (sm_90a), written by hand.
+//
+// Replaces paddle_tpu/ops/pallas/flash_attention.py::_fa_fwd_kernel (the
+// epilogue=False forward) as launched by _flash_fwd_bhsd. It computes the
+// FlashAttention-2 forward:
+//   O   = softmax(scale * Q K^T + mask) V          (in the input dtype)
+//   lse = m + log(l)                                (f32, one per row)
+// with the running (m, l, acc) state in f32, P rounded to the input dtype
+// before the P V product as the TPU kernel does, the causal mask aligned
+// bottom-right (offset = sk - sq), the ragged key tail masked with the
+// finite -1e30 of the reference, and GQA by index: query head bh reads kv
+// head bh / q_per_kv (batch-major bh), so K/V are never expanded.
+//
+// Design, taken from what K1 computes and not from its Pallas blocks:
+// - One thread block per (bh, q tile of 64 rows); 4 warps, each warp owns
+//   16 query rows. The TPU's sequential k-block grid dimension and its VMEM
+//   scratch become a loop over 64-key tiles inside the block, with the
+//   running state in registers.
+// - The TPU's packed lower-triangle grid becomes a k loop that stops at the
+//   last tile the causal bound of the tile's last row admits.
+// - Q, K and V tiles are staged in shared memory with 16-byte loads; rows
+//   past the sequence end are zero-filled. Rows are padded by 8 elements so
+//   the fragment loads hit distinct banks. At D=128 the three tiles take
+//   52 KB, above the 48 KB default, so the launch raises the block's
+//   dynamic shared-memory limit.
+// - Q K^T and P V run on the tensor cores as mma.sync.m16n8k16 with bf16
+//   (or fp16) operands and f32 accumulation. The S accumulator fragments
+//   are re-packed in registers as the A operand of P V (the FA-2 register
+//   trick): P never goes to shared memory.
+//
+// Bound at the slice's prefill shape (b4 h32 s512 d128, causal, bf16) on an
+// H100 SXM at its 700 W limit (3.35 TB/s, 989 TFLOP/s dense bf16, NVIDIA's
+// published peaks): reading q/k/v and writing o is about 67 MB, about
+// 20 us; the causal products are about 8.6 GFLOP, about 8.7 us. So the
+// kernel is bound by bytes, about 20 us per launch.
+//
+// What this simple design leaves on the table: no wgmma (mma.sync reaches a
+// fraction of Hopper's tensor-core rate), no TMA and no cp.async, no
+// pipelining of the next K/V tile behind the current products (every tile
+// load is followed by a block-wide barrier), V fragments assembled from
+// 16-bit shared-memory loads instead of ldmatrix.trans, and one block per
+// q tile instead of a persistent schedule.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BLOCK_M = 64;   // query rows per block: 4 warps x 16 rows
+constexpr int BLOCK_N = 64;   // keys per tile
+constexpr int THREADS = 128;
+constexpr int PAD = 8;        // elements of padding per shared-memory row
+constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <bool BF16> struct Elem;
+template <> struct Elem<true> { using T = __nv_bfloat16; };
+template <> struct Elem<false> { using T = __half; };
+
+template <bool BF16>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (BF16) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+}
+
+// c += a * b for one 16x8x16 tile; a: 16x16 row-major, b: 16x8 col-major.
+template <bool BF16>
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
+                                         const uint32_t b[2]) {
+  if constexpr (BF16) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+  }
+}
+
+__device__ __forceinline__ uint32_t ld32(const void* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t ld16x2(const void* lo, const void* hi) {
+  return uint32_t(*reinterpret_cast<const uint16_t*>(lo)) |
+         (uint32_t(*reinterpret_cast<const uint16_t*>(hi)) << 16);
+}
+
+// rows [row0, row0 + 64) of a (rows, D) matrix into shared memory; rows at
+// or past `rows` are zero-filled. 16-byte loads and stores.
+template <int D, typename T>
+__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
+                                          int rows) {
+  constexpr int LD = D + PAD;
+  constexpr int CHUNKS = D / 8;
+  for (int idx = threadIdx.x; idx < BLOCK_M * CHUNKS; idx += THREADS) {
+    int r = idx / CHUNKS, c = idx % CHUNKS;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < rows)
+      val = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * D + c * 8);
+    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
+  }
+}
+
+template <int D, bool BF16>
+__global__ void __launch_bounds__(THREADS)
+flash_fwd_kernel(const typename Elem<BF16>::T* __restrict__ q,
+                 const typename Elem<BF16>::T* __restrict__ k,
+                 const typename Elem<BF16>::T* __restrict__ v,
+                 typename Elem<BF16>::T* __restrict__ out,
+                 float* __restrict__ lse, int sq, int sk, int q_per_kv,
+                 int causal, float scale) {
+  using T = typename Elem<BF16>::T;
+  constexpr int LD = D + PAD;
+  constexpr int KC = D / 16;         // 16-wide chunks of the head dim
+  constexpr int DT = D / 8;          // 8-wide output tiles of the head dim
+  constexpr int NT = BLOCK_N / 8;    // 8-wide key tiles of a K tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* ks = qs + BLOCK_M * LD;
+  T* vs = ks + BLOCK_N * LD;
+
+  const int bh = blockIdx.x;
+  // heaviest causal tiles (the last rows) are scheduled first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BLOCK_M;
+  const int kvh = bh / q_per_kv;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;   // mma fragment coordinates
+  const int offset = sk - sq;
+  const int r0 = q0 + warp * 16 + g;      // this thread's two rows
+  const int r1 = r0 + 8;
+
+  const T* qg = q + size_t(bh) * sq * D;
+  const T* kg = k + size_t(kvh) * sk * D;
+  const T* vg = v + size_t(kvh) * sk * D;
+
+  load_tile<D>(qs, qg, q0, sq);
+  __syncthreads();
+  uint32_t qa[KC][4];
+  {
+    const T* qw = qs + warp * 16 * LD;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+      qa[kc][0] = ld32(qw + g * LD + kc * 16 + 2 * t);
+      qa[kc][1] = ld32(qw + (g + 8) * LD + kc * 16 + 2 * t);
+      qa[kc][2] = ld32(qw + g * LD + kc * 16 + 2 * t + 8);
+      qa[kc][3] = ld32(qw + (g + 8) * LD + kc * 16 + 2 * t + 8);
+    }
+  }
+
+  float o[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt)
+    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+
+  int kv_end = sk;
+  if (causal) {
+    int last_row = min(q0 + BLOCK_M - 1, sq - 1);
+    kv_end = min(sk, last_row + offset + 1);
+  }
+  // a tile whose rows admit no key still runs one (fully masked) k tile
+  const int n_tiles = max(1, (kv_end + BLOCK_N - 1) / BLOCK_N);
+
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int kv0 = kt * BLOCK_N;
+    __syncthreads();   // every warp is done with the previous K/V tile
+    load_tile<D>(ks, kg, kv0, sk);
+    load_tile<D>(vs, vg, kv0, sk);
+    __syncthreads();
+
+    float s[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      const T* kr = ks + (nt * 8 + g) * LD + 2 * t;
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc) {
+        uint32_t b[2] = {ld32(kr + kc * 16), ld32(kr + kc * 16 + 8)};
+        mma16816<BF16>(s[nt], qa[kc], b);
+      }
+    }
+
+    // scale, mask, and the online-softmax update of (m, l, acc)
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? r0 : r1;
+        const int col = kv0 + nt * 8 + 2 * t + (e & 1);
+        float x = s[nt][e] * scale;
+        if (col >= sk || (causal && col > row + offset)) x = NEG_INF;
+        s[nt][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = exp2f((m[i] - mx[i]) * LOG2E);
+      m[i] = mx[i];
+    }
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f((s[nt][e] - m[e >> 1]) * LOG2E);
+        s[nt][e] = p;
+        rs[e >> 1] += p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 1);
+      rs[i] += __shfl_xor_sync(0xffffffffu, rs[i], 2);
+      l[i] = l[i] * alpha[i] + rs[i];
+    }
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      o[dt][0] *= alpha[0];
+      o[dt][1] *= alpha[0];
+      o[dt][2] *= alpha[1];
+      o[dt][3] *= alpha[1];
+    }
+
+    // acc += P V with P rounded to the input dtype
+#pragma unroll
+    for (int kc = 0; kc < BLOCK_N / 16; ++kc) {
+      uint32_t a[4] = {pack2<BF16>(s[2 * kc][0], s[2 * kc][1]),
+                       pack2<BF16>(s[2 * kc][2], s[2 * kc][3]),
+                       pack2<BF16>(s[2 * kc + 1][0], s[2 * kc + 1][1]),
+                       pack2<BF16>(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+      const T* vr = vs + (kc * 16 + 2 * t) * LD + g;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const T* vp = vr + dt * 8;
+        uint32_t b[2] = {ld16x2(vp, vp + LD), ld16x2(vp + 8 * LD, vp + 9 * LD)};
+        mma16816<BF16>(o[dt], a, b);
+      }
+    }
+  }
+
+  // flush: out = acc / l, lse = m + log(l), as the reference's _flush
+  const int rows[2] = {r0, r1};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= sq) continue;
+    const float lsafe = fmaxf(l[i], 1e-30f);
+    const float inv = 1.f / lsafe;
+    T* orow = out + (size_t(bh) * sq + rows[i]) * D + 2 * t;
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt)
+      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
+          pack2<BF16>(o[dt][2 * i] * inv, o[dt][2 * i + 1] * inv);
+    if (t == 0) lse[size_t(bh) * sq + rows[i]] = m[i] + logf(lsafe);
+  }
+}
+
+template <int D, bool BF16>
+int launch(const void* q, const void* k, const void* v, void* out,
+           void* lse, int bh, int sq, int sk, int q_per_kv, int causal,
+           float scale, cudaStream_t stream) {
+  using T = typename Elem<BF16>::T;
+  const size_t smem = size_t(BLOCK_M + 2 * BLOCK_N) * (D + PAD) * sizeof(T);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int(smem));
+  if (err != cudaSuccess) return int(err);
+  dim3 grid(bh, (sq + BLOCK_M - 1) / BLOCK_M);
+  flash_fwd_kernel<D, BF16><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<float*>(lse), sq, sk, q_per_kv, causal, scale);
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+// q (bh, sq, d), k/v (bh / q_per_kv, sk, d), out (bh, sq, d) in the input
+// dtype, lse (bh, sq) f32; all contiguous on CUDA device `device`, d in
+// {64, 128}. Launches on `stream` and returns the CUDA error code of the
+// launch (0 on success).
+extern "C" int flash_fwd(const void* q, const void* k, const void* v,
+                         void* out, void* lse, int bh, int sq, int sk, int d,
+                         int q_per_kv, int causal, float scale, int is_bf16,
+                         int device, void* stream) {
+  // this library links its own CUDA runtime: select the tensors' device
+  // here rather than rely on the caller's runtime state
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return int(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return is_bf16 ? launch<64, true>(q, k, v, out, lse, bh, sq, sk,
+                                      q_per_kv, causal, scale, s)
+                   : launch<64, false>(q, k, v, out, lse, bh, sq, sk,
+                                       q_per_kv, causal, scale, s);
+  if (d == 128)
+    return is_bf16 ? launch<128, true>(q, k, v, out, lse, bh, sq, sk,
+                                       q_per_kv, causal, scale, s)
+                   : launch<128, false>(q, k, v, out, lse, bh, sq, sk,
+                                        q_per_kv, causal, scale, s);
+  return int(cudaErrorInvalidValue);
+}
+
+extern "C" const char* cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

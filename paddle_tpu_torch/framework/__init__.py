@@ -1,0 +1,6 @@
+from .device import get_device, resolve_device, set_device
+from .dtypes import convert_dtype
+from .random import get_generator, seed
+
+__all__ = ["get_device", "resolve_device", "set_device", "convert_dtype",
+           "get_generator", "seed"]

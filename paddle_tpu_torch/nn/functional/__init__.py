@@ -1,0 +1,6 @@
+from .attention import scaled_dot_product_attention
+from .common import embedding, linear, silu
+from .norm import rms_norm
+
+__all__ = ["scaled_dot_product_attention", "embedding", "linear", "silu",
+           "rms_norm"]
