@@ -8,16 +8,30 @@ Phases, each of which makes the script exit non-zero if it fails:
      off for float32 matrix products.
   2. build: the CUDA kernels from paddle_tpu_torch/csrc, timed.
   3. K1: the flash-attention forward kernel against its plain torch version
-     on the card in bf16 at the reference's test cases, GQA, d96 and the
-     slice's prefill shape, with times (kernel, plain version, and
-     torch's scaled_dot_product_attention as a yardstick only) and the
-     least time the card could take.
-  4. slice: llama_7b in bf16 at full width and depth, random weights from
-     seed(0), serving 4 prompts of 512 tokens for 32 new tokens, greedy
-     twice and sampled twice (each pair must agree), plus a prefill-only
-     run for timing. The K1 launch count must rise by the number of layers
-     per generate call. A tiny model on the card is held against the same
-     weights in float32 on the CPU.
+     on the card in bf16 at the reference's test cases, GQA, d96, the
+     serving slice's prefill shape and the training slice's attention
+     shape, with times (kernel, plain version, and torch's
+     scaled_dot_product_attention as a yardstick only) and the least time
+     the card could take.
+  4. K3/K4: the flash-attention backward kernels against the plain
+     backward in bf16 at the same cases (and in fp16 at two more), dK and
+     dV repeated bit for bit,
+     and times at the training shape (torch's own flash-attention backward
+     as a yardstick only).
+  5. tiny models on the card against the same weights in float32 on the
+     CPU: the logits, then the training step's loss, every gradient and
+     one AdamW step.
+  6. serving slice: llama_7b in bf16 at full width and depth, random
+     weights from seed(0), serving 4 prompts of 512 tokens for 32 new
+     tokens, greedy twice and sampled twice (each pair must agree), plus a
+     prefill-only run for timing. The K1 launch count must rise by the
+     number of layers per generate call.
+  7. training slice: llama_1.3b (bench.py's top rung) in bf16 at full
+     width and depth, batch 8, sequence 2048, per-layer remat, chunked LM
+     loss, AdamW: one warm-up step and 8 timed steps through
+     paddle_tpu_torch.tools.train_llama.run_one. Every loss must be finite,
+     the last below the first, and each step must launch K1 twice per
+     layer (forward and remat recompute) and K3 and K4 once per layer.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -25,6 +39,7 @@ prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -36,8 +51,11 @@ import torch
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import generation
+from paddle_tpu_torch import optimizer
+from paddle_tpu_torch.models import build_scanned_llama
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.tools import train_llama
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s
 # and bf16 tensor-core FLOP/s
@@ -50,10 +68,28 @@ BF16_FLOP_PER_S = 989e12
 # scores summed in another order
 OUT_ATOL = OUT_RTOL = 2e-2
 LSE_ATOL = 1e-3
+# K3/K4 against the plain backward in bf16 (or fp16), each gradient
+# relative to its largest magnitude: both round P and dS to bf16 at the
+# same points, but from f32 sums taken in another order, so a rounding may
+# fall the other way; the gradients are rounded to bf16 (a relative step
+# of 2^-8)
+BWD_RTOL = 2e-2
 # tiny llama in bf16 on the card against the same weights in f32 on the CPU
 TINY_LOGITS_ATOL = 0.1
+# the tiny training step, bf16 on the card against f32 on the CPU: every
+# activation and gradient is rounded to bf16 at each op through two layers
+# and back. Loss relative to its value; each gradient and moment relative
+# to its largest magnitude; parameters after one AdamW step within 2 lr
+# (the first update is at most lr in size, about lr * sign(grad), and the
+# sign of a gradient near 0 may differ) plus the bf16 rounding of the
+# updated parameter
+TINY_LOSS_RTOL = 1e-2
+TINY_GRAD_RTOL = 5e-2
+TINY_LR = 1e-3
 
 PREFILL = dict(b=4, h=32, kvh=32, sq=512, sk=512, d=128, causal=True)
+# the training slice's attention: llama_1.3b at batch 8, sequence 2048
+TRAIN_ATTN = dict(b=8, h=16, kvh=16, sq=2048, sk=2048, d=128, causal=True)
 K1_CASES = (
     # the reference's CASES (tests/test_flash_attention.py:41), b2 h4
     [dict(b=2, h=4, kvh=4, sq=sq, sk=sk, d=d, causal=c)
@@ -64,7 +100,13 @@ K1_CASES = (
                        (100, 260, False)]]
     + [dict(b=2, h=32, kvh=8, sq=512, sk=512, d=128, causal=True),   # GQA
        dict(b=2, h=8, kvh=8, sq=256, sk=256, d=96, causal=True),     # pad
-       PREFILL])
+       PREFILL, TRAIN_ATTN])
+# K3/K4 also in fp16, at a GQA case and a padded case
+K34_CASES = K1_CASES + (
+    [dict(b=2, h=32, kvh=8, sq=512, sk=512, d=128, causal=True,
+          dtype=torch.float16),
+     dict(b=2, h=4, kvh=4, sq=200, sk=200, d=64, causal=True,
+          dtype=torch.float16)])
 
 
 def log(*args):
@@ -88,21 +130,43 @@ def time_ms(fn, reps=25, warmup=3):
     return statistics.median(times)
 
 
-def k1_bound_ms(b, h, kvh, sq, sk, d, causal, itemsize=2):
-    """Least time for the work of one K1 call: bytes (q, k, v read once,
-    out and lse written once) over HBM rate against the products' FLOPs
-    over the bf16 peak, counting only the (row, key) pairs the causal mask
-    admits."""
-    nbytes = itemsize * d * (2 * b * h * sq + 2 * b * kvh * sk) + 4 * b * h * sq
-    if causal:
-        rows = np.arange(sq)
-        pairs = int(np.clip(rows + (sk - sq) + 1, 0, sk).sum())
-    else:
-        pairs = sq * sk
-    flops = 4 * d * pairs * b * h
+def bound_ms(nbytes, flops):
+    """Least time for `nbytes` moved and `flops` done: the larger of bytes
+    over the HBM rate and FLOPs over the bf16 peak, and which it is."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attn_pairs(sq, sk, causal):
+    """(row, key) pairs a head computes: those the causal mask admits."""
+    if not causal:
+        return sq * sk
+    rows = np.arange(sq)
+    return int(np.clip(rows + (sk - sq) + 1, 0, sk).sum())
+
+
+def k1_bound_ms(b, h, kvh, sq, sk, d, causal, itemsize=2):
+    """One K1 call: q, k, v read once, out and lse written once; two
+    products (Q K^T, P V) of 2 d FLOP a pair."""
+    nbytes = itemsize * d * (2 * b * h * sq + 2 * b * kvh * sk) + 4 * b * h * sq
+    return bound_ms(nbytes, 2 * 2 * d * attn_pairs(sq, sk, causal) * b * h)
+
+
+def bwd_bound_ms(kernel, b, h, kvh, sq, sk, d, causal, itemsize=2):
+    """One K3 call (three products: Q K^T, dO V^T, dS K; dq written) or one
+    K4 call (four: Q K^T, dO V^T, P^T dO, dS^T Q; dk and dv written); each
+    reads q, dO, k, v, lse and delta once."""
+    nbytes = (itemsize * d * (2 * b * h * sq + 2 * b * kvh * sk)
+              + 8 * b * h * sq)
+    if kernel == "dq":
+        nbytes += itemsize * d * b * h * sq
+        products = 3
+    else:
+        nbytes += 2 * itemsize * d * b * kvh * sk
+        products = 4
+    return bound_ms(nbytes, products * 2 * d * attn_pairs(sq, sk, causal)
+                    * b * h)
 
 
 def library_attention(q, k, v, causal):
@@ -117,6 +181,18 @@ def library_attention(q, k, v, causal):
     from torch.nn.attention.bias import causal_lower_right
     return torch.nn.functional.scaled_dot_product_attention(
         q, k, v, attn_mask=causal_lower_right(sq, sk))
+
+
+def library_attention_bwd(q, k, v, g, causal):
+    """torch's own flash-attention backward on (b, h, s, d), dq, dk and dv
+    in one call, the yardstick of K3 and K4 together: never called by the
+    port. Returns a function that runs the backward alone."""
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(
+        q, k, v, 0.0, causal, False)
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        g, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, causal, seed,
+        offset)
 
 
 def phase_device():
@@ -144,30 +220,45 @@ def phase_build():
                 log("  nvcc:", line.strip())
 
 
+def case_inputs(case, gen, with_grad=False):
+    """Random (b, s, heads, d) q, k, v (and dO) for a case, in its dtype
+    (bf16 by default), and each as (BH, S, D): padded to the kernels' head
+    dim, and as it is for the plain versions."""
+    b, h, kvh, sq, sk, d = (case[x] for x in ("b", "h", "kvh", "sq", "sk",
+                                              "d"))
+
+    def rand(s, heads):
+        return torch.randn(b, s, heads, d, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+    dtype = case.get("dtype", torch.bfloat16)
+    xs = [rand(sq, h), rand(sk, kvh), rand(sk, kvh)]
+    if with_grad:
+        xs.append(rand(sq, h))
+    pad = (64 if d <= 64 else 128) - d
+
+    def bhsd(x, pad):
+        x = torch.nn.functional.pad(x, (0, pad)) if pad else x
+        return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3]) \
+            .contiguous()
+    return (xs, [bhsd(x, pad) for x in xs], [bhsd(x, 0) for x in xs])
+
+
+def case_name(case):
+    dtype = str(case.get("dtype", torch.bfloat16)).replace("torch.", "")
+    return (f"b{case['b']} h{case['h']}/kv{case['kvh']} sq{case['sq']} "
+            f"sk{case['sk']} d{case['d']} causal={case['causal']} {dtype}")
+
+
 def phase_k1():
-    """K1 vs its plain version at every case; returns the prefill case's
-    record."""
+    """K1 vs its plain version at every case; returns the records of the
+    prefill and training shapes."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    record = None
+    records = {}
     for case in K1_CASES:
-        b, h, kvh, sq, sk, d, causal = (case[x] for x in
-                                        ("b", "h", "kvh", "sq", "sk", "d",
-                                         "causal"))
-
-        def rand(s, heads):
-            return torch.randn(b, s, heads, d, generator=gen, device="cuda",
-                               dtype=torch.float32).to(torch.bfloat16)
-        q, k, v = rand(sq, h), rand(sk, kvh), rand(sk, kvh)
+        h, kvh, d, causal = case["h"], case["kvh"], case["d"], case["causal"]
+        (q, k, v), (qk, kk, vk), (qp, kp, vp) = case_inputs(case, gen)
         scale = 1.0 / d ** 0.5
-        dp = 64 if d <= 64 else 128
-
-        def bhsd(x, pad):
-            x = torch.nn.functional.pad(x, (0, pad)) if pad else x
-            return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3]) \
-                .contiguous()
-        qk, kk, vk = (bhsd(x, dp - d) for x in (q, k, v))     # kernel input
-        qp, kp, vp = (bhsd(x, 0) for x in (q, k, v))          # plain input
         rep = h // kvh
         with torch.inference_mode():
             out, lse = fa._flash_fwd_bhsd(qk, kk, vk, causal, scale, rep)
@@ -180,6 +271,7 @@ def phase_k1():
             ok = (torch.allclose(out, ref_out.float(), atol=OUT_ATOL,
                                  rtol=OUT_RTOL)
                   and err_lse <= LSE_ATOL)
+            del ref_out, ref_lse
             ms = time_ms(lambda: fa._flash_fwd_bhsd(qk, kk, vk, causal,
                                                     scale, rep))
             plain_ms = time_ms(lambda: fa._flash_fwd_bhsd_plain(
@@ -189,8 +281,8 @@ def phase_k1():
             vl = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
             library_ms = time_ms(lambda: library_attention(ql, kl, vl,
                                                            causal))
-        bound, bound_by = k1_bound_ms(b, h, kvh, sq, sk, d, causal)
-        log(f"K1 b{b} h{h}/kv{kvh} sq{sq} sk{sk} d{d} causal={causal}: "
+        bound, bound_by = k1_bound_ms(**case)
+        log(f"K1 {case_name(case)}: "
             f"max|out err| {err_out:.3e} max|lse err| {err_lse:.3e} "
             f"(tol out {OUT_ATOL}+{OUT_RTOL}*|ref|, lse {LSE_ATOL}) "
             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
@@ -199,11 +291,77 @@ def phase_k1():
         if not ok:
             sys.exit(f"chip_smoke: K1 disagrees with its plain version at "
                      f"{case}")
-        if case is PREFILL:
-            record = dict(max_abs_err=max(err_out, err_lse), ms=ms,
-                          plain_ms=plain_ms, bound_ms=bound,
-                          bound_by=bound_by, library_ms=library_ms)
-    return record
+        for name, shape in (("prefill", PREFILL), ("train", TRAIN_ATTN)):
+            if case is shape:
+                records[name] = dict(
+                    max_abs_err=max(err_out, err_lse), ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
+                    library_ms=library_ms)
+    return records
+
+
+def phase_k34():
+    """K3 and K4 vs the plain backward at every case, on the kernel
+    forward's out and lse; dK/dV repeated bit for bit; times at the
+    training shape. Returns the records of K3 and K4 there."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    records = {}
+    for case in K34_CASES:
+        h, kvh, d, causal = case["h"], case["kvh"], case["d"], case["causal"]
+        xs, (qk, kk, vk, gk), (qp, kp, vp, gp) = case_inputs(case, gen, True)
+        scale = 1.0 / d ** 0.5
+        rep = h // kvh
+        with torch.inference_mode():
+            out, lse = fa._flash_fwd_bhsd(qk, kk, vk, causal, scale, rep)
+            got = fa._flash_bwd_bhsd(qk, kk, vk, out, lse, gk, causal, scale,
+                                     rep)
+            again = fa._flash_bwd_bhsd(qk, kk, vk, out, lse, gk, causal,
+                                       scale, rep)
+            torch.cuda.synchronize()
+            ref = fa._flash_bwd_bhsd_plain(
+                qp, kp, vp, out[..., :d].contiguous(), lse, gp, causal, scale,
+                rep)
+            abs_errs, errs = [], []
+            for x, r in zip(got, ref):
+                r = r.float()
+                abs_errs.append((x[..., :d].float() - r).abs().max().item())
+                errs.append(abs_errs[-1] / r.abs().max().item())
+            del ref
+            repeat = (torch.equal(got[1], again[1])
+                      and torch.equal(got[2], again[2]))
+        ok = max(errs) <= BWD_RTOL and repeat
+        log(f"K3/K4 {case_name(case)}: max|err|/max|ref| dq {errs[0]:.3e} "
+            f"dk {errs[1]:.3e} dv {errs[2]:.3e} (tol {BWD_RTOL}), dk/dv "
+            f"repeat bitwise: {repeat} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            sys.exit(f"chip_smoke: K3/K4 disagree with the plain backward "
+                     f"or do not repeat at {case}")
+        if case is not TRAIN_ATTN:
+            continue
+        with torch.inference_mode():
+            delta = (gk.float() * out.float()).sum(-1)
+            args = (qk, kk, vk, gk, lse, delta, causal, scale, rep)
+            dq_ms = time_ms(lambda: fa._flash_bwd_dq_cuda(*args))
+            dkv_ms = time_ms(lambda: fa._flash_bwd_dkv_cuda(*args))
+            plain_ms = time_ms(lambda: fa._flash_bwd_bhsd_plain(
+                qp, kp, vp, out, lse, gp, causal, scale, rep), reps=5)
+            lib = library_attention_bwd(
+                *(x.transpose(1, 2).contiguous() for x in xs[:3]),
+                xs[3].transpose(1, 2).contiguous(), causal)
+            library_ms = time_ms(lib)
+        for name, ms, err in (("dq", dq_ms, abs_errs[0]),
+                              ("dkv", dkv_ms, max(abs_errs[1:]))):
+            bound, bound_by = bwd_bound_ms(name, **case)
+            records[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound, bound_by=bound_by,
+                                 library_ms=library_ms)
+            log(f"  K{3 if name == 'dq' else 4} ({name}): kernel {ms:.4f} ms "
+                f"bound {bound:.4f} ms ({bound_by})")
+        log(f"  plain backward (dq, dk, dv) {plain_ms:.4f} ms; torch flash "
+            f"backward (dq, dk, dv) {library_ms:.4f} ms against K3+K4 "
+            f"{dq_ms + dkv_ms:.4f} ms")
+    return records
 
 
 def phase_tiny_reference():
@@ -289,16 +447,120 @@ def phase_slice():
     return launches
 
 
+def phase_tiny_train():
+    """The training step of a tiny llama (GQA, head dim 32 padded to 64 for
+    the kernels) in bf16 on the card against the same weights in f32 on the
+    CPU: the loss, every gradient, and one AdamW step (moments and
+    parameters)."""
+    pt.seed(2)
+    gpu = pt.models.llama_tiny(dtype="bfloat16", device="cuda")
+    cpu = pt.models.llama_tiny(device="cpu")
+    cpu.load_state_dict({k: v.float().cpu()
+                         for k, v in gpu.state_dict().items()})
+    ids = np.random.RandomState(2).randint(0, 512, (2, 128))
+    runs = []
+    for model in (gpu, cpu):
+        params, loss_fn = build_scanned_llama(model, remat=True)
+        opt = optimizer.AdamW(TINY_LR, parameters=model.parameters())
+        state = opt.tree_init(params)
+        x = torch.as_tensor(ids, device=next(iter(params["embed"].values()))
+                            .device)
+        loss = loss_fn(params, x, x)
+        loss.backward()
+        grads = {k: {n: t.grad for n, t in group.items()}
+                 for k, group in params.items()}
+        opt.tree_update(params, grads, state, TINY_LR, 1)
+        runs.append((loss.item(), grads, state, params))
+    (l_gpu, g_gpu, s_gpu, p_gpu), (l_cpu, g_cpu, s_cpu, p_cpu) = runs
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    grad_err = moment_err = 0.0
+    params_ok = True
+    for group in g_cpu:
+        for n, ref in g_cpu[group].items():
+            scale = ref.abs().max().item() or 1.0
+            grad_err = max(grad_err, (g_gpu[group][n].float().cpu() - ref)
+                           .abs().max().item() / scale)
+            m_ref = s_cpu[group][n]["moment1"]
+            m_scale = m_ref.abs().max().item() or 1.0
+            moment_err = max(moment_err, (s_gpu[group][n]["moment1"].float()
+                                          .cpu() - m_ref).abs().max().item()
+                             / m_scale)
+            want = p_cpu[group][n].detach()
+            got = p_gpu[group][n].detach().float().cpu()
+            params_ok &= bool(((got - want).abs() <= 2 * TINY_LR + 2 ** -7
+                               * torch.maximum(got.abs(), want.abs())).all())
+    ok = (loss_err <= TINY_LOSS_RTOL and grad_err <= TINY_GRAD_RTOL
+          and moment_err <= TINY_GRAD_RTOL and params_ok)
+    log(f"tiny llama training step, bf16 on card vs f32 on CPU: loss "
+        f"{l_gpu:.5f} vs {l_cpu:.5f} (rel err {loss_err:.2e}, tol "
+        f"{TINY_LOSS_RTOL}); max grad err/max|grad| {grad_err:.2e}, "
+        f"moment1 {moment_err:.2e} (tol {TINY_GRAD_RTOL}); params after "
+        f"AdamW within 2 lr + 2^-7 |p|: {params_ok} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        sys.exit("chip_smoke: the tiny training step on the card disagrees "
+                 "with the CPU")
+
+
+def phase_train():
+    """llama_1.3b trained through train_llama.run_one; returns each kernel's
+    launches over the run."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    name, cfg, batch, seq, steps, remat = train_llama.llama_ladder()[0]
+    n_layers = cfg.num_hidden_layers
+    # the training path starts here
+    fa.flash_fwd_launches = fa.flash_bwd_dq_launches = 0
+    fa.flash_bwd_dkv_launches = 0
+    r = train_llama.run_one(cfg, batch, seq, steps, remat,
+                            loss_chunk_mb=train_llama.loss_chunk_mb_for(name),
+                            device="cuda")
+    launches = train_llama.launch_counts()     # the training path ends here
+    secs = r["seconds"]
+    log(f"train {name}: {r['n_params']} params, {n_layers} layers, b{batch} "
+        f"s{seq}, remat {remat}, loss path {r['lm_loss_path']}; set-up "
+        f"{secs['setup']:.2f} s, warm-up step {secs['warmup']:.2f} s, "
+        f"{steps} steps {secs['steps']:.2f} s")
+    log(f"train {name}: step {r['step_time_s'] * 1e3:.1f} ms, "
+        f"{r['tokens_per_s']:.1f} tokens/s, MFU {r['mfu']:.4f}, peak memory "
+        f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, launches {launches}")
+    log(f"train {name}: losses {r['losses']}")
+    want = {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
+            "flash_bwd_dkv": n_layers}
+    if not all(np.isfinite(r["losses"])):
+        sys.exit("chip_smoke: a training loss is not finite")
+    if not r["losses"][-1] < r["losses"][0]:
+        sys.exit("chip_smoke: the training loss did not fall")
+    if r["lm_loss_path"] != "chunked":
+        sys.exit("chip_smoke: llama_1.3b at b8 s2048 must take the chunked "
+                 "LM loss")
+    for i, per_step in enumerate(r["launches_per_step"]):
+        if per_step != want:
+            sys.exit(f"chip_smoke: step {i + 2} launched {per_step}, "
+                     f"expected {want}")
+    return launches
+
+
 def main():
     phase_device()
     phase_build()
     k1 = phase_k1()
+    k34 = phase_k34()
     phase_tiny_reference()
-    launches = phase_slice()
-    kernels = [dict(name="flash_fwd", route="cuda",
-                    source="paddle_tpu_torch/csrc/flash_attention_fwd.cu",
-                    replaces="paddle_tpu/ops/pallas/flash_attention.py:116",
-                    launches=launches, **k1)]
+    phase_tiny_train()
+    serve = phase_slice()
+    train = phase_train()
+    src = "paddle_tpu_torch/csrc/flash_attention_"
+    ref = "paddle_tpu/ops/pallas/flash_attention.py:"
+    # K1 runs on both paths; its times are the training shape's
+    kernels = [dict(name="flash_fwd", route="cuda", source=src + "fwd.cu",
+                    replaces=ref + "116",
+                    launches=serve + train["flash_fwd"], **k1["train"]),
+               dict(name="flash_bwd_dq", route="cuda", source=src + "bwd.cu",
+                    replaces=ref + "198", launches=train["flash_bwd_dq"],
+                    **k34["dq"]),
+               dict(name="flash_bwd_dkv", route="cuda", source=src + "bwd.cu",
+                    replaces=ref + "249", launches=train["flash_bwd_dkv"],
+                    **k34["dkv"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,8 @@ no work that needs a GPU; the CUDA kernels are built at first use
 (ops/_build.py).
 """
 
-from . import generation, models
+from . import generation, models, optimizer
 from .framework import get_device, seed, set_device
 
-__all__ = ["seed", "set_device", "get_device", "models", "generation"]
+__all__ = ["seed", "set_device", "get_device", "models", "generation",
+           "optimizer"]

@@ -7,7 +7,9 @@ state dict, as numpy arrays, maps onto the port key for key:
     load_reference_state(port_model, np_state)
 
 Both functions raise on a missing or an unexpected key and on a shape
-mismatch.
+mismatch. `tree_from_reference` carries a nested dict of arrays across as
+it is: the scanned params tree of `build_scanned_llama`, its grads, or an
+optimizer-state tree of `Optimizer.tree_init`.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import torch
 from .framework.device import resolve_device
 from .framework.dtypes import convert_dtype
 
-__all__ = ["state_from_reference", "load_reference_state"]
+__all__ = ["state_from_reference", "load_reference_state",
+           "tree_from_reference"]
 
 _LAYER = re.compile(r"^llama\.layers\.(\d+)\.(.+)$")
 
@@ -92,3 +95,16 @@ def load_reference_state(model: torch.nn.Module, np_state: dict) -> None:
     _check(np_state, {k: tuple(v.shape) for k, v in params.items()})
     for k, p in params.items():
         p.copy_(_tensor(np_state[k]))
+
+
+def tree_from_reference(np_tree, device, dtype=None):
+    """A nested dict of numpy arrays -> the same nested dict of torch tensors
+    on `device`, in `dtype` or each array's own dtype."""
+    device = resolve_device(device)
+    dt = None if dtype is None else convert_dtype(dtype)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        return _tensor(x).to(device=device, dtype=dt)
+    return conv(np_tree)

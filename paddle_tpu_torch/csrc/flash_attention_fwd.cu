@@ -41,78 +41,11 @@
 // 16-bit shared-memory loads instead of ldmatrix.trans, and one block per
 // q tile instead of a persistent schedule.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int BLOCK_M = 64;   // query rows per block: 4 warps x 16 rows
-constexpr int BLOCK_N = 64;   // keys per tile
-constexpr int THREADS = 128;
-constexpr int PAD = 8;        // elements of padding per shared-memory row
-constexpr float NEG_INF = -1e30f;
-constexpr float LOG2E = 1.4426950408889634f;
-
-template <bool BF16> struct Elem;
-template <> struct Elem<true> { using T = __nv_bfloat16; };
-template <> struct Elem<false> { using T = __half; };
-
-template <bool BF16>
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (BF16) {
-    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  } else {
-    __half2 h = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&h);
-  }
-}
-
-// c += a * b for one 16x8x16 tile; a: 16x16 row-major, b: 16x8 col-major.
-template <bool BF16>
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         const uint32_t b[2]) {
-  if constexpr (BF16) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-  }
-}
-
-__device__ __forceinline__ uint32_t ld32(const void* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ld16x2(const void* lo, const void* hi) {
-  return uint32_t(*reinterpret_cast<const uint16_t*>(lo)) |
-         (uint32_t(*reinterpret_cast<const uint16_t*>(hi)) << 16);
-}
-
-// rows [row0, row0 + 64) of a (rows, D) matrix into shared memory; rows at
-// or past `rows` are zero-filled. 16-byte loads and stores.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
-                                          int rows) {
-  constexpr int LD = D + PAD;
-  constexpr int CHUNKS = D / 8;
-  for (int idx = threadIdx.x; idx < BLOCK_M * CHUNKS; idx += THREADS) {
-    int r = idx / CHUNKS, c = idx % CHUNKS;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows)
-      val = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * D + c * 8);
-    *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
-  }
-}
+using namespace flash;
 
 template <int D, bool BF16>
 __global__ void __launch_bounds__(THREADS)
@@ -149,16 +82,9 @@ flash_fwd_kernel(const typename Elem<BF16>::T* __restrict__ q,
   load_tile<D>(qs, qg, q0, sq);
   __syncthreads();
   uint32_t qa[KC][4];
-  {
-    const T* qw = qs + warp * 16 * LD;
 #pragma unroll
-    for (int kc = 0; kc < KC; ++kc) {
-      qa[kc][0] = ld32(qw + g * LD + kc * 16 + 2 * t);
-      qa[kc][1] = ld32(qw + (g + 8) * LD + kc * 16 + 2 * t);
-      qa[kc][2] = ld32(qw + g * LD + kc * 16 + 2 * t + 8);
-      qa[kc][3] = ld32(qw + (g + 8) * LD + kc * 16 + 2 * t + 8);
-    }
-  }
+  for (int kc = 0; kc < KC; ++kc)
+    load_a<LD>(qa[kc], qs + warp * 16 * LD, kc, g, t);
 
   float o[DT][4];
 #pragma unroll
@@ -186,10 +112,10 @@ flash_fwd_kernel(const typename Elem<BF16>::T* __restrict__ q,
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const T* kr = ks + (nt * 8 + g) * LD + 2 * t;
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc) {
-        uint32_t b[2] = {ld32(kr + kc * 16), ld32(kr + kc * 16 + 8)};
+        uint32_t b[2];
+        load_b_t<LD>(b, ks, nt, kc, g, t);
         mma16816<BF16>(s[nt], qa[kc], b);
       }
     }
@@ -242,15 +168,12 @@ flash_fwd_kernel(const typename Elem<BF16>::T* __restrict__ q,
     // acc += P V with P rounded to the input dtype
 #pragma unroll
     for (int kc = 0; kc < BLOCK_N / 16; ++kc) {
-      uint32_t a[4] = {pack2<BF16>(s[2 * kc][0], s[2 * kc][1]),
-                       pack2<BF16>(s[2 * kc][2], s[2 * kc][3]),
-                       pack2<BF16>(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                       pack2<BF16>(s[2 * kc + 1][2], s[2 * kc + 1][3])};
-      const T* vr = vs + (kc * 16 + 2 * t) * LD + g;
+      uint32_t a[4];
+      pack_a<BF16>(a, s[2 * kc], s[2 * kc + 1]);
 #pragma unroll
       for (int dt = 0; dt < DT; ++dt) {
-        const T* vp = vr + dt * 8;
-        uint32_t b[2] = {ld16x2(vp, vp + LD), ld16x2(vp + 8 * LD, vp + 9 * LD)};
+        uint32_t b[2];
+        load_b<LD>(b, vs, kc, dt, g, t);
         mma16816<BF16>(o[dt], a, b);
       }
     }

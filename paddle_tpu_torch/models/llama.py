@@ -7,8 +7,7 @@ Every module takes `device=`; without it the default device ("cuda") is
 used. `LlamaConfig.dtype` is the parameters' dtype.
 
 Attention goes through `scaled_dot_product_attention`, which takes the
-flash kernel on CUDA. The kernel has no backward yet, so a forward that
-reaches it runs under `torch.no_grad()` or `torch.inference_mode()`.
+flash kernels on CUDA (K1 forward, K3/K4 backward).
 """
 
 from __future__ import annotations
@@ -133,12 +132,20 @@ class LlamaForCausalLM(nn.Module):
                                   bias=False, dtype=config.dtype,
                                   device=device)
 
-    def forward(self, input_ids, position_ids=None):
-        """Logits (batch, seq, vocab)."""
+    def forward(self, input_ids, position_ids=None, labels=None):
+        """Logits (batch, seq, vocab); with `labels`, (loss, logits), the
+        loss being the next-token cross-entropy: logits[:, t] predict
+        labels[:, t + 1]."""
         hidden = self.llama(input_ids, position_ids)
         if self.lm_head is not None:
-            return self.lm_head(hidden)
-        return F.linear(hidden, self.llama.embed_tokens.weight.T)
+            logits = self.lm_head(hidden)
+        else:
+            logits = F.linear(hidden, self.llama.embed_tokens.weight.T)
+        if labels is not None:
+            loss = F.cross_entropy(logits[:, :-1], labels[:, 1:],
+                                   reduction="mean")
+            return loss, logits
+        return logits
 
     def num_params(self):
         return sum(p.numel() for p in self.parameters())

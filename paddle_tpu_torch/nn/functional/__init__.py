@@ -1,6 +1,7 @@
 from .attention import scaled_dot_product_attention
 from .common import embedding, linear, silu
+from .loss import cross_entropy
 from .norm import rms_norm
 
 __all__ = ["scaled_dot_product_attention", "embedding", "linear", "silu",
-           "rms_norm"]
+           "cross_entropy", "rms_norm"]

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every `paddle_tpu_torch/csrc/*.cu` is compiled by `nvcc` for `sm_90a` into
-one shared library with a plain C interface, at first use, and loaded with
-`ctypes`. The library's name carries a hash of the sources and flags, so an
+Every `paddle_tpu_torch/csrc/*.cu` (with the `*.cuh` headers it includes)
+is compiled by `nvcc` for `sm_90a` into one shared library with a plain C
+interface, at first use, and loaded with `ctypes`. The library's name
+carries a hash of the sources, headers and flags, so an
 edited source builds anew and an unchanged one is reused. The objects of
 the sources are compiled in parallel, one `nvcc` each. Nothing is
 downloaded and no package of finished kernels is used.
@@ -88,6 +89,10 @@ def library() -> ctypes.CDLL:
         lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, i,
                                   p]
         lib.flash_fwd.restype = i
+        lib.flash_bwd_dq.argtypes = [p] * 7 + [i] * 6 + [f, i, i, p]
+        lib.flash_bwd_dq.restype = i
+        lib.flash_bwd_dkv.argtypes = [p] * 8 + [i] * 6 + [f, i, i, p]
+        lib.flash_bwd_dkv.restype = i
         lib.cuda_error_string.argtypes = [i]
         lib.cuda_error_string.restype = ctypes.c_char_p
         _LIB[0] = lib

@@ -106,9 +106,14 @@ def test_wrapper_raises(bad):
     q = torch.randn(1, 16, 4, 64)
     k = v = torch.randn(1, 16, 2, 64)
     if bad == "grad":
+        # first-order gradients flow (K3/K4); a second order raises
         q.requires_grad_(True)
-        with pytest.raises(RuntimeError, match="no backward"):
-            fa.flash_attention_bshd(q, k, v)
+        out = fa.flash_attention_bshd(q, k, v)
+        w = torch.ones_like(out, requires_grad=True)
+        (dq,) = torch.autograd.grad(out, q, w, create_graph=True)
+        assert dq.shape == q.shape and torch.isfinite(dq).all()
+        with pytest.raises(RuntimeError, match="differentiate twice"):
+            dq.sum().backward()
     elif bad == "head_dim":
         x = torch.randn(1, 16, 2, 160)
         with pytest.raises(ValueError, match="head dim"):
