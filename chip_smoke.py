@@ -13,25 +13,43 @@ Phases, each of which makes the script exit non-zero if it fails:
      shape, with times (kernel, plain version, and torch's
      scaled_dot_product_attention as a yardstick only) and the least time
      the card could take.
-  4. K3/K4: the flash-attention backward kernels against the plain
-     backward in bf16 at the same cases (and in fp16 at two more), dK and
+  4. K2: the fused RMSNorm epilogue (K1's kernel with the
+     rmsnorm(attn + residual) * gamma flush) against its plain torch
+     version in bf16 (and fp16 at one case): d64, d128, d96 padded
+     (mean over the true d), GQA 4/2 and 32/8, ragged s200 and s520,
+     sq != sk, the prefill and training shapes; its lse equal bit for bit
+     to K1's; times against its bound, the plain version, and, as
+     yardsticks only, K1 alone and K1 followed by the torch epilogue.
+  5. K3/K4: the flash-attention backward kernels against the plain
+     backward in bf16 at K1's cases (and in fp16 at two more), dK and
      dV repeated bit for bit,
      and times at the training shape (torch's own flash-attention backward
      as a yardstick only).
-  5. tiny models on the card against the same weights in float32 on the
+  6. router: the shipped H100 ledger's decision, with its provenance, at
+     the serving prefill shape and the training attention shape, and
+     whether it marks the fused epilogue a winner there. The launch counts
+     the later phases expect follow from these decisions.
+  7. tiny models on the card against the same weights in float32 on the
      CPU: the logits, then the training step's loss, every gradient and
      one AdamW step.
-  6. serving slice: llama_7b in bf16 at full width and depth, random
+  8. serving slice: llama_7b in bf16 at full width and depth, random
      weights from seed(0), serving 4 prompts of 512 tokens for 32 new
      tokens, greedy twice and sampled twice (each pair must agree), plus a
      prefill-only run for timing. The K1 launch count must rise by the
-     number of layers per generate call.
-  7. training slice: llama_1.3b (bench.py's top rung) in bf16 at full
+     number of layers per generate call where the router picks K1.
+  9. fused epilogue: incubate's fused_attention_rms_epilogue at llama_7b's
+     attention widths (b4 s512, 32 heads of 128) and at llama_1.3b's
+     training attention shape (b8 s2048, 16 heads), bf16, residual and
+     gamma from a seeded numpy draw: one K2 launch per call where the
+     ledger marks the fusion a winner, the output against the unfused
+     composition.
+  10. training slice: llama_1.3b (bench.py's top rung) in bf16 at full
      width and depth, batch 8, sequence 2048, per-layer remat, chunked LM
      loss, AdamW: one warm-up step and 8 timed steps through
      paddle_tpu_torch.tools.train_llama.run_one. Every loss must be finite,
-     the last below the first, and each step must launch K1 twice per
-     layer (forward and remat recompute) and K3 and K4 once per layer.
+     the last below the first, and with the router's choice of the
+     kernels each step must launch K1 twice per layer (forward and remat
+     recompute) and K3 and K4 once per layer.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -53,7 +71,9 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch import generation
 from paddle_tpu_torch import optimizer
 from paddle_tpu_torch.models import build_scanned_llama
+from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.ops import _build
+from paddle_tpu_torch.ops import attention_router as ar
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.tools import train_llama
 
@@ -68,6 +88,15 @@ BF16_FLOP_PER_S = 989e12
 # scores summed in another order
 OUT_ATOL = OUT_RTOL = 2e-2
 LSE_ATOL = 1e-3
+# K2 against its plain version: the attention output before the epilogue
+# differs as K1's does (above), and the epilogue multiplies it by
+# rsqrt(mean(h^2)) * gamma, about |gamma| for h = attn + a unit-variance
+# residual, and the kernel adds the residual to the f32 attention output
+# while the unfused composition of phase 9 adds it to the bf16-rounded one:
+# so |err| <= K2_ATOL * max|gamma| + K2_RTOL * |ref|
+K2_ATOL = 3e-2
+K2_RTOL = 2e-2
+RMS_EPS = 1e-6
 # K3/K4 against the plain backward in bf16 (or fp16), each gradient
 # relative to its largest magnitude: both round P and dS to bf16 at the
 # same points, but from f32 sums taken in another order, so a rounding may
@@ -100,6 +129,17 @@ K1_CASES = (
                        (100, 260, False)]]
     + [dict(b=2, h=32, kvh=8, sq=512, sk=512, d=128, causal=True),   # GQA
        dict(b=2, h=8, kvh=8, sq=256, sk=256, d=96, causal=True),     # pad
+       PREFILL, TRAIN_ATTN])
+K2_CASES = (
+    [dict(b=2, h=4, kvh=4, sq=sq, sk=sk, d=d, causal=c)
+     for d in (64, 128)
+     for sq, sk, c in [(256, 256, True), (200, 200, True), (520, 520, True),
+                       (128, 320, True), (100, 260, False)]]
+    + [dict(b=2, h=4, kvh=2, sq=256, sk=256, d=64, causal=True),     # GQA
+       dict(b=2, h=32, kvh=8, sq=512, sk=512, d=128, causal=True),   # GQA
+       dict(b=2, h=8, kvh=8, sq=256, sk=256, d=96, causal=True),     # pad
+       dict(b=2, h=4, kvh=4, sq=200, sk=200, d=128, causal=True,
+            dtype=torch.float16),
        PREFILL, TRAIN_ATTN])
 # K3/K4 also in fp16, at a GQA case and a padded case
 K34_CASES = K1_CASES + (
@@ -150,6 +190,17 @@ def k1_bound_ms(b, h, kvh, sq, sk, d, causal, itemsize=2):
     """One K1 call: q, k, v read once, out and lse written once; two
     products (Q K^T, P V) of 2 d FLOP a pair."""
     nbytes = itemsize * d * (2 * b * h * sq + 2 * b * kvh * sk) + 4 * b * h * sq
+    return bound_ms(nbytes, 2 * 2 * d * attn_pairs(sq, sk, causal) * b * h)
+
+
+def k2_bound_ms(b, h, kvh, sq, sk, d, causal, itemsize=2, **_):
+    """One K2 call: K1's bytes plus the residual read and gamma (f32) read
+    once; K1's two products. The epilogue's f32 elementwise work (about 6
+    operations an output element: 0.75 us at the prefill shape at the
+    67 TFLOP/s f32 rate) is left out, as K1's bound leaves out the
+    softmax."""
+    nbytes = (itemsize * d * (3 * b * h * sq + 2 * b * kvh * sk)
+              + 4 * b * h * sq + 4 * d)
     return bound_ms(nbytes, 2 * 2 * d * attn_pairs(sq, sk, causal) * b * h)
 
 
@@ -236,11 +287,14 @@ def case_inputs(case, gen, with_grad=False):
         xs.append(rand(sq, h))
     pad = (64 if d <= 64 else 128) - d
 
-    def bhsd(x, pad):
-        x = torch.nn.functional.pad(x, (0, pad)) if pad else x
-        return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3]) \
-            .contiguous()
     return (xs, [bhsd(x, pad) for x in xs], [bhsd(x, 0) for x in xs])
+
+
+def bhsd(x, pad):
+    """(b, s, heads, d) -> (b * heads, s, d + pad), zero-padded."""
+    x = torch.nn.functional.pad(x, (0, pad)) if pad else x
+    return x.transpose(1, 2).reshape(-1, x.shape[1], x.shape[3]) \
+        .contiguous()
 
 
 def case_name(case):
@@ -297,6 +351,90 @@ def phase_k1():
                     max_abs_err=max(err_out, err_lse), ms=ms,
                     plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
                     library_ms=library_ms)
+    return records
+
+
+def epilogue_inputs(case, seed):
+    """Residual (b, sq, h, d) in the case's dtype and gamma (d,) f32 on the
+    card, from a seeded numpy draw."""
+    rs = np.random.RandomState(seed)
+    dtype = case.get("dtype", torch.bfloat16)
+    res = torch.as_tensor(rs.randn(case["b"], case["sq"], case["h"],
+                                   case["d"]).astype(np.float32),
+                          device="cuda").to(dtype)
+    w = torch.as_tensor(rs.randn(case["d"]).astype(np.float32),
+                        device="cuda")
+    return res, w
+
+
+def torch_epilogue(att, res, w):
+    """incubate's unfused epilogue: rmsnorm(att + res) * w over the last
+    dim, in att's dtype."""
+    return IF._rms_epilogue(att, res, w, RMS_EPS)
+
+
+def phase_k2():
+    """K2 vs its plain version at every case, its lse against K1's; returns
+    the records of the prefill and training shapes."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    records = {}
+    for i, case in enumerate(K2_CASES):
+        h, kvh, d, causal = case["h"], case["kvh"], case["d"], case["causal"]
+        _, (qk, kk, vk), (qp, kp, vp) = case_inputs(case, gen)
+        res, w = epilogue_inputs(case, 100 + i)
+        dp = qk.shape[2]
+        rk = bhsd(res, dp - d)
+        rp = bhsd(res, 0)
+        wk = torch.nn.functional.pad(w, (0, dp - d))
+        scale = 1.0 / d ** 0.5
+        rep = h // kvh
+        kw = dict(residual=rk, rms_weight=wk, rms_eps=RMS_EPS, rms_d=d)
+        with torch.inference_mode():
+            out, lse = fa._flash_fwd_bhsd(qk, kk, vk, causal, scale, rep,
+                                          **kw)
+            _, k1_lse = fa._flash_fwd_bhsd(qk, kk, vk, causal, scale, rep)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = fa._flash_fwd_bhsd_plain(
+                qp, kp, vp, causal, scale, rep, rp, w, RMS_EPS, d)
+            out = out[..., :d].float()
+            ref_out = ref_out.float()
+            gmax = w.abs().max().item()
+            err_out = (out - ref_out).abs().max().item()
+            err_lse = (lse - ref_lse).abs().max().item()
+            ok = (bool(((out - ref_out).abs() <= K2_ATOL * gmax
+                        + K2_RTOL * ref_out.abs()).all())
+                  and err_lse <= LSE_ATOL and torch.equal(lse, k1_lse))
+            del ref_out, ref_lse
+            timed = case is PREFILL or case is TRAIN_ATTN
+            if timed:
+                ms = time_ms(lambda: fa._flash_fwd_bhsd(
+                    qk, kk, vk, causal, scale, rep, **kw))
+                plain_ms = time_ms(lambda: fa._flash_fwd_bhsd_plain(
+                    qp, kp, vp, causal, scale, rep, rp, w, RMS_EPS, d),
+                    reps=5)
+                k1_ms = time_ms(lambda: fa._flash_fwd_bhsd(
+                    qk, kk, vk, causal, scale, rep))
+                unfused_ms = time_ms(lambda: torch_epilogue(
+                    fa._flash_fwd_bhsd(qk, kk, vk, causal, scale, rep)[0],
+                    rk, wk))
+        bound, bound_by = k2_bound_ms(**case)
+        log(f"K2 {case_name(case)}: max|out err| {err_out:.3e} "
+            f"(tol {K2_ATOL}*max|gamma| {gmax:.2f} + {K2_RTOL}*|ref|) "
+            f"max|lse err| {err_lse:.3e} (tol {LSE_ATOL}), lse equal to "
+            f"K1's: {torch.equal(lse, k1_lse)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            sys.exit(f"chip_smoke: K2 disagrees with its plain version at "
+                     f"{case}")
+        if not timed:
+            continue
+        log(f"  K2 kernel {ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
+            f"plain {plain_ms:.4f} ms; yardsticks: K1 alone {k1_ms:.4f} ms, "
+            f"K1 + torch epilogue {unfused_ms:.4f} ms")
+        records["prefill" if case is PREFILL else "train"] = dict(
+            max_abs_err=max(err_out, err_lse), ms=ms, plain_ms=plain_ms,
+            bound_ms=bound, bound_by=bound_by, library_ms=None,
+            k1_ms=k1_ms, k1_epilogue_ms=unfused_ms)
     return records
 
 
@@ -364,6 +502,33 @@ def phase_k34():
     return records
 
 
+def phase_router():
+    """The ledger's decisions at the two main-path attention shapes, with
+    their provenance. Returns {"prefill" | "train": (Decision, whether the
+    fused epilogue wins)}."""
+    led = ar.load_ledger()
+    if led is None:
+        sys.exit("chip_smoke: the shipped attention ledger does not load")
+    log(f"router: ledger v{led.get('version')} r{led.get('round')} of "
+        f"{led.get('device_kind')} ({led.get('nvidia_smi')}), "
+        f"{len(led.get('entries', []))} entries, "
+        f"{len(led.get('end_to_end', []))} end-to-end")
+    decisions = {}
+    for name, case in (("prefill", PREFILL), ("train", TRAIN_ATTN)):
+        bh = case["b"] * case["h"]
+        key = (bh, case["sq"], case["sk"], case["d"], torch.bfloat16,
+               case["causal"])
+        dec = ar.route(*key)
+        wins = ar.epilogue_fusion_wins(*key)
+        log(f"router {name} (bh {bh}, s{case['sq']}, d{case['d']}, bf16, "
+            f"causal): {dec}; fused epilogue wins: {wins}")
+        if dec.source not in ("ledger", "ledger-e2e"):
+            sys.exit(f"chip_smoke: the ledger has no row for the {name} "
+                     f"shape on {torch.cuda.get_device_name(0)}")
+        decisions[name] = (dec, wins)
+    return decisions
+
+
 def phase_tiny_reference():
     """A tiny llama in bf16 on the card against the same weights in f32 on
     the CPU (plain attention there)."""
@@ -383,9 +548,11 @@ def phase_tiny_reference():
         sys.exit("chip_smoke: tiny llama on the card disagrees with the CPU")
 
 
-def phase_slice():
+def phase_slice(decision):
     """llama_7b serving 4 x 512-token prompts; returns K1's launches over
-    the main path."""
+    the main path. `decision` is the router's at the prefill shape: each
+    generate launches K1 once per layer if its forward is the kernel, else
+    never."""
     pt.seed(0)
     t0 = time.perf_counter()
     model = pt.models.llama_7b(dtype="bfloat16", device="cuda")
@@ -417,9 +584,10 @@ def phase_slice():
         launched = fa.flash_fwd_launches - before
         log(f"generate {name}: {tuple(out.shape)} in {secs[-1]:.3f} s, "
             f"K1 launches {launched}")
-        if launched != cfg.num_hidden_layers:
+        want = cfg.num_hidden_layers if decision.fwd == "pallas" else 0
+        if launched != want:
             sys.exit(f"chip_smoke: {launched} K1 launches in one generate, "
-                     f"expected {cfg.num_hidden_layers}")
+                     f"expected {want} (router: fwd={decision.fwd})")
         if out.shape != (b, s + n) or not torch.equal(out[:, :s], ids):
             sys.exit("chip_smoke: generate returned a wrong shape or prompt")
         if out.min().item() < 0 or out.max().item() >= cfg.vocab_size:
@@ -447,11 +615,58 @@ def phase_slice():
     return launches
 
 
+def phase_epilogue(decisions):
+    """incubate's fused_attention_rms_epilogue at the serving prefill and
+    training attention shapes (forward only); returns K2's launches over
+    the two calls. Each call launches K2 once where the ledger marks the
+    fusion a winner, else never; its output is held against the unfused
+    composition (dense attention, then the epilogue in torch)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    launches = 0
+    for i, (name, case) in enumerate((("prefill", PREFILL),
+                                      ("train", TRAIN_ATTN))):
+        (q, k, v), _, _ = case_inputs(case, gen)
+        res, w = epilogue_inputs(case, 200 + i)
+        fa.flash_fwd_rms_epilogue_launches = 0     # the path starts here
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            out = IF.fused_attention_rms_epilogue(q, k, v, res, w,
+                                                  epsilon=RMS_EPS)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launched = fa.flash_fwd_rms_epilogue_launches   # and ends here
+        launches += launched
+        want = 1 if decisions[name][1] else 0
+        with torch.inference_mode():
+            kx, vx = IF._expand_gqa(k, v, case["h"])
+            ref = torch_epilogue(IF._sdpa_dense(q, kx, vx, case["causal"]),
+                                 res, w).float()
+        got = out.float()
+        gmax = w.abs().max().item()
+        err = (got - ref).abs().max().item()
+        ok = (out.shape == q.shape and out.dtype == q.dtype
+              and bool(torch.isfinite(got).all())
+              and bool(((got - ref).abs() <= K2_ATOL * gmax
+                        + K2_RTOL * ref.abs()).all()))
+        log(f"fused_attention_rms_epilogue {case_name(case)}: "
+            f"{tuple(out.shape)} in {secs * 1e3:.3f} ms, K2 launches "
+            f"{launched} (expected {want}), max|err| vs unfused "
+            f"{err:.3e} {'ok' if ok else 'FAIL'}")
+        if launched != want:
+            sys.exit(f"chip_smoke: {launched} K2 launches in one "
+                     f"fused_attention_rms_epilogue call, expected {want}")
+        if not ok:
+            sys.exit("chip_smoke: fused_attention_rms_epilogue disagrees "
+                     "with the unfused composition")
+    return launches
+
+
 def phase_tiny_train():
-    """The training step of a tiny llama (GQA, head dim 32 padded to 64 for
-    the kernels) in bf16 on the card against the same weights in f32 on the
-    CPU: the loss, every gradient, and one AdamW step (moments and
-    parameters)."""
+    """The training step of a tiny llama (GQA, head dim 32: padded to 64
+    where the router picks the kernels) in bf16 on the card against the
+    same weights in f32 on the CPU: the loss, every gradient, and one AdamW
+    step (moments and parameters)."""
     pt.seed(2)
     gpu = pt.models.llama_tiny(dtype="bfloat16", device="cuda")
     cpu = pt.models.llama_tiny(device="cpu")
@@ -499,11 +714,17 @@ def phase_tiny_train():
     if not ok:
         sys.exit("chip_smoke: the tiny training step on the card disagrees "
                  "with the CPU")
+    # the tiny models' shapes miss the ledger: the router timed them here
+    for key, dec in ar.decision_log():
+        if dec.source == "measured-cuda":
+            log(f"router {key}: fwd={dec.fwd} bwd={dec.bwd}, "
+                f"{dec.provenance}")
 
 
-def phase_train():
+def phase_train(decision):
     """llama_1.3b trained through train_llama.run_one; returns each kernel's
-    launches over the run."""
+    launches over the run. `decision` is the router's at the training
+    attention shape, which sets the launches each step must make."""
     gc.collect()
     torch.cuda.empty_cache()
     name, cfg, batch, seq, steps, remat = train_llama.llama_ladder()[0]
@@ -524,8 +745,11 @@ def phase_train():
         f"{r['tokens_per_s']:.1f} tokens/s, MFU {r['mfu']:.4f}, peak memory "
         f"{r['peak_memory_bytes'] / 2**30:.2f} GiB, launches {launches}")
     log(f"train {name}: losses {r['losses']}")
-    want = {"flash_fwd": 2 * n_layers, "flash_bwd_dq": n_layers,
-            "flash_bwd_dkv": n_layers}
+    fwd = decision.fwd == "pallas"
+    bwd = fwd and decision.bwd == "pallas"
+    want = {"flash_fwd": 2 * n_layers if fwd else 0,
+            "flash_bwd_dq": n_layers if bwd else 0,
+            "flash_bwd_dkv": n_layers if bwd else 0}
     if not all(np.isfinite(r["losses"])):
         sys.exit("chip_smoke: a training loss is not finite")
     if not r["losses"][-1] < r["losses"][0]:
@@ -544,17 +768,27 @@ def main():
     phase_device()
     phase_build()
     k1 = phase_k1()
+    k2 = phase_k2()
     k34 = phase_k34()
+    decisions = phase_router()
     phase_tiny_reference()
     phase_tiny_train()
-    serve = phase_slice()
-    train = phase_train()
+    serve = phase_slice(decisions["prefill"][0])
+    epilogue = phase_epilogue(decisions)
+    train = phase_train(decisions["train"][0])
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
-    # K1 runs on both paths; its times are the training shape's
+    k2_record = {key: k2["prefill"][key] for key in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")}
+    # K1 runs on both paths; its times are the training shape's. K2's are
+    # the serving prefill shape's (no single library call computes it)
     kernels = [dict(name="flash_fwd", route="cuda", source=src + "fwd.cu",
                     replaces=ref + "116",
                     launches=serve + train["flash_fwd"], **k1["train"]),
+               dict(name="flash_fwd_rms_epilogue", route="cuda",
+                    source=src + "fwd.cu", replaces=ref + "116",
+                    launches=epilogue, **k2_record),
                dict(name="flash_bwd_dq", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "198", launches=train["flash_bwd_dq"],
                     **k34["dq"]),

@@ -8,7 +8,7 @@ no work that needs a GPU; the CUDA kernels are built at first use
 """
 
 from . import generation, models, optimizer
-from .framework import get_device, seed, set_device
+from .framework import get_device, get_flags, seed, set_device, set_flags
 
-__all__ = ["seed", "set_device", "get_device", "models", "generation",
-           "optimizer"]
+__all__ = ["seed", "set_device", "get_device", "set_flags", "get_flags",
+           "models", "generation", "optimizer"]

@@ -40,6 +40,26 @@
 // load is followed by a block-wide barrier), V fragments assembled from
 // 16-bit shared-memory loads instead of ldmatrix.trans, and one block per
 // q tile instead of a persistent schedule.
+//
+// K2, the fused RMSNorm epilogue (the same Pallas kernel with
+// epilogue=True, launched through flash_attention_rms_epilogue_bshd), is
+// this kernel with EPI = true: only the flush differs. Per query row, in
+// f32 and without rounding the attention output first,
+//   h   = acc / l + residual
+//   ms  = sum(h^2) / rms_d          (rms_d: the true head dim; the pad
+//                                    columns of acc, residual and gamma are 0)
+//   out = h * rsqrt(ms + eps) * gamma      (gamma f32), written in q's dtype
+// and lse as K1 writes it. A row's D values are spread over the four lanes
+// of a quad (t = lane % 4) and the DT 8-wide tiles, so the sum of squares
+// is a per-thread sum then two xor shuffles inside the quad; every lane
+// takes part in the shuffles, rows past sq included (their residual reads
+// as 0 and nothing is stored). The residual tile is copied with cp.async
+// into the Q tile's shared memory (free once the Q fragments are in
+// registers) before the key loop, so its read runs behind the products
+// and the flush reads it from shared memory at the (row, column)
+// fragments the thread writes. K2 moves q, k, v and the residual in and
+// the output out once: about 25 us at the prefill shape (bytes); K1 plus
+// a separate epilogue pass moves the output three more times.
 
 #include "flash_common.cuh"
 
@@ -47,14 +67,16 @@ namespace {
 
 using namespace flash;
 
-template <int D, bool BF16>
+template <int D, bool BF16, bool EPI>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const typename Elem<BF16>::T* __restrict__ q,
                  const typename Elem<BF16>::T* __restrict__ k,
                  const typename Elem<BF16>::T* __restrict__ v,
+                 const typename Elem<BF16>::T* __restrict__ residual,
+                 const float* __restrict__ gamma,
                  typename Elem<BF16>::T* __restrict__ out,
                  float* __restrict__ lse, int sq, int sk, int q_per_kv,
-                 int causal, float scale) {
+                 int causal, float scale, float eps, int rms_d) {
   using T = typename Elem<BF16>::T;
   constexpr int LD = D + PAD;
   constexpr int KC = D / 16;         // 16-wide chunks of the head dim
@@ -85,6 +107,12 @@ flash_fwd_kernel(const typename Elem<BF16>::T* __restrict__ q,
 #pragma unroll
   for (int kc = 0; kc < KC; ++kc)
     load_a<LD>(qa[kc], qs + warp * 16 * LD, kc, g, t);
+  if constexpr (EPI) {
+    // the Q tile is in registers now: its shared memory takes the residual
+    // tile, copied in the background while the key loop runs
+    __syncthreads();
+    load_tile_async<D>(qs, residual + size_t(bh) * sq * D, q0, sq);
+  }
 
   float o[DT][4];
 #pragma unroll
@@ -179,66 +207,133 @@ flash_fwd_kernel(const typename Elem<BF16>::T* __restrict__ q,
     }
   }
 
-  // flush: out = acc / l, lse = m + log(l), as the reference's _flush
+  // flush: out = acc / l (K1) or the RMSNorm epilogue (K2), and
+  // lse = m + log(l), as the reference's _flush
+  if constexpr (EPI) {
+    cp_async_wait_all();
+    __syncthreads();   // every thread's part of the residual tile landed
+  }
   const int rows[2] = {r0, r1};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (rows[i] >= sq) continue;
+    const bool valid = rows[i] < sq;
     const float lsafe = fmaxf(l[i], 1e-30f);
     const float inv = 1.f / lsafe;
-    T* orow = out + (size_t(bh) * sq + rows[i]) * D + 2 * t;
+    const size_t row_off = (size_t(bh) * sq + rows[i]) * D + 2 * t;
+    float ns[DT][2];   // this row's outputs at the thread's columns, f32
+#pragma unroll
+    for (int dt = 0; dt < DT; ++dt) {
+      ns[dt][0] = o[dt][2 * i] * inv;
+      ns[dt][1] = o[dt][2 * i + 1] * inv;
+    }
+    if constexpr (EPI) {
+      // this row of the residual tile (zero past sq), at the columns the
+      // thread writes
+      const T* rrow = qs + (warp * 16 + g + 8 * i) * LD + 2 * t;
+      float ss = 0.f;
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const float2 r = unpack2<BF16>(ld32(rrow + dt * 8));
+        ns[dt][0] += r.x;
+        ns[dt][1] += r.y;
+        ss += ns[dt][0] * ns[dt][0] + ns[dt][1] * ns[dt][1];
+      }
+      // the row's other columns live in the quad's other three lanes; all
+      // 32 lanes reach these shuffles (no lane has left the loop)
+      ss += __shfl_xor_sync(0xffffffffu, ss, 1);
+      ss += __shfl_xor_sync(0xffffffffu, ss, 2);
+      const float rs = rsqrtf(ss / float(rms_d) + eps);
+#pragma unroll
+      for (int dt = 0; dt < DT; ++dt) {
+        const float2 w = *reinterpret_cast<const float2*>(
+            gamma + dt * 8 + 2 * t);
+        ns[dt][0] *= rs * w.x;
+        ns[dt][1] *= rs * w.y;
+      }
+    }
+    if (!valid) continue;
 #pragma unroll
     for (int dt = 0; dt < DT; ++dt)
-      *reinterpret_cast<uint32_t*>(orow + dt * 8) =
-          pack2<BF16>(o[dt][2 * i] * inv, o[dt][2 * i + 1] * inv);
+      *reinterpret_cast<uint32_t*>(out + row_off + dt * 8) =
+          pack2<BF16>(ns[dt][0], ns[dt][1]);
     if (t == 0) lse[size_t(bh) * sq + rows[i]] = m[i] + logf(lsafe);
   }
 }
 
-template <int D, bool BF16>
-int launch(const void* q, const void* k, const void* v, void* out,
-           void* lse, int bh, int sq, int sk, int q_per_kv, int causal,
-           float scale, cudaStream_t stream) {
+template <int D, bool BF16, bool EPI>
+int launch(const void* q, const void* k, const void* v, const void* residual,
+           const float* gamma, void* out, void* lse, int bh, int sq, int sk,
+           int q_per_kv, int causal, float scale, float eps, int rms_d,
+           cudaStream_t stream) {
   using T = typename Elem<BF16>::T;
   const size_t smem = size_t(BLOCK_M + 2 * BLOCK_N) * (D + PAD) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(smem));
+      flash_fwd_kernel<D, BF16, EPI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return int(err);
   dim3 grid(bh, (sq + BLOCK_M - 1) / BLOCK_M);
-  flash_fwd_kernel<D, BF16><<<grid, THREADS, smem, stream>>>(
+  flash_fwd_kernel<D, BF16, EPI><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), sq, sk, q_per_kv, causal, scale);
+      static_cast<const T*>(v), static_cast<const T*>(residual), gamma,
+      static_cast<T*>(out), static_cast<float*>(lse), sq, sk, q_per_kv,
+      causal, scale, eps, rms_d);
   return int(cudaGetLastError());
 }
 
-}  // namespace
-
-// q (bh, sq, d), k/v (bh / q_per_kv, sk, d), out (bh, sq, d) in the input
-// dtype, lse (bh, sq) f32; all contiguous on CUDA device `device`, d in
-// {64, 128}. Launches on `stream` and returns the CUDA error code of the
-// launch (0 on success).
-extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         void* out, void* lse, int bh, int sq, int sk, int d,
-                         int q_per_kv, int causal, float scale, int is_bf16,
-                         int device, void* stream) {
+template <bool EPI>
+int dispatch(const void* q, const void* k, const void* v,
+             const void* residual, const float* gamma, void* out, void* lse,
+             int bh, int sq, int sk, int d, int q_per_kv, int causal,
+             float scale, float eps, int rms_d, int is_bf16, int device,
+             void* stream) {
   // this library links its own CUDA runtime: select the tensors' device
   // here rather than rely on the caller's runtime state
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return int(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d == 64)
-    return is_bf16 ? launch<64, true>(q, k, v, out, lse, bh, sq, sk,
-                                      q_per_kv, causal, scale, s)
-                   : launch<64, false>(q, k, v, out, lse, bh, sq, sk,
-                                       q_per_kv, causal, scale, s);
+    return is_bf16 ? launch<64, true, EPI>(q, k, v, residual, gamma, out,
+                                           lse, bh, sq, sk, q_per_kv, causal,
+                                           scale, eps, rms_d, s)
+                   : launch<64, false, EPI>(q, k, v, residual, gamma, out,
+                                            lse, bh, sq, sk, q_per_kv,
+                                            causal, scale, eps, rms_d, s);
   if (d == 128)
-    return is_bf16 ? launch<128, true>(q, k, v, out, lse, bh, sq, sk,
-                                       q_per_kv, causal, scale, s)
-                   : launch<128, false>(q, k, v, out, lse, bh, sq, sk,
-                                        q_per_kv, causal, scale, s);
+    return is_bf16 ? launch<128, true, EPI>(q, k, v, residual, gamma, out,
+                                            lse, bh, sq, sk, q_per_kv,
+                                            causal, scale, eps, rms_d, s)
+                   : launch<128, false, EPI>(q, k, v, residual, gamma, out,
+                                             lse, bh, sq, sk, q_per_kv,
+                                             causal, scale, eps, rms_d, s);
   return int(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// K1. q (bh, sq, d), k/v (bh / q_per_kv, sk, d), out (bh, sq, d) in the
+// input dtype, lse (bh, sq) f32; all contiguous on CUDA device `device`, d
+// in {64, 128}. Launches on `stream` and returns the CUDA error code of the
+// launch (0 on success).
+extern "C" int flash_fwd(const void* q, const void* k, const void* v,
+                         void* out, void* lse, int bh, int sq, int sk, int d,
+                         int q_per_kv, int causal, float scale, int is_bf16,
+                         int device, void* stream) {
+  return dispatch<false>(q, k, v, nullptr, nullptr, out, lse, bh, sq, sk, d,
+                         q_per_kv, causal, scale, 0.f, d, is_bf16, device,
+                         stream);
+}
+
+// K2: as flash_fwd, plus residual (bh, sq, d) in the input dtype and gamma
+// (d,) f32, both zero in the pad columns; out = rmsnorm(attn + residual) *
+// gamma over the head dim with the mean taken over rms_d columns.
+extern "C" int flash_fwd_rms_epilogue(
+    const void* q, const void* k, const void* v, const void* residual,
+    const void* gamma, void* out, void* lse, int bh, int sq, int sk, int d,
+    int q_per_kv, int causal, float scale, float eps, int rms_d, int is_bf16,
+    int device, void* stream) {
+  return dispatch<true>(q, k, v, residual, static_cast<const float*>(gamma),
+                        out, lse, bh, sq, sk, d, q_per_kv, causal, scale, eps,
+                        rms_d, is_bf16, device, stream);
 }
 
 extern "C" const char* cuda_error_string(int code) {

@@ -42,6 +42,16 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
+// two neighbouring 16-bit values (lo at the lower address) as f32
+template <bool BF16>
+__device__ __forceinline__ float2 unpack2(uint32_t bits) {
+  if constexpr (BF16) {
+    return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&bits));
+  } else {
+    return __half22float2(*reinterpret_cast<__half2*>(&bits));
+  }
+}
+
 // c += a * b for one 16x8x16 tile; a: 16x16 row-major, b: 16x8 col-major.
 template <bool BF16>
 __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
@@ -128,6 +138,29 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
       val = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * D + c * 8);
     *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
   }
+}
+
+// As load_tile, but with cp.async: the copy runs in the background until
+// cp_async_wait_all(); rows at or past `rows` are zero-filled (a 0-byte
+// source). row0 < rows.
+template <int D, typename T>
+__device__ __forceinline__ void load_tile_async(T* dst, const T* src,
+                                                int row0, int rows) {
+  constexpr int LD = D + PAD;
+  constexpr int CHUNKS = D / 8;
+  for (int idx = threadIdx.x; idx < BLOCK_M * CHUNKS; idx += THREADS) {
+    int r = idx / CHUNKS, c = idx % CHUNKS;
+    const bool in = row0 + r < rows;
+    const T* g = src + size_t(in ? row0 + r : row0) * D + c * 8;
+    const unsigned s =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + r * LD + c * 8));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(g), "r"(in ? 16 : 0));
+  }
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 }  // namespace flash

@@ -8,8 +8,10 @@ weights, then a `lax.scan` of decode steps. Here both are eager Python
 loops over the model's own per-layer parameters: stacking the 32 layers'
 weights per call, as the JAX version does, would make a second copy of the
 weights (13.5 GB at 7B in bf16). Prefill attention is causal flash
-attention (the hand-written kernel on CUDA); decode attention is dense
-torch math over the cache, as in the reference.
+attention (the hand-written kernel K1) where ops/attention_router picks it
+for the shape on a CUDA device (`_prefill_flash_routed`, reference :91-102),
+and dense torch math otherwise, always on the CPU (reference :125-133);
+decode attention is dense torch math over the cache, as in the reference.
 
 Sampling draws from a `torch.Generator`: seeded from `seed` when given,
 else the device's generator of `framework.random`. The draws are torch's
@@ -21,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from .framework.random import get_generator
-from .ops.flash_attention import NEG_INF, flash_attention_bshd
+from .ops.flash_attention import NEG_INF, flash_attention_bshd, kernel_takes
 
 __all__ = ["generate", "GenerationConfig"]
 
@@ -79,11 +81,19 @@ def _mlp(lp, h, eps):
     return h + (torch.nn.functional.silu(gate) * up) @ lp["mlp.down_proj.weight"]
 
 
+def _prefill_flash_routed(bh, s, d, dtype, device):
+    """Prefill attention backend: the router's forward choice for this
+    shape (the same ledger as the training path) on a CUDA device, where
+    the kernels take the dtype and head dim; dense (False) otherwise."""
+    if device.type != "cuda" or not kernel_takes(dtype, d):
+        return False
+    from .ops.attention_router import route
+    return route(bh, s, s, d, dtype, True, platform="cuda").fwd == "pallas"
+
+
 def _llama_layer_prefill(lp, h, pos, cfg):
     """Full-sequence layer forward; returns (h_out, (k, v)) with k/v rotated
-    and unexpanded (kv heads). Attention is causal flash attention: every
-    caller passes pos = arange rows, so the kernel's causal structure is
-    the position mask."""
+    and unexpanded (kv heads)."""
     eps, theta = cfg["eps"], cfg["theta"]
     nh, nkv, hd = cfg["heads"], cfg["kv_heads"], cfg["head_dim"]
     b, s, _ = h.shape
@@ -93,8 +103,20 @@ def _llama_layer_prefill(lp, h, pos, cfg):
     v = (x @ lp["self_attn.v_proj.weight"]).reshape(b, s, nkv, hd)
     q = _rope(q, pos, theta)
     k = _rope(k, pos, theta)
-    attn = flash_attention_bshd(q, k, v, causal=True).reshape(b, s, nh * hd)
-    h = h + attn @ lp["self_attn.o_proj.weight"]
+    if _prefill_flash_routed(b * nh, s, hd, h.dtype, h.device):
+        # GQA-native (kv stays unexpanded), causal: every caller passes
+        # pos = arange rows, so the kernel's causal structure is the
+        # position mask below
+        attn = flash_attention_bshd(q, k, v, causal=True)
+    else:
+        kx, vx = _gqa(k, nh // nkv), _gqa(v, nh // nkv)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kx.float()) / (
+            hd ** 0.5)
+        causal = pos[:, :, None] >= pos[:, None, :]       # (b, s, s)
+        scores = scores.masked_fill(~causal[:, None], NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(vx.dtype)
+        attn = torch.einsum("bhqk,bkhd->bqhd", probs, vx)
+    h = h + attn.reshape(b, s, nh * hd) @ lp["self_attn.o_proj.weight"]
     return _mlp(lp, h, eps), (k, v)
 
 

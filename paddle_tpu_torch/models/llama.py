@@ -7,7 +7,8 @@ Every module takes `device=`; without it the default device ("cuda") is
 used. `LlamaConfig.dtype` is the parameters' dtype.
 
 Attention goes through `scaled_dot_product_attention`, which takes the
-flash kernels on CUDA (K1 forward, K3/K4 backward).
+flash kernels on CUDA (K1 forward, K3/K4 backward) where
+ops/attention_router picks them for the shape.
 """
 
 from __future__ import annotations

@@ -89,6 +89,9 @@ def library() -> ctypes.CDLL:
         lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, i,
                                   p]
         lib.flash_fwd.restype = i
+        lib.flash_fwd_rms_epilogue.argtypes = [p] * 7 + [i] * 6 + [f, f, i,
+                                                                   i, i, p]
+        lib.flash_fwd_rms_epilogue.restype = i
         lib.flash_bwd_dq.argtypes = [p] * 7 + [i] * 6 + [f, i, i, p]
         lib.flash_bwd_dq.restype = i
         lib.flash_bwd_dkv.argtypes = [p] * 8 + [i] * 6 + [f, i, i, p]
