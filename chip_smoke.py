@@ -6,25 +6,33 @@
 Phases, each of which makes the script exit non-zero if it fails:
   1. device: the card's name and power limit (nvidia-smi); TF32 is turned
      off for float32 matrix products.
-  2. build: the CUDA kernels from paddle_tpu_torch/csrc, timed.
+  2. build: the CUDA kernels from paddle_tpu_torch/csrc, timed; fails if
+     ptxas reports a spill in any instantiation of the forward kernel or
+     ignores its setmaxnreg (warning C7508).
   3. K1: the flash-attention forward kernel against its plain torch version
      on the card in bf16 at the reference's test cases, GQA, d96, the
-     serving slice's prefill shape and the training slice's attention
-     shape, with times (kernel, plain version, and torch's
-     scaled_dot_product_attention as a yardstick only) and the least time
-     the card could take.
+     edges of the kernel's 128-row block and 128-key ring tiles (sq = sk
+     64, 127, 129; sq 1 over sk 300; sq 130 over sk 1000; GQA 8:1 at
+     d64), the serving slice's prefill shape and the training slice's
+     attention shape (also in fp16), with times (kernel, plain version,
+     and torch's scaled_dot_product_attention as a yardstick only) and the
+     least time the card could take. Kernel and SDPA times are given
+     twice: the median single call, host work included, and the device
+     time per call of 20 back-to-back calls replayed from one CUDA graph
+     (no host work between them); the record keeps the latter.
   4. K2: the fused RMSNorm epilogue (K1's kernel with the
      rmsnorm(attn + residual) * gamma flush) against its plain torch
-     version in bf16 (and fp16 at one case): d64, d128, d96 padded
+     version in bf16 (and fp16 at two cases): d64, d128, d96 padded
      (mean over the true d), GQA 4/2 and 32/8, ragged s200 and s520,
-     sq != sk, the prefill and training shapes; its lse equal bit for bit
-     to K1's; times against its bound, the plain version, and, as
-     yardsticks only, K1 alone and K1 followed by the torch epilogue.
+     sq != sk, K1's edge cases, the prefill and training shapes; its lse
+     equal bit for bit to K1's; times as K1's against its bound, the plain
+     version, and, as yardsticks only, K1 alone and K1 followed by the
+     torch epilogue.
   5. K3/K4: the flash-attention backward kernels against the plain
-     backward in bf16 at K1's cases (and in fp16 at two more), dK and
-     dV repeated bit for bit,
-     and times at the training shape (torch's own flash-attention backward
-     as a yardstick only).
+     backward in bf16 at K1's cases before the edge cases (and in fp16 at
+     two more), dK and dV repeated bit for bit, and back-to-back times at
+     the training shape (torch's own flash-attention backward as a
+     yardstick only).
   6. router: the shipped H100 ledger's decision, with its provenance, at
      the serving prefill shape and the training attention shape, and
      whether it marks the fused epilogue a winner there. The launch counts
@@ -59,6 +67,7 @@ from __future__ import annotations
 
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -119,7 +128,18 @@ TINY_LR = 1e-3
 PREFILL = dict(b=4, h=32, kvh=32, sq=512, sk=512, d=128, causal=True)
 # the training slice's attention: llama_1.3b at batch 8, sequence 2048
 TRAIN_ATTN = dict(b=8, h=16, kvh=16, sq=2048, sk=2048, d=128, causal=True)
-K1_CASES = (
+# the edges of the forward kernel's 128-row block and 128-key ring tiles
+# (two slots at d128, three at d64): one tile, one row short of and one
+# past a block, a single query row over three key tiles, two query blocks
+# over eight key tiles
+EDGES = [(64, 64, True), (127, 127, True), (129, 129, True), (1, 300, False),
+         (130, 1000, True)]
+FWD_EDGE_CASES = (
+    [dict(b=2, h=4, kvh=4, sq=sq, sk=sk, d=d, causal=c)
+     for d in (64, 128) for sq, sk, c in EDGES]
+    + [dict(b=2, h=32, kvh=4, sq=256, sk=256, d=64, causal=True),    # GQA 8:1
+       dict(TRAIN_ATTN, dtype=torch.float16)])
+BASE_CASES = (
     # the reference's CASES (tests/test_flash_attention.py:41), b2 h4
     [dict(b=2, h=4, kvh=4, sq=sq, sk=sk, d=d, causal=c)
      for d in (64, 128)
@@ -130,6 +150,7 @@ K1_CASES = (
     + [dict(b=2, h=32, kvh=8, sq=512, sk=512, d=128, causal=True),   # GQA
        dict(b=2, h=8, kvh=8, sq=256, sk=256, d=96, causal=True),     # pad
        PREFILL, TRAIN_ATTN])
+K1_CASES = BASE_CASES + FWD_EDGE_CASES
 K2_CASES = (
     [dict(b=2, h=4, kvh=4, sq=sq, sk=sk, d=d, causal=c)
      for d in (64, 128)
@@ -140,9 +161,10 @@ K2_CASES = (
        dict(b=2, h=8, kvh=8, sq=256, sk=256, d=96, causal=True),     # pad
        dict(b=2, h=4, kvh=4, sq=200, sk=200, d=128, causal=True,
             dtype=torch.float16),
-       PREFILL, TRAIN_ATTN])
+       PREFILL, TRAIN_ATTN]
+    + FWD_EDGE_CASES)
 # K3/K4 also in fp16, at a GQA case and a padded case
-K34_CASES = K1_CASES + (
+K34_CASES = BASE_CASES + (
     [dict(b=2, h=32, kvh=8, sq=512, sk=512, d=128, causal=True,
           dtype=torch.float16),
      dict(b=2, h=4, kvh=4, sq=200, sk=200, d=64, causal=True,
@@ -154,7 +176,8 @@ def log(*args):
 
 
 def time_ms(fn, reps=25, warmup=3):
-    """Median of `reps` single-call times on CUDA events, after warm-up."""
+    """Median of `reps` single-call times on CUDA events, after warm-up:
+    each call's host work (tensor maps, ctypes, allocation) can show."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -168,6 +191,39 @@ def time_ms(fn, reps=25, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, calls=20, warmup=3):
+    """Device time of one call: `calls` back-to-back calls captured in one
+    CUDA graph and replayed between one pair of CUDA events, so no host
+    work (tensor-map encoding, ctypes, allocation) lies between them. If
+    the calls cannot be captured, they run eagerly between the events
+    instead, where the host may hold the card back, and the log says so."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(calls):
+                fn()
+        run = graph.replay
+        run()
+    except RuntimeError as err:
+        log(f"  (CUDA graph capture failed, timing eager calls: {err})")
+        graph = None
+
+        def run():
+            for _ in range(calls):
+                fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def bound_ms(nbytes, flops):
@@ -186,7 +242,7 @@ def attn_pairs(sq, sk, causal):
     return int(np.clip(rows + (sk - sq) + 1, 0, sk).sum())
 
 
-def k1_bound_ms(b, h, kvh, sq, sk, d, causal, itemsize=2):
+def k1_bound_ms(b, h, kvh, sq, sk, d, causal, itemsize=2, **_):
     """One K1 call: q, k, v read once, out and lse written once; two
     products (Q K^T, P V) of 2 d FLOP a pair."""
     nbytes = itemsize * d * (2 * b * h * sq + 2 * b * kvh * sk) + 4 * b * h * sq
@@ -262,13 +318,31 @@ def phase_device():
 
 
 def phase_build():
+    """Build the kernels; fail if ptxas spills in any instantiation of the
+    forward kernel or ignores its setmaxnreg (warning C7508)."""
     t0 = time.perf_counter()
     _build.library()
     log(f"build: kernel library ready in {time.perf_counter() - t0:.2f} s")
+    faults = []
     for entry in _build.build_log:
+        function = ""
         for line in entry.splitlines():
+            if "C7508" in line or ("warning" in line
+                                   and "setmaxnreg" in line):
+                faults.append(line.strip())
+            if "Compiling entry function" in line or \
+                    "Function properties for" in line:
+                function = line.split()[-1] if "properties" in line \
+                    else line.split("'")[1]
             if "registers" in line or "spill" in line:
                 log("  nvcc:", line.strip())
+            spills = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
+            if "flash_fwd_kernel" in function and any(spills):
+                faults.append(f"{function}: {line.strip()}")
+    if faults:
+        sys.exit("chip_smoke: the forward kernel spills or loses its "
+                 "setmaxnreg:\n" + "\n".join(faults))
+    log("build: no spills and no C7508 in the forward kernel")
 
 
 def case_inputs(case, gen, with_grad=False):
@@ -326,22 +400,24 @@ def phase_k1():
                                  rtol=OUT_RTOL)
                   and err_lse <= LSE_ATOL)
             del ref_out, ref_lse
-            ms = time_ms(lambda: fa._flash_fwd_bhsd(qk, kk, vk, causal,
-                                                    scale, rep))
+            kernel = lambda: fa._flash_fwd_bhsd(qk, kk, vk, causal, scale,
+                                                rep)
+            call_ms, ms = time_ms(kernel), device_ms(kernel)
             plain_ms = time_ms(lambda: fa._flash_fwd_bhsd_plain(
                 qp, kp, vp, causal, scale, rep))
             ql = q.transpose(1, 2).contiguous()
             kl = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
             vl = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
-            library_ms = time_ms(lambda: library_attention(ql, kl, vl,
-                                                           causal))
+            library = lambda: library_attention(ql, kl, vl, causal)
+            library_call_ms, library_ms = time_ms(library), device_ms(library)
         bound, bound_by = k1_bound_ms(**case)
         log(f"K1 {case_name(case)}: "
             f"max|out err| {err_out:.3e} max|lse err| {err_lse:.3e} "
             f"(tol out {OUT_ATOL}+{OUT_RTOL}*|ref|, lse {LSE_ATOL}) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"sdpa {library_ms:.4f} ms bound {bound * 1e3:.2f} us "
-            f"({bound_by}) {'ok' if ok else 'FAIL'}")
+            f"kernel {ms:.4f} ms back to back ({call_ms:.4f} single call) "
+            f"plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms back to "
+            f"back ({library_call_ms:.4f} single call) bound "
+            f"{bound * 1e3:.2f} us ({bound_by}) {'ok' if ok else 'FAIL'}")
         if not ok:
             sys.exit(f"chip_smoke: K1 disagrees with its plain version at "
                      f"{case}")
@@ -350,7 +426,7 @@ def phase_k1():
                 records[name] = dict(
                     max_abs_err=max(err_out, err_lse), ms=ms,
                     plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                    library_ms=library_ms)
+                    library_ms=library_ms, call_ms=call_ms)
     return records
 
 
@@ -408,16 +484,17 @@ def phase_k2():
             del ref_out, ref_lse
             timed = case is PREFILL or case is TRAIN_ATTN
             if timed:
-                ms = time_ms(lambda: fa._flash_fwd_bhsd(
-                    qk, kk, vk, causal, scale, rep, **kw))
+                kernel = lambda: fa._flash_fwd_bhsd(qk, kk, vk, causal,
+                                                    scale, rep, **kw)
+                k1 = lambda: fa._flash_fwd_bhsd(qk, kk, vk, causal, scale,
+                                                rep)
+                call_ms, ms = time_ms(kernel), device_ms(kernel)
                 plain_ms = time_ms(lambda: fa._flash_fwd_bhsd_plain(
                     qp, kp, vp, causal, scale, rep, rp, w, RMS_EPS, d),
                     reps=5)
-                k1_ms = time_ms(lambda: fa._flash_fwd_bhsd(
-                    qk, kk, vk, causal, scale, rep))
-                unfused_ms = time_ms(lambda: torch_epilogue(
-                    fa._flash_fwd_bhsd(qk, kk, vk, causal, scale, rep)[0],
-                    rk, wk))
+                k1_call_ms, k1_ms = time_ms(k1), device_ms(k1)
+                unfused_ms = device_ms(lambda: torch_epilogue(k1()[0], rk,
+                                                              wk))
         bound, bound_by = k2_bound_ms(**case)
         log(f"K2 {case_name(case)}: max|out err| {err_out:.3e} "
             f"(tol {K2_ATOL}*max|gamma| {gmax:.2f} + {K2_RTOL}*|ref|) "
@@ -428,13 +505,15 @@ def phase_k2():
                      f"{case}")
         if not timed:
             continue
-        log(f"  K2 kernel {ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
-            f"plain {plain_ms:.4f} ms; yardsticks: K1 alone {k1_ms:.4f} ms, "
-            f"K1 + torch epilogue {unfused_ms:.4f} ms")
+        log(f"  K2 kernel {ms:.4f} ms back to back ({call_ms:.4f} single "
+            f"call), bound {bound:.4f} ms ({bound_by}), plain "
+            f"{plain_ms:.4f} ms; yardsticks back to back: K1 alone "
+            f"{k1_ms:.4f} ms ({k1_call_ms:.4f} single call; K2/K1 "
+            f"{ms / k1_ms:.3f}), K1 + torch epilogue {unfused_ms:.4f} ms")
         records["prefill" if case is PREFILL else "train"] = dict(
             max_abs_err=max(err_out, err_lse), ms=ms, plain_ms=plain_ms,
             bound_ms=bound, bound_by=bound_by, library_ms=None,
-            k1_ms=k1_ms, k1_epilogue_ms=unfused_ms)
+            call_ms=call_ms, k1_ms=k1_ms, k1_epilogue_ms=unfused_ms)
     return records
 
 
@@ -480,14 +559,14 @@ def phase_k34():
         with torch.inference_mode():
             delta = (gk.float() * out.float()).sum(-1)
             args = (qk, kk, vk, gk, lse, delta, causal, scale, rep)
-            dq_ms = time_ms(lambda: fa._flash_bwd_dq_cuda(*args))
-            dkv_ms = time_ms(lambda: fa._flash_bwd_dkv_cuda(*args))
+            dq_ms = device_ms(lambda: fa._flash_bwd_dq_cuda(*args))
+            dkv_ms = device_ms(lambda: fa._flash_bwd_dkv_cuda(*args))
             plain_ms = time_ms(lambda: fa._flash_bwd_bhsd_plain(
                 qp, kp, vp, out, lse, gp, causal, scale, rep), reps=5)
             lib = library_attention_bwd(
                 *(x.transpose(1, 2).contiguous() for x in xs[:3]),
                 xs[3].transpose(1, 2).contiguous(), causal)
-            library_ms = time_ms(lib)
+            library_ms = device_ms(lib)
         for name, ms, err in (("dq", dq_ms, abs_errs[0]),
                               ("dkv", dkv_ms, max(abs_errs[1:]))):
             bound, bound_by = bwd_bound_ms(name, **case)
@@ -495,9 +574,10 @@ def phase_k34():
                                  bound_ms=bound, bound_by=bound_by,
                                  library_ms=library_ms)
             log(f"  K{3 if name == 'dq' else 4} ({name}): kernel {ms:.4f} ms "
-                f"bound {bound:.4f} ms ({bound_by})")
+                f"back to back, bound {bound:.4f} ms ({bound_by})")
         log(f"  plain backward (dq, dk, dv) {plain_ms:.4f} ms; torch flash "
-            f"backward (dq, dk, dv) {library_ms:.4f} ms against K3+K4 "
+            f"backward (dq, dk, dv) {library_ms:.4f} ms back to back "
+            f"against K3+K4 "
             f"{dq_ms + dkv_ms:.4f} ms")
     return records
 
@@ -778,17 +858,19 @@ def main():
     train = phase_train(decisions["train"][0])
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
-    k2_record = {key: k2["prefill"][key] for key in (
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-        "library_ms")}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     # K1 runs on both paths; its times are the training shape's. K2's are
-    # the serving prefill shape's (no single library call computes it)
+    # the serving prefill shape's (no single library call computes it).
+    # "ms" and "library_ms" are device times from back-to-back calls
     kernels = [dict(name="flash_fwd", route="cuda", source=src + "fwd.cu",
                     replaces=ref + "116",
-                    launches=serve + train["flash_fwd"], **k1["train"]),
+                    launches=serve + train["flash_fwd"],
+                    **{key: k1["train"][key] for key in keys}),
                dict(name="flash_fwd_rms_epilogue", route="cuda",
                     source=src + "fwd.cu", replaces=ref + "116",
-                    launches=epilogue, **k2_record),
+                    launches=epilogue,
+                    **{key: k2["prefill"][key] for key in keys}),
                dict(name="flash_bwd_dq", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "198", launches=train["flash_bwd_dq"],
                     **k34["dq"]),

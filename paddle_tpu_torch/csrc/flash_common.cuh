@@ -1,6 +1,7 @@
-// Pieces shared by the flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): tile constants, the 16-byte tile loader, and
-// the mma.sync.m16n8k16 fragment helpers.
+// Pieces of the flash-attention kernels: the element types, 16-bit
+// packing and NEG_INF / LOG2E, which the forward (flash_attention_fwd.cu)
+// and the backward (flash_attention_bwd.cu) share; the backward's tile
+// constants, 16-byte tile loader and mma.sync.m16n8k16 fragment helpers.
 //
 // Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16x16, row-major): a[0] = A[g][2t..2t+1],   a[1] = A[g+8][2t..2t+1],
@@ -138,29 +139,6 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
       val = *reinterpret_cast<const uint4*>(src + size_t(row0 + r) * D + c * 8);
     *reinterpret_cast<uint4*>(dst + r * LD + c * 8) = val;
   }
-}
-
-// As load_tile, but with cp.async: the copy runs in the background until
-// cp_async_wait_all(); rows at or past `rows` are zero-filled (a 0-byte
-// source). row0 < rows.
-template <int D, typename T>
-__device__ __forceinline__ void load_tile_async(T* dst, const T* src,
-                                                int row0, int rows) {
-  constexpr int LD = D + PAD;
-  constexpr int CHUNKS = D / 8;
-  for (int idx = threadIdx.x; idx < BLOCK_M * CHUNKS; idx += THREADS) {
-    int r = idx / CHUNKS, c = idx % CHUNKS;
-    const bool in = row0 + r < rows;
-    const T* g = src + size_t(in ? row0 + r : row0) * D + c * 8;
-    const unsigned s =
-        static_cast<unsigned>(__cvta_generic_to_shared(dst + r * LD + c * 8));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(s), "l"(g), "r"(in ? 16 : 0));
-  }
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 }  // namespace flash

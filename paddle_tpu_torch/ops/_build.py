@@ -21,12 +21,33 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["library", "build_log", "BUILD_DIR"]
+__all__ = ["library", "build_log", "BUILD_DIR", "SIGNATURES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# (argtypes, restype) of every `extern "C"` function of csrc/*.cu. A
+# pointer or the stream must be c_void_p: as c_int, ctypes would cut it to
+# 32 bits without a word. tests/test_torch_kernel_abi.py holds this table
+# against the declarations in the sources.
+SIGNATURES = {
+    # q, k, v, out, lse; bh, sq, sk, d, q_per_kv, causal; scale; is_bf16,
+    # device; stream
+    "flash_fwd": ([_P] * 5 + [_I] * 6 + [_F] + [_I] * 2 + [_P], _I),
+    # q, k, v, residual, gamma, out, lse; bh, sq, sk, d, q_per_kv, causal;
+    # scale, eps; rms_d, is_bf16, device; stream
+    "flash_fwd_rms_epilogue": ([_P] * 7 + [_I] * 6 + [_F] * 2 + [_I] * 3
+                               + [_P], _I),
+    # q, k, v, dout, lse, delta, dq; bh, sq, sk, d, q_per_kv, causal;
+    # scale; is_bf16, device; stream
+    "flash_bwd_dq": ([_P] * 7 + [_I] * 6 + [_F] + [_I] * 2 + [_P], _I),
+    # as flash_bwd_dq with dk, dv in place of dq
+    "flash_bwd_dkv": ([_P] * 8 + [_I] * 6 + [_F] + [_I] * 2 + [_P], _I),
+    "cuda_error_string": ([_I], ctypes.c_char_p),
+}
 
 _LIB = [None]
 build_log: list = []   # nvcc's messages (registers, spills) per source
@@ -85,18 +106,8 @@ def library() -> ctypes.CDLL:
         if not target.exists():
             _compile(target)
         lib = ctypes.CDLL(str(target))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f, i, i,
-                                  p]
-        lib.flash_fwd.restype = i
-        lib.flash_fwd_rms_epilogue.argtypes = [p] * 7 + [i] * 6 + [f, f, i,
-                                                                   i, i, p]
-        lib.flash_fwd_rms_epilogue.restype = i
-        lib.flash_bwd_dq.argtypes = [p] * 7 + [i] * 6 + [f, i, i, p]
-        lib.flash_bwd_dq.restype = i
-        lib.flash_bwd_dkv.argtypes = [p] * 8 + [i] * 6 + [f, i, i, p]
-        lib.flash_bwd_dkv.restype = i
-        lib.cuda_error_string.argtypes = [i]
-        lib.cuda_error_string.restype = ctypes.c_char_p
+        for name, (argtypes, restype) in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
         _LIB[0] = lib
     return _LIB[0]

@@ -172,9 +172,10 @@ def _flash_fwd_rms_epilogue_cuda(q, k, v, residual, rms_weight, causal,
     from ._build import library
     bh, sq, d = q.shape
     _check_kernel_inputs("flash_fwd_rms_epilogue", (q, k, v, residual), d)
-    if rms_weight.dtype != torch.float32 or not rms_weight.is_contiguous():
-        raise TypeError("flash_fwd_rms_epilogue kernel takes a contiguous "
-                        "float32 rms_weight")
+    if rms_weight.dtype != torch.float32 or not rms_weight.is_contiguous() \
+            or rms_weight.data_ptr() % 16:
+        raise TypeError("flash_fwd_rms_epilogue kernel takes a contiguous, "
+                        "16-byte aligned float32 rms_weight")
     out = torch.empty_like(q)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     lib = library()
@@ -283,9 +284,12 @@ def _flash_fwd_bhsd(q, k, v, causal, scale, q_per_kv=1, residual=None,
                                      residual, rms_weight, rms_eps, rms_d)
     if residual is None:
         return _flash_fwd_cuda(q, k, v, causal, scale, q_per_kv)
+    w = rms_weight.float().contiguous()
+    if w.data_ptr() % 16:   # the kernel copies it whole into shared memory
+        w = w.clone()
     return _flash_fwd_rms_epilogue_cuda(
-        q, k, v, residual, rms_weight.float().contiguous(), causal, scale,
-        q_per_kv, rms_eps, rms_d or q.shape[2])
+        q, k, v, residual, w, causal, scale, q_per_kv, rms_eps,
+        rms_d or q.shape[2])
 
 
 def _flash_bwd_bhsd(q, k, v, o, lse, g, causal, scale, q_per_kv=1):

@@ -17,7 +17,7 @@ from paddle_tpu_torch.nn import functional as PF
 from paddle_tpu_torch.ops import flash_attention as fa
 
 # the reference kernel's own cases and tolerance
-# (tests/test_flash_attention.py:41, :64)
+# (tests/test_flash_attention.py:41, :64), and the port kernel's tile edges
 CASES = [
     (256, 256, False),
     (256, 256, True),
@@ -26,6 +26,12 @@ CASES = [
     (520, 520, True),
     (128, 320, True),
     (100, 260, False),
+    # the edges of the H100 kernel's 128-row block and 128-key ring tiles
+    (64, 64, True),
+    (127, 127, True),
+    (129, 129, True),
+    (1, 300, False),
+    (130, 1000, True),
 ]
 F32_TOL = 2e-5
 # bf16: P is rounded to bf16 at different places (the reference kernel
@@ -60,6 +66,7 @@ def test_plain_matches_pallas_forward(sq, sk, causal):
     (4, 4, 96, True),     # head dim zero-padded to 128
     (4, 2, 96, True),
     (4, 2, 32, True),     # padded to 64 here, to 128 in the reference
+    (8, 1, 64, True),     # GQA 8:1
 ])
 def test_bshd_matches_reference(h, kvh, d, causal):
     rs = np.random.RandomState(3)
