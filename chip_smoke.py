@@ -12,8 +12,9 @@ Phases, each of which makes the script exit non-zero if it fails:
   3. K1: the flash-attention forward kernel against its plain torch version
      on the card in bf16 at the reference's test cases, GQA, d96, the
      edges of the kernel's 128-row block and 128-key ring tiles (sq = sk
-     64, 127, 129; sq 1 over sk 300; sq 130 over sk 1000; GQA 8:1 at
-     d64), the serving slice's prefill shape and the training slice's
+     64, 127, 129; sq 1 over sk 300; sq 130 over sk 1000; causal sq 300
+     over sk 100, whose first 200 rows admit no key: finite everywhere,
+     compared where a row has keys; GQA 8:1 at d64), the serving slice's prefill shape and the training slice's
      attention shape (also in fp16), with times (kernel, plain version,
      and torch's scaled_dot_product_attention as a yardstick only) and the
      least time the card could take. Kernel and SDPA times are given
@@ -131,9 +132,10 @@ TRAIN_ATTN = dict(b=8, h=16, kvh=16, sq=2048, sk=2048, d=128, causal=True)
 # the edges of the forward kernel's 128-row block and 128-key ring tiles
 # (two slots at d128, three at d64): one tile, one row short of and one
 # past a block, a single query row over three key tiles, two query blocks
-# over eight key tiles
+# over eight key tiles, and three query blocks over one key tile whose first
+# 200 rows admit no key (causal, sq > sk)
 EDGES = [(64, 64, True), (127, 127, True), (129, 129, True), (1, 300, False),
-         (130, 1000, True)]
+         (130, 1000, True), (300, 100, True)]
 FWD_EDGE_CASES = (
     [dict(b=2, h=4, kvh=4, sq=sq, sk=sk, d=d, causal=c)
      for d in (64, 128) for sq, sk, c in EDGES]
@@ -196,31 +198,21 @@ def time_ms(fn, reps=25, warmup=3):
 def device_ms(fn, calls=20, warmup=3):
     """Device time of one call: `calls` back-to-back calls captured in one
     CUDA graph and replayed between one pair of CUDA events, so no host
-    work (tensor-map encoding, ctypes, allocation) lies between them. If
-    the calls cannot be captured, they run eagerly between the events
-    instead, where the host may hold the card back, and the log says so."""
+    work (tensor-map encoding, ctypes, allocation) lies between them. A
+    call that cannot be captured raises."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-            for _ in range(calls):
-                fn()
-        run = graph.replay
-        run()
-    except RuntimeError as err:
-        log(f"  (CUDA graph capture failed, timing eager calls: {err})")
-        graph = None
-
-        def run():
-            for _ in range(calls):
-                fn()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    run()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / calls
@@ -371,6 +363,16 @@ def bhsd(x, pad):
         .contiguous()
 
 
+def live_rows(case):
+    """(sq,) bool on the card: the query rows that admit at least one key.
+    Under the bottom-right causal mask with sq > sk the first sq - sk rows
+    admit none; their values are undefined and not compared."""
+    rows = torch.arange(case["sq"], device="cuda")
+    if not case["causal"]:
+        return torch.ones_like(rows, dtype=torch.bool)
+    return rows >= case["sq"] - case["sk"]
+
+
 def case_name(case):
     dtype = str(case.get("dtype", torch.bfloat16)).replace("torch.", "")
     return (f"b{case['b']} h{case['h']}/kv{case['kvh']} sq{case['sq']} "
@@ -394,11 +396,15 @@ def phase_k1():
             ref_out, ref_lse = fa._flash_fwd_bhsd_plain(qp, kp, vp, causal,
                                                         scale, rep)
             out = out[..., :d].float()
-            err_out = (out - ref_out.float()).abs().max().item()
-            err_lse = (lse - ref_lse).abs().max().item()
-            ok = (torch.allclose(out, ref_out.float(), atol=OUT_ATOL,
-                                 rtol=OUT_RTOL)
-                  and err_lse <= LSE_ATOL)
+            finite = bool(torch.isfinite(out).all() and
+                          torch.isfinite(lse).all())
+            live = live_rows(case)
+            out, ref_out = out[:, live], ref_out[:, live].float()
+            err_out = (out - ref_out).abs().max().item()
+            err_lse = (lse[:, live] - ref_lse[:, live]).abs().max().item()
+            ok = (finite and err_lse <= LSE_ATOL
+                  and torch.allclose(out, ref_out, atol=OUT_ATOL,
+                                     rtol=OUT_RTOL))
             del ref_out, ref_lse
             kernel = lambda: fa._flash_fwd_bhsd(qk, kk, vk, causal, scale,
                                                 rep)
@@ -417,7 +423,8 @@ def phase_k1():
             f"kernel {ms:.4f} ms back to back ({call_ms:.4f} single call) "
             f"plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms back to "
             f"back ({library_call_ms:.4f} single call) bound "
-            f"{bound * 1e3:.2f} us ({bound_by}) {'ok' if ok else 'FAIL'}")
+            f"{bound * 1e3:.2f} us ({bound_by}) finite: {finite} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             sys.exit(f"chip_smoke: K1 disagrees with its plain version at "
                      f"{case}")
@@ -426,7 +433,7 @@ def phase_k1():
                 records[name] = dict(
                     max_abs_err=max(err_out, err_lse), ms=ms,
                     plain_ms=plain_ms, bound_ms=bound, bound_by=bound_by,
-                    library_ms=library_ms, call_ms=call_ms)
+                    library_ms=library_ms)
     return records
 
 
@@ -474,12 +481,15 @@ def phase_k2():
             ref_out, ref_lse = fa._flash_fwd_bhsd_plain(
                 qp, kp, vp, causal, scale, rep, rp, w, RMS_EPS, d)
             out = out[..., :d].float()
-            ref_out = ref_out.float()
+            finite = bool(torch.isfinite(out).all() and
+                          torch.isfinite(lse).all())
+            live = live_rows(case)
+            out, ref_out = out[:, live], ref_out[:, live].float()
             gmax = w.abs().max().item()
             err_out = (out - ref_out).abs().max().item()
-            err_lse = (lse - ref_lse).abs().max().item()
-            ok = (bool(((out - ref_out).abs() <= K2_ATOL * gmax
-                        + K2_RTOL * ref_out.abs()).all())
+            err_lse = (lse[:, live] - ref_lse[:, live]).abs().max().item()
+            ok = (finite and bool(((out - ref_out).abs() <= K2_ATOL * gmax
+                                   + K2_RTOL * ref_out.abs()).all())
                   and err_lse <= LSE_ATOL and torch.equal(lse, k1_lse))
             del ref_out, ref_lse
             timed = case is PREFILL or case is TRAIN_ATTN
@@ -499,7 +509,8 @@ def phase_k2():
         log(f"K2 {case_name(case)}: max|out err| {err_out:.3e} "
             f"(tol {K2_ATOL}*max|gamma| {gmax:.2f} + {K2_RTOL}*|ref|) "
             f"max|lse err| {err_lse:.3e} (tol {LSE_ATOL}), lse equal to "
-            f"K1's: {torch.equal(lse, k1_lse)} {'ok' if ok else 'FAIL'}")
+            f"K1's: {torch.equal(lse, k1_lse)}, finite: {finite} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             sys.exit(f"chip_smoke: K2 disagrees with its plain version at "
                      f"{case}")
@@ -512,8 +523,7 @@ def phase_k2():
             f"{ms / k1_ms:.3f}), K1 + torch epilogue {unfused_ms:.4f} ms")
         records["prefill" if case is PREFILL else "train"] = dict(
             max_abs_err=max(err_out, err_lse), ms=ms, plain_ms=plain_ms,
-            bound_ms=bound, bound_by=bound_by, library_ms=None,
-            call_ms=call_ms, k1_ms=k1_ms, k1_epilogue_ms=unfused_ms)
+            bound_ms=bound, bound_by=bound_by, library_ms=None)
     return records
 
 

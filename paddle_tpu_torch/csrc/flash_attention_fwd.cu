@@ -235,14 +235,19 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
         mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
         mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
       }
-      float alpha[2], mb[2];
+      float alpha[2], mb[2], rsl[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
         mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
         alpha[i] = exp2f((m[i] - mx[i]) * sl2);
         m[i] = mx[i];
-        mb[i] = mx[i] * sl2;
+        // a row that has met no admissible key yet (causal, sq > sk) has
+        // only masked scores: give each p = 1, as exp(-1e30 - -1e30) is,
+        // so the row stays finite. With sl2, fmaf would leave the rounding
+        // residual of -1e30 * log2(e) (up to 2^76) in the exponent.
+        rsl[i] = mx[i] == neg_raw ? 0.f : sl2;
+        mb[i] = mx[i] * rsl[i];
       }
       // P = exp(scale (s - m)), rounded to the input dtype as the A operand
       // of P V; l sums the unrounded values
@@ -250,10 +255,10 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       float rs[2] = {0.f, 0.f};
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
-        const float p0 = exp2f(fmaf(sc[4 * j], sl2, -mb[0]));
-        const float p1 = exp2f(fmaf(sc[4 * j + 1], sl2, -mb[0]));
-        const float p2 = exp2f(fmaf(sc[4 * j + 2], sl2, -mb[1]));
-        const float p3 = exp2f(fmaf(sc[4 * j + 3], sl2, -mb[1]));
+        const float p0 = exp2f(fmaf(sc[4 * j], rsl[0], -mb[0]));
+        const float p1 = exp2f(fmaf(sc[4 * j + 1], rsl[0], -mb[0]));
+        const float p2 = exp2f(fmaf(sc[4 * j + 2], rsl[1], -mb[1]));
+        const float p3 = exp2f(fmaf(sc[4 * j + 3], rsl[1], -mb[1]));
         rs[0] += p0 + p1;
         rs[1] += p2 + p3;
         pa[2 * j] = pack2<BF16>(p0, p1);

@@ -263,8 +263,9 @@ def _flash_fwd_bhsd(q, k, v, causal, scale, q_per_kv=1, residual=None,
     (bf16/fp16, D in {64, 128}) or raise. Query head b reads kv head
     b // q_per_kv (batch-major b). The causal mask is aligned bottom-right.
     A row with no admissible key (causal, sq > sk) has no defined result:
-    the kernel and the plain version give different finite values there,
-    and such rows are not compared.
+    the kernel and the plain version both give it finite values (a uniform
+    average of the keys each visits, lse about -1e30), but not the same
+    ones, and such rows are not compared.
     """
     _check_shapes(q, k, v, q_per_kv)
     if (residual is None) != (rms_weight is None):
@@ -284,11 +285,9 @@ def _flash_fwd_bhsd(q, k, v, causal, scale, q_per_kv=1, residual=None,
                                      residual, rms_weight, rms_eps, rms_d)
     if residual is None:
         return _flash_fwd_cuda(q, k, v, causal, scale, q_per_kv)
-    w = rms_weight.float().contiguous()
-    if w.data_ptr() % 16:   # the kernel copies it whole into shared memory
-        w = w.clone()
     return _flash_fwd_rms_epilogue_cuda(
-        q, k, v, residual, w, causal, scale, q_per_kv, rms_eps,
+        q, k, v, residual, rms_weight.float().contiguous(), causal, scale,
+        q_per_kv, rms_eps,
         rms_d or q.shape[2])
 
 

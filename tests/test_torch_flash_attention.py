@@ -60,6 +60,28 @@ def test_plain_matches_pallas_forward(sq, sk, causal):
                                rtol=F32_TOL, atol=F32_TOL)
 
 
+def test_rows_without_keys_stay_finite():
+    # causal sq > sk: the first sq - sk rows admit no key, so their values
+    # are undefined; they must stay finite, and the rows that have keys
+    # must match the reference
+    sq, sk = 300, 100
+    rs = np.random.RandomState(4)
+    q, k, v = _rand(rs, 2, sq, 64), _rand(rs, 2, sk, 64), _rand(rs, 2, sk, 64)
+    ref_out, ref_lse = jfa._flash_fwd_bhsd(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), True, 0.125,
+        interpret=True)
+    out, lse = fa._flash_fwd_bhsd(torch.as_tensor(q), torch.as_tensor(k),
+                                  torch.as_tensor(v), True, 0.125)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    live = slice(sq - sk, sq)
+    np.testing.assert_allclose(out.numpy()[:, live],
+                               np.asarray(ref_out)[:, live],
+                               rtol=F32_TOL, atol=F32_TOL)
+    np.testing.assert_allclose(lse.numpy()[:, live],
+                               np.asarray(ref_lse)[:, live],
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
 @pytest.mark.parametrize("h,kvh,d,causal", [
     (4, 2, 64, True),     # GQA
     (4, 2, 64, False),
