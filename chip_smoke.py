@@ -7,8 +7,8 @@ Phases, each of which makes the script exit non-zero if it fails:
   1. device: the card's name and power limit (nvidia-smi); TF32 is turned
      off for float32 matrix products.
   2. build: the CUDA kernels from paddle_tpu_torch/csrc, timed; fails if
-     ptxas reports a spill in any instantiation of the forward kernel or
-     ignores its setmaxnreg (warning C7508).
+     ptxas reports a spill in any instantiation of the forward or backward
+     kernels or ignores a setmaxnreg (warning C7508).
   3. K1: the flash-attention forward kernel against its plain torch version
      on the card in bf16 at the reference's test cases, GQA, d96, the
      edges of the kernel's 128-row block and 128-key ring tiles (sq = sk
@@ -30,10 +30,14 @@ Phases, each of which makes the script exit non-zero if it fails:
      version, and, as yardsticks only, K1 alone and K1 followed by the
      torch epilogue.
   5. K3/K4: the flash-attention backward kernels against the plain
-     backward in bf16 at K1's cases before the edge cases (and in fp16 at
-     two more), dK and dV repeated bit for bit, and back-to-back times at
-     the training shape (torch's own flash-attention backward as a
-     yardstick only).
+     backward in bf16 at K1's cases, the edge cases included (and in fp16
+     at the training shape and two more), dQ, dK and dV repeated bit for bit, and back-to-back
+     times at the training shape with their rate and share of the bound
+     (torch's own flash-attention backward as a yardstick only), beside the
+     wrapper's delta = rowsum(dO * O) pass. In the causal sq 300 over sk
+     100 case the rows of dO that admit no key are zero: such rows are
+     undefined in the forward, and with dO zero they add nothing in either
+     version.
   6. router: the shipped H100 ledger's decision, with its provenance, at
      the serving prefill shape and the training attention shape, and
      whether it marks the fused epilogue a winner there. The launch counts
@@ -165,8 +169,8 @@ K2_CASES = (
             dtype=torch.float16),
        PREFILL, TRAIN_ATTN]
     + FWD_EDGE_CASES)
-# K3/K4 also in fp16, at a GQA case and a padded case
-K34_CASES = BASE_CASES + (
+# K3/K4 at K1's cases, and also in fp16 at a GQA case and a padded case
+K34_CASES = BASE_CASES + FWD_EDGE_CASES + (
     [dict(b=2, h=32, kvh=8, sq=512, sk=512, d=128, causal=True,
           dtype=torch.float16),
      dict(b=2, h=4, kvh=4, sq=200, sk=200, d=64, causal=True,
@@ -252,20 +256,24 @@ def k2_bound_ms(b, h, kvh, sq, sk, d, causal, itemsize=2, **_):
     return bound_ms(nbytes, 2 * 2 * d * attn_pairs(sq, sk, causal) * b * h)
 
 
+def bwd_flops(kernel, b, h, sq, sk, d, causal, **_):
+    """FLOPs of one K3 call (three products: Q K^T, dO V^T, dS K) or one K4
+    call (four: Q K^T, dO V^T, P^T dO, dS^T Q), 2 d a (row, key) pair
+    each."""
+    products = 3 if kernel == "dq" else 4
+    return products * 2 * d * attn_pairs(sq, sk, causal) * b * h
+
+
 def bwd_bound_ms(kernel, b, h, kvh, sq, sk, d, causal, itemsize=2):
-    """One K3 call (three products: Q K^T, dO V^T, dS K; dq written) or one
-    K4 call (four: Q K^T, dO V^T, P^T dO, dS^T Q; dk and dv written); each
+    """One K3 call (dq written) or one K4 call (dk and dv written); each
     reads q, dO, k, v, lse and delta once."""
     nbytes = (itemsize * d * (2 * b * h * sq + 2 * b * kvh * sk)
               + 8 * b * h * sq)
     if kernel == "dq":
         nbytes += itemsize * d * b * h * sq
-        products = 3
     else:
         nbytes += 2 * itemsize * d * b * kvh * sk
-        products = 4
-    return bound_ms(nbytes, products * 2 * d * attn_pairs(sq, sk, causal)
-                    * b * h)
+    return bound_ms(nbytes, bwd_flops(kernel, b, h, sq, sk, d, causal))
 
 
 def library_attention(q, k, v, causal):
@@ -311,7 +319,7 @@ def phase_device():
 
 def phase_build():
     """Build the kernels; fail if ptxas spills in any instantiation of the
-    forward kernel or ignores its setmaxnreg (warning C7508)."""
+    forward or backward kernels or ignores a setmaxnreg (warning C7508)."""
     t0 = time.perf_counter()
     _build.library()
     log(f"build: kernel library ready in {time.perf_counter() - t0:.2f} s")
@@ -329,12 +337,13 @@ def phase_build():
             if "registers" in line or "spill" in line:
                 log("  nvcc:", line.strip())
             spills = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
-            if "flash_fwd_kernel" in function and any(spills):
+            if re.search(r"flash_(fwd|bwd_dq|bwd_dkv)_kernel", function) \
+                    and any(spills):
                 faults.append(f"{function}: {line.strip()}")
     if faults:
-        sys.exit("chip_smoke: the forward kernel spills or loses its "
+        sys.exit("chip_smoke: a flash kernel spills or loses its "
                  "setmaxnreg:\n" + "\n".join(faults))
-    log("build: no spills and no C7508 in the forward kernel")
+    log("build: no spills and no C7508 in the forward and backward kernels")
 
 
 def case_inputs(case, gen, with_grad=False):
@@ -529,7 +538,7 @@ def phase_k2():
 
 def phase_k34():
     """K3 and K4 vs the plain backward at every case, on the kernel
-    forward's out and lse; dK/dV repeated bit for bit; times at the
+    forward's out and lse; dQ, dK and dV repeated bit for bit; times at the
     training shape. Returns the records of K3 and K4 there."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
@@ -537,6 +546,11 @@ def phase_k34():
     for case in K34_CASES:
         h, kvh, d, causal = case["h"], case["kvh"], case["d"], case["causal"]
         xs, (qk, kk, vk, gk), (qp, kp, vp, gp) = case_inputs(case, gen, True)
+        # rows that admit no key (causal sq > sk) are undefined in the
+        # forward; with dO zero there they add nothing in either version
+        dead = ~live_rows(case)
+        gk[:, dead] = 0
+        gp[:, dead] = 0
         scale = 1.0 / d ** 0.5
         rep = h // kvh
         with torch.inference_mode():
@@ -555,22 +569,26 @@ def phase_k34():
                 abs_errs.append((x[..., :d].float() - r).abs().max().item())
                 errs.append(abs_errs[-1] / r.abs().max().item())
             del ref
-            repeat = (torch.equal(got[1], again[1])
-                      and torch.equal(got[2], again[2]))
-        ok = max(errs) <= BWD_RTOL and repeat
+            finite = all(bool(torch.isfinite(x).all()) for x in got)
+            repeat = all(torch.equal(x, y) for x, y in zip(got, again))
+        ok = finite and all(e <= BWD_RTOL for e in errs) and repeat
         log(f"K3/K4 {case_name(case)}: max|err|/max|ref| dq {errs[0]:.3e} "
-            f"dk {errs[1]:.3e} dv {errs[2]:.3e} (tol {BWD_RTOL}), dk/dv "
-            f"repeat bitwise: {repeat} {'ok' if ok else 'FAIL'}")
+            f"dk {errs[1]:.3e} dv {errs[2]:.3e} (tol {BWD_RTOL}), finite: "
+            f"{finite}, dq/dk/dv repeat bitwise: {repeat} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             sys.exit(f"chip_smoke: K3/K4 disagree with the plain backward "
                      f"or do not repeat at {case}")
         if case is not TRAIN_ATTN:
             continue
         with torch.inference_mode():
-            delta = (gk.float() * out.float()).sum(-1)
+            # the wrapper's delta pass, as _flash_bwd_bhsd takes it
+            delta_fn = lambda: (gk.float() * out.float()).sum(-1)
+            delta = delta_fn()
             args = (qk, kk, vk, gk, lse, delta, causal, scale, rep)
             dq_ms = device_ms(lambda: fa._flash_bwd_dq_cuda(*args))
             dkv_ms = device_ms(lambda: fa._flash_bwd_dkv_cuda(*args))
+            delta_ms = device_ms(delta_fn)
             plain_ms = time_ms(lambda: fa._flash_bwd_bhsd_plain(
                 qp, kp, vp, out, lse, gp, causal, scale, rep), reps=5)
             lib = library_attention_bwd(
@@ -583,12 +601,15 @@ def phase_k34():
             records[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                  bound_ms=bound, bound_by=bound_by,
                                  library_ms=library_ms)
+            tflops = bwd_flops(name, **case) / (ms * 1e-3) / 1e12
             log(f"  K{3 if name == 'dq' else 4} ({name}): kernel {ms:.4f} ms "
-                f"back to back, bound {bound:.4f} ms ({bound_by})")
-        log(f"  plain backward (dq, dk, dv) {plain_ms:.4f} ms; torch flash "
-            f"backward (dq, dk, dv) {library_ms:.4f} ms back to back "
-            f"against K3+K4 "
-            f"{dq_ms + dkv_ms:.4f} ms")
+                f"back to back, {tflops:.1f} TFLOP/s, bound {bound:.4f} ms "
+                f"({bound_by}), {bound / ms:.1%} of the bound")
+        log(f"  delta = rowsum(dO * O) in the wrapper {delta_ms:.4f} ms; "
+            f"plain backward (dq, dk, dv) {plain_ms:.4f} ms; torch flash "
+            f"backward (dq, dk, dv) {library_ms:.4f} ms back to back against "
+            f"K3+K4 {dq_ms + dkv_ms:.4f} ms (with delta "
+            f"{dq_ms + dkv_ms + delta_ms:.4f} ms)")
     return records
 
 

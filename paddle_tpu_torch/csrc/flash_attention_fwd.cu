@@ -209,7 +209,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_ss_n128<BF16>(
+        wgmma_ss<BF16>(
             sc, sw128_desc(qs + (kk / 4) * BM * 128 + (kk % 4) * 32, 16),
             sw128_desc(ks + (kk / 4) * BN * 128 + (kk % 4) * 32, 16),
             kk > 0);
@@ -353,54 +353,6 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 
 // ---- host side -------------------------------------------------------------
 
-using EncodeTiled = CUresult (*)(
-    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
-    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
-    CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, through the runtime, so the
-// library needs no link against libcuda
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
-// a (heads, rows, d) tensor as 128-byte-swizzled boxes of 64 x 128 x 1
-bool encode_map(CUtensorMap* map, const void* ptr, int d, int rows,
-                int heads, bool bf16) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {cuuint64_t(d), cuuint64_t(rows),
-                              cuuint64_t(heads)};
-  const cuuint64_t strides[2] = {cuuint64_t(d) * 2,
-                                 cuuint64_t(d) * 2 * cuuint64_t(rows)};
-  const cuuint32_t box[3] = {64, BM, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return fn(map,
-            bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-            3, const_cast<void*>(ptr), dims, strides, box, step,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-constexpr int MAX_DEVICES = 64;
-
 template <int D, bool BF16, bool EPI>
 int launch(const void* q, const void* k, const void* v, const void* residual,
            const float* gamma, void* out, void* lse, int bh, int sq, int sk,
@@ -408,24 +360,18 @@ int launch(const void* q, const void* k, const void* v, const void* residual,
            int device, cudaStream_t stream) {
   using T = typename Elem<BF16>::T;
   constexpr uint32_t smem = Plan<D, EPI>::SMEM;
-  // the dynamic shared-memory limit, raised once per device
   static bool raised[MAX_DEVICES] = {};
-  if (device < 0 || device >= MAX_DEVICES) return int(cudaErrorInvalidDevice);
-  if (!raised[device]) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D, BF16, EPI>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return int(err);
-    raised[device] = true;
-  }
+  const cudaError_t err =
+      raise_smem(flash_fwd_kernel<D, BF16, EPI>, smem, raised, device);
+  if (err != cudaSuccess) return int(err);
   CUtensorMap tq, tk, tv, tr;
   const int kvh = bh / q_per_kv;
-  if (!encode_map(&tq, q, D, sq, bh, BF16) ||
-      !encode_map(&tk, k, D, sk, kvh, BF16) ||
-      !encode_map(&tv, v, D, sk, kvh, BF16))
+  if (!encode_map(&tq, q, D, sq, bh, BM, BF16) ||
+      !encode_map(&tk, k, D, sk, kvh, BN, BF16) ||
+      !encode_map(&tv, v, D, sk, kvh, BN, BF16))
     return int(cudaErrorInvalidValue);
   tr = tq;   // K1 reads no residual
-  if (EPI && !encode_map(&tr, residual, D, sq, bh, BF16))
+  if (EPI && !encode_map(&tr, residual, D, sq, bh, BM, BF16))
     return int(cudaErrorInvalidValue);
   dim3 grid(bh, (sq + BM - 1) / BM);
   flash_fwd_kernel<D, BF16, EPI><<<grid, THREADS, smem, stream>>>(

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks for the port's kernels, as inline PTX:
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the
-// wgmma.mma_async products the flash-attention kernels use. Kept to plain
-// functions (no CuTe) so a source that includes it builds in seconds.
+// wgmma.mma_async products the flash-attention kernels use, and on the host
+// the tensor maps their TMA loads read. Kept to plain functions (no CuTe)
+// so a source that includes it builds in seconds.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a box
 // is 64 16-bit values (128 bytes) wide, row r of a box lies at byte r * 128,
@@ -16,7 +17,9 @@
 // the C fragment of mma.m16n8k16 repeated over the N / 8 column chunks. The
 // A operand from registers (16-bit, m64k16) is mma.m16n8k16's A fragment
 // of the warp's 16 rows, so an accumulator re-packs in registers as the A
-// operand of the next product (flash_common.cuh, `pack_a`).
+// operand of the next product: with pa[2 j] = (r[4 j], r[4 j + 1]) and
+// pa[2 j + 1] = (r[4 j + 2], r[4 j + 3]) rounded to 16 bits, the A operand
+// of k step kk (columns 16 kk .. 16 kk + 15) is pa[4 kk .. 4 kk + 3].
 #pragma once
 
 #include <cuda.h>
@@ -164,8 +167,9 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57,"  \
   "%58, %59, %60, %61, %62, %63}"
 
-// d (64 x 128, f32) = (accumulate ? d : 0) + A B, A (64 x 16) and B
-// (16 x 128) both K-major in shared memory. TY: bf16 or f16.
+// d (64 x N, f32) = (accumulate ? d : 0) + A B, A (64 x 16) and B
+// (16 x N) both K-major in shared memory; N = 128 or 64, told apart by
+// the accumulator's size (N / 2 registers a thread). TY: bf16 or f16.
 #define HOPPER_SS_N128(TY)                                                \
   asm volatile(                                                          \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                        \
@@ -173,13 +177,26 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
       HOPPER_R64 ", %64, %65, p, 1, 1, 0, 0;\n}\n"                         \
       : HOPPER_F64(d)                                                    \
       : "l"(desc_a), "l"(desc_b), "r"(accumulate))
+#define HOPPER_SS_N64(TY)                                                 \
+  asm volatile(                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " "        \
+      HOPPER_R32 ", %32, %33, p, 1, 1, 0, 0;\n}\n"                         \
+      : HOPPER_F32(d)                                                    \
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate))
 
 template <bool BF16>
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
-                                              uint64_t desc_b,
-                                              int accumulate) {
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
   if constexpr (BF16) HOPPER_SS_N128("bf16");
   else HOPPER_SS_N128("f16");
+}
+
+template <bool BF16>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a,
+                                         uint64_t desc_b, int accumulate) {
+  if constexpr (BF16) HOPPER_SS_N64("bf16");
+  else HOPPER_SS_N64("f16");
 }
 
 // d (64 x N, f32) += A B: A (64 x 16) from registers (four 32-bit
@@ -214,6 +231,70 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32],
                                          uint64_t desc_b) {
   if constexpr (BF16) HOPPER_RS_N64("bf16");
   else HOPPER_RS_N64("f16");
+}
+
+// ---- host side: tensor maps ----------------------------------------------
+
+using EncodeTiled = CUresult (*)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*,
+    CUtensorMapInterleave, CUtensorMapSwizzle, CUtensorMapL2promotion,
+    CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, through the runtime, so the
+// library needs no link against libcuda
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// a (heads, rows, d) tensor of 16-bit values as 128-byte-swizzled boxes of
+// 64 x box_rows x 1; rows past `rows` of a head read as zero
+inline bool encode_map(CUtensorMap* map, const void* ptr, int d, int rows,
+                       int heads, int box_rows, bool bf16) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(d), cuuint64_t(rows),
+                              cuuint64_t(heads)};
+  const cuuint64_t strides[2] = {cuuint64_t(d) * 2,
+                                 cuuint64_t(d) * 2 * cuuint64_t(rows)};
+  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return fn(map,
+            bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+            3, const_cast<void*>(ptr), dims, strides, box, step,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+constexpr int MAX_DEVICES = 64;
+
+// raise `kernel`'s dynamic shared-memory limit to `smem` bytes on `device`,
+// once: `raised` is the caller's record, per kernel, of the devices done
+template <typename Kernel>
+cudaError_t raise_smem(Kernel kernel, uint32_t smem,
+                       bool (&raised)[MAX_DEVICES], int device) {
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (raised[device]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err == cudaSuccess) raised[device] = true;
+  return err;
 }
 
 }  // namespace hopper

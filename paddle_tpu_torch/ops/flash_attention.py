@@ -109,7 +109,10 @@ def _flash_bwd_bhsd_plain(q, k, v, o, lse, g, causal, scale, q_per_kv=1):
     over each kv head's query heads. delta = rowsum(dO * O) and
     P = exp(scale Q K^T - lse) in f32 under the -1e30 causal mask; P is
     rounded to the input dtype before P^T dO, and dS = P (dO V^T - delta)
-    before dS K and dS^T Q; every product sums in f32."""
+    before dS K and dS^T Q; every product sums in f32. A masked entry's P
+    is 0, as in the kernels: exp(-1e30 - lse) is 0 wherever a row admits a
+    key, and on a row that admits none (causal, sq > sk) lse is itself
+    about -1e30, so the difference could round to anything."""
     bh, sq, d = q.shape
     shape = (bh // q_per_kv, q_per_kv, sq, d)
     qg = q.float().reshape(shape)
@@ -117,6 +120,8 @@ def _flash_bwd_bhsd_plain(q, k, v, o, lse, g, causal, scale, q_per_kv=1):
     delta = (gg * o.float().reshape(shape)).sum(-1, keepdim=True)
     s = _grouped_scores(q, k, causal, scale, q_per_kv)
     p = torch.exp(s - lse.reshape(shape[:3])[..., None])
+    if causal:
+        p = p.masked_fill(~_causal_keep(sq, k.shape[1], q.device), 0.0)
     dp = torch.einsum("bgqd,bkd->bgqk", gg, v.float())
     ds = (p * (dp - delta)).to(q.dtype).float()
     dv = torch.einsum("bgqk,bgqd->bkd", p.to(q.dtype).float(), gg)
@@ -300,9 +305,9 @@ def _flash_bwd_bhsd(q, k, v, o, lse, g, causal, scale, q_per_kv=1):
 
     CPU tensors take `_flash_bwd_bhsd_plain`; CUDA tensors launch K3 then K4
     or raise, for the dtypes and head dims K1 takes. Rows with no admissible
-    key (causal, sq > sk) are undefined in the forward; the kernels let
-    them contribute nothing, so dk and dv then differ from the plain
-    version's.
+    key (causal, sq > sk) are undefined in the forward; the kernels and the
+    plain version let them contribute nothing (their P is 0), where the
+    reference's Pallas backward takes exp(-1e30 - lse) at face value.
     """
     _check_shapes(q, k, v, q_per_kv)
     if o.shape != q.shape or g.shape != q.shape or \

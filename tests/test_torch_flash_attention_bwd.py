@@ -26,6 +26,14 @@ CASES = [
     (520, 520, True),
     (128, 320, True),
     (100, 260, False),
+    # the edges of the CUDA kernels' tiles (K3: 128 query rows over
+    # 128-key tiles; K4: 128 keys over 64-row query tiles)
+    (127, 127, True),
+    (129, 129, True),
+    (1, 300, False),
+    (130, 1000, True),
+    # causal sq > sk: the first 200 rows admit no key; dO is zero there
+    (300, 100, True),
 ]
 # f32 on both sides; dq, dk and dv sum up to a few hundred products of
 # O(1) terms in another order (the Pallas kernel by 128-key blocks)
@@ -59,6 +67,10 @@ def test_plain_backward_matches_pallas(sq, sk, causal):
     rs = np.random.RandomState(0)
     q, k, v = _rand(rs, 2, sq, 64), _rand(rs, 2, sk, 64), _rand(rs, 2, sk, 64)
     g = _rand(rs, 2, sq, 64)
+    # rows that admit no key (causal sq > sk) are undefined in the forward:
+    # with dO zero there they add nothing to any gradient
+    if causal:
+        g[:, :max(0, sq - sk)] = 0
     got = _port_bwd(q, k, v, g, causal, 0.125)
     want = _ref_bwd(q, k, v, g, causal, 0.125)
     for x, w, name in zip(got, want, ("dq", "dk", "dv")):
