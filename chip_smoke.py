@@ -50,13 +50,31 @@ Phases, each of which makes the script exit non-zero if it fails:
      tokens, greedy twice and sampled twice (each pair must agree), plus a
      prefill-only run for timing. The K1 launch count must rise by the
      number of layers per generate call where the router picks K1.
-  9. fused epilogue: incubate's fused_attention_rms_epilogue at llama_7b's
+  9. serving engine: the same llama_7b served through
+     ContinuousBatchingEngine (8 lanes, blocks of 16, 128 blocks a
+     sequence, 1,040 blocks, prefill buckets 64-512 and chunks of 512,
+     decode_steps 4): 16 requests of 64 new tokens with prompts of 64-1536
+     tokens from RandomState(0), 12 greedy and 4 sampled (temperature 0.8,
+     top_k 50, top_p 0.9), half added before the first step and half after
+     the third. Three runs: two at decode_steps 4 (the second traced over
+     its decode window) and one at decode_steps 1. Every request must end
+     with 64 tokens in the vocabulary; the runs must give the same
+     streams; every decode graph (greedy and sampled, K 1 and 4) replayed
+     must give the tile the same program gives eagerly on the same lane
+     state; each prompt's first-chunk logits must agree with the dense
+     model forward within ENGINE_LOGITS_RTOL; K1-K4 must not launch from
+     the first add_request to the last token; lane-state uploads must not
+     outnumber membership changes. Prints prefill-chunk and decode-tile
+     device times, tokens/s, TTFT and TPOT medians, the device's busy
+     share over the decode window, peak memory and graph captures, and the
+     same for generate at batch 8.
+  10. fused epilogue: incubate's fused_attention_rms_epilogue at llama_7b's
      attention widths (b4 s512, 32 heads of 128) and at llama_1.3b's
      training attention shape (b8 s2048, 16 heads), bf16, residual and
      gamma from a seeded numpy draw: one K2 launch per call where the
      ledger marks the fusion a winner, the output against the unfused
      composition.
-  10. training slice: llama_1.3b (bench.py's top rung) in bf16 at full
+  11. training slice: llama_1.3b (bench.py's top rung) in bf16 at full
      width and depth, batch 8, sequence 2048, per-layer remat, chunked LM
      loss, AdamW: one warm-up step and 8 timed steps through
      paddle_tpu_torch.tools.train_llama.run_one. Every loss must be finite,
@@ -80,16 +98,21 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import generation
 from paddle_tpu_torch import optimizer
 from paddle_tpu_torch.models import build_scanned_llama
+from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.incubate.nn import functional as IF
+from paddle_tpu_torch.inference import ContinuousBatchingEngine
+from paddle_tpu_torch.observability.quantiles import quantile_from_cumulative
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import attention_router as ar
 from paddle_tpu_torch.ops import flash_attention as fa
-from paddle_tpu_torch.tools import train_llama
+from paddle_tpu_torch.tools import profile_serving, train_llama
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s
 # and bf16 tensor-core FLOP/s
@@ -175,6 +198,25 @@ K34_CASES = BASE_CASES + FWD_EDGE_CASES + (
           dtype=torch.float16),
      dict(b=2, h=4, kvh=4, sq=200, sk=200, d=64, causal=True,
           dtype=torch.float16)])
+
+# the continuous-batching engine's phase: llama_7b through
+# ContinuousBatchingEngine at these knobs, serving ENGINE_REQUESTS requests
+# of ENGINE_NEW tokens each, prompts of 64-1536 tokens from RandomState(0);
+# the first half is added before the first step, the rest after the third
+ENGINE = dict(max_batch=8, block_size=16, max_blocks_per_seq=128,
+              num_blocks=1040, prefill_buckets=(64, 128, 256, 512),
+              prefill_chunk=512)
+ENGINE_REQUESTS = 16
+ENGINE_NEW = 64
+ENGINE_SAMPLED = dict(do_sample=True, temperature=0.8, top_k=50, top_p=0.9)
+ENGINE_SAMPLED_AT = (2, 5, 10, 13)      # 4 sampled requests, 2 a wave
+# the engine's first-chunk logits against the dense model forward, both in
+# bf16 on the card: the engine's paged attention takes f32 scores over the
+# bf16 pool, the forward takes K1 or dense attention, and every product and
+# residual add of 32 layers rounds to bf16 on both sides in another order,
+# so each logit may differ by a few bf16 steps of the largest logit (2^-8
+# relative): |err| <= ENGINE_LOGITS_RTOL * max|logit|
+ENGINE_LOGITS_RTOL = 5e-2
 
 
 def log(*args):
@@ -659,11 +701,9 @@ def phase_tiny_reference():
         sys.exit("chip_smoke: tiny llama on the card disagrees with the CPU")
 
 
-def phase_slice(decision):
-    """llama_7b serving 4 x 512-token prompts; returns K1's launches over
-    the main path. `decision` is the router's at the prefill shape: each
-    generate launches K1 once per layer if its forward is the kernel, else
-    never."""
+def build_llama_7b():
+    """llama_7b in bf16 at full width and depth, random weights from
+    seed(0): the model of the serving phases."""
     pt.seed(0)
     t0 = time.perf_counter()
     model = pt.models.llama_7b(dtype="bfloat16", device="cuda")
@@ -673,6 +713,15 @@ def phase_slice(decision):
     log(f"llama_7b: {model.num_params()} params, {cfg.num_hidden_layers} "
         f"layers, hidden {cfg.hidden_size}, built in "
         f"{time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def phase_slice(decision, model):
+    """llama_7b serving 4 x 512-token prompts; returns K1's launches over
+    the main path. `decision` is the router's at the prefill shape: each
+    generate launches K1 once per layer if its forward is the kernel, else
+    never."""
+    cfg = model.config
     b, s, new = 4, 512, 32
     ids = torch.as_tensor(
         np.random.RandomState(0).randint(0, cfg.vocab_size, (b, s)),
@@ -724,6 +773,325 @@ def phase_slice(decision):
         f"{peak / 2**30:.2f} GiB, greedy tokens differ from sampled in "
         f"{(outs[0][:, s:] != outs[2][:, s:]).float().mean().item():.2%}")
     return launches
+
+
+def flash_launches():
+    """K1 + K2 + K3 + K4 launches since their counters were last set."""
+    return (fa.flash_fwd_launches + fa.flash_fwd_rms_epilogue_launches
+            + fa.flash_bwd_dq_launches + fa.flash_bwd_dkv_launches)
+
+
+def zero_flash_launches():
+    fa.flash_fwd_launches = fa.flash_fwd_rms_epilogue_launches = 0
+    fa.flash_bwd_dq_launches = fa.flash_bwd_dkv_launches = 0
+
+
+def kernel_ms_traced(fn):
+    """Summed kernel time (ms) of fn() under torch.profiler, None if the
+    profiler saw no kernel. Kernels only: the host ops that launched them
+    carry the same device time."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = [getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+          for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(u for u in us if u > 0)
+    return total / 1e3 if total else None
+
+
+def engine_traffic(vocab):
+    """The engine phase's 16 prompts (lengths 64-1536 and ids from
+    RandomState(0)) and each request's knobs."""
+    rs = np.random.RandomState(0)
+    lengths = rs.randint(64, 1537, ENGINE_REQUESTS)
+    prompts = [rs.randint(0, vocab, n) for n in lengths]
+    knobs = [dict(ENGINE_SAMPLED, seed=100 + i) if i in ENGINE_SAMPLED_AT
+             else {} for i in range(ENGINE_REQUESTS)]
+    return prompts, knobs
+
+
+def serve_traffic(model, prompts, knobs, decode_steps, on_step=None):
+    """One engine run of the phase's traffic: half the requests before the
+    first step, the rest after the third. Returns the engine, the streams,
+    the K1-K4 launches from the first add_request to the last token, the
+    host-clock wall of the run and of its decode window (the steps after
+    the last prefill chunk), and the window's first step."""
+    eng = ContinuousBatchingEngine(model, decode_steps=decode_steps,
+                                   **ENGINE)
+    half = ENGINE_REQUESTS // 2
+    torch.cuda.synchronize()
+    zero_flash_launches()                    # the path starts here
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, max_new_tokens=ENGINE_NEW, **kw)
+            for p, kw in zip(prompts[:half], knobs[:half])]
+    steps, window = 0, None
+    while eng.has_work():
+        eng.step()
+        steps += 1
+        if steps == 3:
+            rids += [eng.add_request(p, max_new_tokens=ENGINE_NEW, **kw)
+                     for p, kw in zip(prompts[half:], knobs[half:])]
+        if (window is None and steps > 3 and not eng.queue
+                and not eng._prefill_tasks):
+            torch.cuda.synchronize()
+            window = (steps + 1, time.perf_counter())
+        if on_step is not None:
+            on_step(eng, steps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = flash_launches()              # and ends at the last token
+    streams = [eng.finished[r].generated for r in rids]
+    reasons = [eng.finished[r].finish_reason for r in rids]
+    return dict(engine=eng, streams=streams, reasons=reasons, steps=steps,
+                launches=launches, wall=t1 - t0, window_step=window[0],
+                window_wall=t1 - window[1])
+
+
+def graph_matches_eager(eng):
+    """Each decode program, greedy and sampled at K 1 and 4, replayed from
+    its graph and run eagerly on the same lane state must give the same
+    tile. The lane state is restored after each run, so the engine goes on
+    as if neither had happened."""
+    with torch.no_grad():
+        eng._drain_all()
+        if eng._dirty:
+            eng._upload_lane_state(eng._decode_active())
+        snap = {k: v.clone() for k, v in eng._dev.items()}
+
+        def restore():
+            for k, v in snap.items():
+                eng._dev[k].copy_(v)
+        same = []
+        for sampled in (False, True):
+            for k in (1, 4):
+                prog = eng._graphs.get((sampled, k))
+                if prog is None:
+                    prog = eng._graphs[(sampled, k)] = eng._capture(sampled,
+                                                                    k)
+                    eng.graph_captures += 1
+                restore()
+                prog.graph.replay()
+                replayed = prog.tile.clone()
+                restore()
+                eager = eng._decode_tile(sampled, k)
+                restore()
+                same.append(((sampled, k), torch.equal(replayed, eager),
+                             int(eng._dev["alive"].sum())))
+    return same
+
+
+def engine_device_ms(eng):
+    """CUDA-event medians, on the engine of a finished run, of one prefill
+    chunk of 512 tokens and of one decode tile, greedy and sampled, over
+    all 8 lanes at position 1,024 (profile_serving.lane_state), the lane
+    state restored before each replay."""
+    d = eng._dev
+    reset_greedy = profile_serving.lane_state(eng, eng.embed_w.shape[0])
+
+    def reset_sampled():
+        reset_greedy()
+        d["do_sample"].fill_(True)
+        d["seeds"].copy_(torch.arange(eng.max_batch, device=eng.device))
+        d["temp"].fill_(ENGINE_SAMPLED["temperature"])
+        d["top_k"].fill_(ENGINE_SAMPLED["top_k"])
+        d["top_p"].fill_(ENGINE_SAMPLED["top_p"])
+    ids = torch.as_tensor(np.random.RandomState(3).randint(
+        0, eng.embed_w.shape[0], (1, 512)), device=eng.device)
+    with torch.no_grad():
+        reset_greedy()
+        table = d["tables"][0].clone()
+        chunk_ms = profile_serving.median_ms(
+            lambda: eng._prefill_chunk(ids, 0, 511, table), reset_greedy)
+        tile_ms = {}
+        for sampled, reset in ((False, reset_greedy), (True, reset_sampled)):
+            key = (sampled, eng.decode_steps)
+            if key not in eng._graphs:
+                eng._graphs[key] = eng._capture(*key)
+                eng.graph_captures += 1
+            tile_ms["sampled" if sampled else "greedy"] = \
+                profile_serving.median_ms(eng._graphs[key].graph.replay,
+                                          reset)
+    for lane in range(eng.max_batch):
+        eng.pool.release(lane)
+    return chunk_ms, tile_ms
+
+
+def chunk_logits_check(eng, model, prompts):
+    """Each prompt's first chunk through the engine's prefill program (into
+    blocks reserved for the check) against the dense model forward: the
+    logits of the chunk's last position. Returns the largest error over
+    the largest |logit|."""
+    worst = 0.0
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            n = min(len(p), eng.chunk)
+            table = torch.full((ENGINE["max_blocks_per_seq"],),
+                               eng.pool.scratch_block, dtype=torch.int64)
+            t = eng.pool.ensure(("check", i), n)
+            table[:len(t)] = torch.as_tensor(t)
+            ids = torch.as_tensor(p[:n], device=eng.device)[None]
+            got = eng._prefill_chunk(ids, 0, n - 1, table.to(eng.device))
+            want = model(ids)[0, n - 1].float()
+            eng.pool.release(("check", i))
+            if not (torch.isfinite(got).all() and torch.isfinite(want).all()):
+                sys.exit("chip_smoke: non-finite first-chunk logits")
+            worst = max(worst, (got - want).abs().max().item()
+                        / want.abs().max().item())
+    return worst
+
+
+def hist_median(name):
+    fam = obs.get_registry().get(name)
+    if fam is None or not fam.count:
+        return None
+    return quantile_from_cumulative(fam.cumulative_buckets(), 0.5)
+
+
+def phase_engine(model):
+    """llama_7b served through ContinuousBatchingEngine: chunked prefill
+    into the paged bf16 pool, and the fused K-step decode replayed from
+    one CUDA graph per (variant, K). Three runs of the traffic: two at
+    decode_steps 4 (timed; the second traced over its decode window) and
+    one at decode_steps 1, which also holds every decode graph against
+    the same program run eagerly. Then generate at the same batch, for
+    comparison."""
+    cfg = model.config
+    prompts, knobs = engine_traffic(cfg.vocab_size)
+    log(f"engine: {ENGINE_REQUESTS} requests, prompts {min(map(len, prompts))}"
+        f"-{max(map(len, prompts))} tokens ({sum(map(len, prompts))} in "
+        f"all), {ENGINE_NEW} new tokens each, sampled at "
+        f"{list(ENGINE_SAMPLED_AT)} ({ENGINE_SAMPLED}), knobs {ENGINE}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    obs.get_registry().reset()
+    obs.enable()
+    a = serve_traffic(model, prompts, knobs, 4)
+    peak = torch.cuda.max_memory_allocated()
+    reg = obs.get_registry()
+    uploads = reg.get("serving_lane_state_uploads_total").value
+    dispatches = reg.get("serving_decode_dispatches_total").value
+    ttft, tpot = (hist_median("serving_ttft_seconds"),
+                  hist_median("serving_tpot_seconds"))
+    obs.disable()
+    eng = a["engine"]
+    captures = eng.graph_captures
+    chunk_ms, tile_ms = engine_device_ms(eng)
+    worst = chunk_logits_check(eng, model, prompts)
+    del eng, a["engine"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def traced_window(e, step):
+        if step + 1 == b_window[0]:
+            b_window[1] = kernel_ms_traced(
+                lambda: [e.step() for _ in range(b_window[2])])
+    b_window = [a["window_step"], None, a["steps"] - a["window_step"] + 1]
+    b = serve_traffic(model, prompts, knobs, 4, on_step=traced_window)
+    del b["engine"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    checks = []
+    c = serve_traffic(model, prompts, knobs, 1, on_step=lambda e, step: (
+        checks.extend(graph_matches_eager(e)) if step == 6 else None))
+    del c["engine"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tokens = sum(map(len, a["streams"]))
+    K, B = 4, ENGINE["max_batch"]
+    busy = (None if b_window[1] is None
+            else b_window[1] / 1e3 / a["window_wall"])
+    log(f"engine: prefill chunk of 512 tokens {chunk_ms:.3f} ms (CUDA "
+        f"events, median of 5)")
+    log(f"engine: decode tile K={K} over {B} lanes {tile_ms['greedy']:.3f} "
+        f"ms greedy, {tile_ms['sampled']:.3f} ms sampled (graph replay, "
+        f"CUDA events, median of 5): {tile_ms['greedy'] / K:.3f} ms per "
+        f"token per lane, {tile_ms['greedy'] / (K * B):.4f} ms per token")
+    log(f"engine: {tokens} tokens in {a['wall']:.3f} s, "
+        f"{tokens / a['wall']:.1f} tokens/s ({a['steps']} steps, host "
+        f"clock, prefill included); TTFT median "
+        f"{ttft if ttft is None else f'{ttft:.4f}'} s, TPOT median "
+        f"{tpot if tpot is None else f'{tpot:.5f}'} s (catalog "
+        f"histograms, bucket-interpolated)")
+    log(f"engine: decode window steps {a['window_step']}-{a['steps']} "
+        f"{a['window_wall'] * 1e3:.1f} ms host clock, kernels "
+        + ("not measured (the profiler saw no kernel)" if busy is None else
+           f"{b_window[1]:.1f} ms (traced twin run), device busy {busy:.1%}"))
+    log(f"engine: peak memory {peak / 2**30:.2f} GiB, graph captures "
+        f"{captures}, lane-state uploads {uploads:.0f} (membership changes at "
+        f"most {2 * ENGINE_REQUESTS}), decode dispatches {dispatches:.0f} "
+        f"(run 1); K1-K4 launches {a['launches']}, {b['launches']}, "
+        f"{c['launches']} (runs 1, 2 and decode_steps 1)")
+    log(f"engine: first-chunk logits vs the dense forward: max|err| / "
+        f"max|logit| {worst:.3e} (tol {ENGINE_LOGITS_RTOL})")
+    log("engine: graph replay vs eager tile " + ", ".join(
+        f"{'sampled' if s else 'greedy'} K{k} {'same' if ok else 'DIFFERENT'}"
+        f" ({n} lanes alive)" for (s, k), ok, n in checks))
+    for name, run in (("run 1", a), ("run 2", b), ("decode_steps 1", c)):
+        if any(len(s) != ENGINE_NEW for s in run["streams"]) or any(
+                r != "length" for r in run["reasons"]):
+            sys.exit(f"chip_smoke: engine {name}: a request did not finish "
+                     f"with {ENGINE_NEW} tokens")
+        if any(t < 0 or t >= cfg.vocab_size for s in run["streams"]
+               for t in s):
+            sys.exit(f"chip_smoke: engine {name}: a token id is out of the "
+                     f"vocabulary")
+        if run["launches"] != 0:
+            sys.exit(f"chip_smoke: engine {name} launched K1-K4 "
+                     f"{run['launches']} times")
+    if a["streams"] != b["streams"]:
+        sys.exit("chip_smoke: two engine runs with the same seeds differ")
+    if a["streams"] != c["streams"]:
+        sys.exit("chip_smoke: engine streams differ between decode_steps 4 "
+                 "and 1")
+    if not checks or not all(ok for _, ok, _ in checks):
+        sys.exit("chip_smoke: a decode tile replayed from its graph differs "
+                 "from the same tile run eagerly")
+    if uploads > 2 * ENGINE_REQUESTS:
+        sys.exit("chip_smoke: more lane-state uploads than membership "
+                 "changes")
+    if not worst <= ENGINE_LOGITS_RTOL:
+        sys.exit("chip_smoke: engine first-chunk logits disagree with the "
+                 "dense forward")
+    phase_engine_generate(model, tokens_per_lane=ENGINE_NEW)
+
+
+def phase_engine_generate(model, tokens_per_lane):
+    """generate at the engine phase's batch (8 prompts of 512 tokens,
+    `tokens_per_lane` new tokens), for comparison: its prefill is its
+    TTFT and its decode step its TPOT."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    b, s = ENGINE["max_batch"], 512
+    ids = torch.as_tensor(np.random.RandomState(1).randint(
+        0, model.config.vocab_size, (b, s)), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for n in (1, tokens_per_lane):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generation.generate(model, ids, max_new_tokens=n)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    decode_s = (secs[1] - secs[0]) / (tokens_per_lane - 1)
+    short = 8
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generation.generate(model, ids, max_new_tokens=short)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    traced = kernel_ms_traced(
+        lambda: generation.generate(model, ids, max_new_tokens=short))
+    log(f"generate b{b} s{s}, {tokens_per_lane} new tokens: prefill (TTFT) "
+        f"{secs[0] * 1e3:.1f} ms, decode step (TPOT) {decode_s * 1e3:.2f} "
+        f"ms, {b * tokens_per_lane / secs[1]:.1f} tokens/s ({secs[1]:.3f} s, "
+        f"host clock), peak memory {peak / 2**30:.2f} GiB, graph captures 0; "
+        f"{short}-token call {wall * 1e3:.1f} ms, kernels "
+        + ("not measured" if traced is None else
+           f"{traced:.1f} ms, device busy {traced / 1e3 / wall:.1%}"))
 
 
 def phase_epilogue(decisions):
@@ -884,7 +1252,10 @@ def main():
     decisions = phase_router()
     phase_tiny_reference()
     phase_tiny_train()
-    serve = phase_slice(decisions["prefill"][0])
+    model = build_llama_7b()
+    serve = phase_slice(decisions["prefill"][0], model)
+    phase_engine(model)
+    del model
     epilogue = phase_epilogue(decisions)
     train = phase_train(decisions["train"][0])
     src = "paddle_tpu_torch/csrc/flash_attention_"

@@ -16,6 +16,10 @@ NAME2DTYPE = {
     "bf16": torch.bfloat16,
     "fp32": torch.float32,
     "fp64": torch.float64,
+    "float8_e4m3fn": torch.float8_e4m3fn,
+    "float8_e5m2": torch.float8_e5m2,
+    "fp8_e4m3": torch.float8_e4m3fn,
+    "fp8_e5m2": torch.float8_e5m2,
 }
 
 

@@ -3,8 +3,11 @@
 
 A flag's value comes from its default, or from the environment variable
 `FLAGS_<name>` when the flag is defined, and is changed with `set_flags`.
-Only the flags the port reads are defined; the reference's side effects on
-set (which configure JAX) have no counterpart here.
+Only the flags the port reads are defined. Of the reference's side effects
+on set (`_apply_side_effect`, :47-65), the two that configure the port's
+own modules are kept: `observability` turns the observability layer on or
+off and `fault_injection` arms the fault harness; those that configure JAX
+have no counterpart here.
 """
 
 from __future__ import annotations
@@ -40,6 +43,20 @@ def set_flags(flags: dict):
         if k not in _REGISTRY:
             raise ValueError(f"unknown flag FLAGS_{k}")
         _REGISTRY[k]["value"] = v
+        _apply_side_effect(k, v)
+
+
+def _apply_side_effect(name, value):
+    if name == "observability":
+        from ..observability import disable, enable
+        s = str(value).lower()
+        if s in ("1", "true", "yes", "on"):
+            enable()
+        else:
+            disable()
+    elif name == "fault_injection":
+        from ..resilience import faults
+        faults.arm_spec(value)   # "" disarms; bad specs raise here
 
 
 def get_flags(flags):
@@ -77,3 +94,7 @@ define_flag("attention_router", "auto",
 define_flag("attention_ledger_path", "",
             "path of the attention-backend ledger ('' = the "
             "attention_ledger.json shipped next to ops/attention_router.py)")
+# observability and resilience (reference: flags.py:131-133)
+define_flag("observability", False, "runtime observability layer (paddle_tpu.observability): metrics registry + span tracing + SLO telemetry; off = zero-cost no-op fast path")
+define_flag("flight_recorder_dir", "", "directory flight-recorder postmortem dumps land in ('' = the tempdir); read from the environment by observability/recorder.py so standalone loads see it too")
+define_flag("fault_injection", "", "chaos harness spec (paddle_tpu.resilience.faults): 'site:nth:Exc' / 'site:rand(p)@seed:Exc' entries joined by ';'; '' = disarmed (one global load per site)")

@@ -23,6 +23,10 @@ from __future__ import annotations
 import torch
 
 from .framework.random import get_generator
+from .observability import span as _span
+from .observability.catalog import metric as _metric
+from .observability.tracing import get_tracer as _tracer
+from .observability.tracing import new_trace_id as _new_trace_id
 from .ops.flash_attention import NEG_INF, flash_attention_bshd, kernel_takes
 
 __all__ = ["generate", "GenerationConfig"]
@@ -120,6 +124,54 @@ def _llama_layer_prefill(lp, h, pos, cfg):
     return _mlp(lp, h, eps), (k, v)
 
 
+def _llama_layer_prefill_chunk(lp, h, kc, vc, table_row, start, cfg,
+                               fmt=None, kc_scale=None, vc_scale=None,
+                               lora=None):
+    """One layer forward over a prompt CHUNK against the paged pool, the
+    serving engine's chunked prefill (reference :142-208): rotate the
+    chunk's Q/K at absolute positions, scatter the chunk's K/V into the
+    pool (in place), then attend over every cached position <= each
+    query's (earlier chunks, and causal within the chunk).
+
+    h: (1, C, H) chunk hidden states; kc/vc: ONE layer's (num_blocks,
+    block_size, KVH, D) pool; table_row: (max_blocks,) block table of the
+    owning sequence; start: absolute position of the chunk's first token.
+    Returns (h_out, (kc, vc)), or (h_out, (kc, vc, kc_scale, vc_scale))
+    with a quantized `fmt` and its scale pools. `lora`, the reference's
+    per-adapter low-rank delta, waits for the adapter store (ROADMAP.md
+    Queue 1, slice 4, "adapters"): anything but None raises."""
+    from .ops.paged_attention import (kv_write_chunk,
+                                      paged_attention_prefill_chunk)
+    if lora is not None:
+        raise NotImplementedError(
+            "LoRA adapters are not ported yet (ROADMAP.md Queue 1, slice 4: "
+            "adapters=)")
+    eps, theta = cfg["eps"], cfg["theta"]
+    nh, nkv, hd = cfg["heads"], cfg["kv_heads"], cfg["head_dim"]
+    b, c, _ = h.shape                      # b == 1: one admission at a time
+    pos = start + torch.arange(c, device=h.device)[None]     # (1, C)
+    x = _rms(h, lp["input_layernorm.weight"], eps)
+    q = (x @ lp["self_attn.q_proj.weight"]).reshape(b, c, nh, hd)
+    k = (x @ lp["self_attn.k_proj.weight"]).reshape(b, c, nkv, hd)
+    v = (x @ lp["self_attn.v_proj.weight"]).reshape(b, c, nkv, hd)
+    q = _rope(q, pos, theta)
+    k = _rope(k, pos, theta)
+    quant = fmt is not None and fmt.quantized
+    kc, vc, kc_scale, vc_scale = kv_write_chunk(
+        fmt if quant else None, kc, vc, kc_scale, vc_scale, k[0], v[0],
+        table_row, start)
+    attn = paged_attention_prefill_chunk(q[0], kc, vc, table_row, start,
+                                         scale=1.0 / (hd ** 0.5),
+                                         fmt=fmt if quant else None,
+                                         k_scale_cache=kc_scale,
+                                         v_scale_cache=vc_scale)
+    h = h + attn.reshape(b, c, nh * hd) @ lp["self_attn.o_proj.weight"]
+    h = _mlp(lp, h, eps)
+    if quant:
+        return h, (kc, vc, kc_scale, vc_scale)
+    return h, (kc, vc)
+
+
 def _llama_layer_decode(lp, h, k_cache, v_cache, t, cfg):
     """One-token layer forward; h (b, 1, H). Writes this token's rotated K/V
     into the caches (b, T, kvh, hd) at position t, in place, and attends
@@ -172,7 +224,15 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
              seed=None):
     """Generate continuations with a KV cache. Returns (batch,
     prompt + max_new_tokens) int64 ids on the model's device; after an
-    `eos_token_id` every later token is `eos_token_id`."""
+    `eos_token_id` every later token is `eos_token_id`.
+
+    Observability as the reference's (:378-420): each call counts on
+    `generation_requests_total{path="llama_compiled"}` (the reference's
+    name for its Llama path) and runs under a `generation.generate` span
+    with its own trace id, around a `generation.prefill_decode` span that
+    covers the device work (synchronized only while tracing is on). The
+    reference's `generation.build` span times its jit build, which the
+    eager port does not have."""
     from .models.llama import LlamaForCausalLM
     if not isinstance(model, LlamaForCausalLM):
         raise TypeError("generate supports LlamaForCausalLM")
@@ -183,6 +243,24 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
     ids = torch.as_tensor(input_ids, device=device).long()
     if max_new_tokens <= 0:
         return ids
+    tid = _new_trace_id("gen-") if _tracer().enabled else None
+    _metric("generation_requests_total", path="llama_compiled").inc()
+    with _span("generation.generate", path="llama_compiled",
+               batch=int(ids.shape[0]), prompt=int(ids.shape[1]),
+               new_tokens=int(max_new_tokens), trace_id=tid):
+        with _span("generation.prefill_decode"):
+            out = _generate_llama(model, ids, gc, seed)
+            if _tracer().enabled and device.type == "cuda":
+                torch.cuda.synchronize(device)
+    return out
+
+
+def _generate_llama(model, ids, gc, seed):
+    """generate's body: prefill, then the decode loop."""
+    embed_w = model.llama.embed_tokens.weight
+    device = embed_w.device
+    max_new_tokens, eos_token_id = gc.max_new_tokens, gc.eos_token_id
+    do_sample = gc.do_sample
     if do_sample:
         if seed is not None:
             generator = torch.Generator(device=device)

@@ -6,9 +6,9 @@ Layout (batch, seq, heads, head_dim). On a CUDA device without a mask the
 backend comes from `FLAGS_flash_attention_backend`: 'pallas' takes the
 flash kernels (`flash_attention_bshd`), 'xla' the dense torch math, and
 'auto' asks ops/attention_router for this shape. A mask, a dtype or head
-dim the kernels do not take (auto only), or a tensor off CUDA takes the
-dense math, as the reference takes it off a TPU. Attention dropout is not
-ported: the serving and training paths never use it.
+dim the kernels do not take (under any backend), or a tensor off CUDA
+takes the dense math, as the reference takes it off a TPU. Attention
+dropout is not ported: the serving and training paths never use it.
 """
 
 from __future__ import annotations
@@ -46,9 +46,10 @@ def _dense_attention(q, k, v, bias=None, causal=False):
 def _use_pallas(q_shape, head_dim, has_bias, dtype=None, causal=True,
                 device=None):
     """Whether attention of this shape takes the flash kernels: never with
-    a bias/mask or off CUDA; else FLAGS_flash_attention_backend, whose
-    'auto' asks the router (where the kernels take the dtype and head
-    dim)."""
+    a bias/mask, off CUDA, or for a dtype or head dim the kernels do not
+    take (float32, d > 128), even under a forced 'pallas' backend, where
+    the reference's TPU kernel runs in any dtype; else
+    FLAGS_flash_attention_backend, whose 'auto' asks the router."""
     if has_bias:
         # the kernels take no bias/mask: never select them silently
         return False
@@ -57,11 +58,11 @@ def _use_pallas(q_shape, head_dim, has_bias, dtype=None, causal=True,
         return False
     if device is None or torch.device(device).type != "cuda":
         return False
-    if backend == "pallas":
-        return True
     dtype = torch.bfloat16 if dtype is None else dtype
     if not kernel_takes(dtype, head_dim):
         return False
+    if backend == "pallas":
+        return True
     from ...ops import attention_router as ar
     b, seq = q_shape[0], q_shape[1]
     heads = q_shape[2] if len(q_shape) > 3 else 1

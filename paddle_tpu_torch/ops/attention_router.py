@@ -408,4 +408,12 @@ def route(batch_heads: int, seq_q: int, seq_k: int, head_dim: int, dtype,
     _route_cache[key] = dec
     _decision_log.append((key[:6], dec))
     del _decision_log[:-256]  # bound the audit log
+    try:
+        # every fresh decision (cache hits excluded) counted by source, as
+        # the reference counts it (:450-458)
+        from ..observability.catalog import metric as _obs_metric
+        _obs_metric("attention_router_decisions_total",
+                    source=dec.source).inc()
+    except Exception:  # noqa: BLE001 - routing never fails on telemetry
+        pass
     return dec

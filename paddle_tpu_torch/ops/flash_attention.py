@@ -50,9 +50,11 @@ def kernel_takes(dtype, head_dim) -> bool:
 
 
 def _padded_dim(d):
-    """The kernels' head dim for a true head dim d: 64 or 128."""
+    """The kernels' head dim for a true head dim d: 64 or 128. A head dim
+    above 128 is kept as it is: the kernels do not take it, and the
+    callers send it to the dense path."""
     if d > 128:
-        raise ValueError(f"head dim {d} > 128 is not supported")
+        return d
     return 64 if d <= 64 else 128
 
 
@@ -354,12 +356,17 @@ def _dense_remat_bwd(q, k, v, causal, scale, q_per_kv, g):
 
 def _bwd_mode(q, k, causal):
     """FLAGS_flash_attention_bwd, with 'auto' resolved by the router for
-    this shape on the tensors' device."""
+    this shape on the tensors' device. If the router itself fails (a
+    measurement on a ledger miss that does not run, say), the backward
+    takes the kernels, as the reference's `_fa_bwd` does (:751-759)."""
     mode = _flags.flag_value("flash_attention_bwd")
     if mode == "auto":
-        from .attention_router import route
-        mode = route(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
-                     q.dtype, causal, platform=q.device.type).bwd
+        try:
+            from .attention_router import route
+            mode = route(q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                         q.dtype, causal, platform=q.device.type).bwd
+        except Exception:  # noqa: BLE001 - the reference's fallback
+            mode = "pallas"
     if mode not in ("pallas", "xla"):
         raise ValueError(f"FLAGS_flash_attention_bwd={mode!r}; pick "
                          f"'pallas', 'xla' or 'auto'")
@@ -417,12 +424,22 @@ def flash_attention_bshd(q, k, v, causal=False, scale=None):
     zero-padded to the kernel's sizes (d <= 64 -> 64, d <= 128 -> 128; so
     d96 -> 128): zero columns change neither Q K^T nor P V, the pad is
     sliced off the output, and the gradients of the pad columns are sliced
-    off by the pad's own backward."""
+    off by the pad's own backward.
+
+    CUDA tensors of a dtype or head dim the kernels do not take (float32,
+    d > 128) take the dense backend, differentiated by torch autograd, as
+    the reference takes any dtype and head dim; CPU tensors take the
+    kernels' plain versions at any head dim."""
     b, sq, h, d = q.shape
     _check_heads(h, k.shape[2])
     dp = _padded_dim(d)
     if scale is None:
         scale = 1.0 / (d ** 0.5)
+    if q.device.type == "cuda" and not kernel_takes(q.dtype, d):
+        out = _xla_attention_bhsd(_to_bhsd(q, d), _to_bhsd(k, d),
+                                  _to_bhsd(v, d), causal, scale,
+                                  h // k.shape[2])
+        return out.reshape(b, h, sq, d).transpose(1, 2)
     out = _FlashAttention.apply(_to_bhsd(q, dp), _to_bhsd(k, dp),
                                 _to_bhsd(v, dp), causal, scale,
                                 h // k.shape[2])
@@ -441,7 +458,9 @@ def flash_attention_rms_epilogue_bshd(q, k, v, residual, rms_weight,
     The norm axis is the head dim, with the mean over the true d (pad
     columns are zero in the attention output, the residual and the
     weight). Forward only, as the reference's: with autograd on and an
-    input that requires grad it raises."""
+    input that requires grad it raises. CUDA tensors of a dtype or head
+    dim the kernels do not take get the same function in dense torch math
+    (`_flash_fwd_bhsd_plain`'s, which runs on any device)."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v, residual, rms_weight)):
         raise RuntimeError("flash_attention_rms_epilogue_bshd is forward "
@@ -460,9 +479,10 @@ def flash_attention_rms_epilogue_bshd(q, k, v, residual, rms_weight,
     w = rms_weight.float()
     if dp != d:
         w = torch.nn.functional.pad(w, (0, dp - d))
-    out, _ = _flash_fwd_bhsd(_to_bhsd(q, dp), _to_bhsd(k, dp),
-                             _to_bhsd(v, dp), causal, scale, h // k.shape[2],
-                             residual=_to_bhsd(residual, dp), rms_weight=w,
-                             rms_eps=eps, rms_d=d)
+    dense = q.device.type == "cuda" and not kernel_takes(q.dtype, d)
+    fwd = _flash_fwd_bhsd_plain if dense else _flash_fwd_bhsd
+    out, _ = fwd(_to_bhsd(q, dp), _to_bhsd(k, dp), _to_bhsd(v, dp), causal,
+                 scale, h // k.shape[2], residual=_to_bhsd(residual, dp),
+                 rms_weight=w, rms_eps=eps, rms_d=d)
     out = out.reshape(b, h, sq, dp).transpose(1, 2)
     return out[..., :d] if dp != d else out

@@ -387,9 +387,49 @@ def test_use_pallas_dense_cases(monkeypatch):
         assert attn._use_pallas(shape, 128, False, dtype=torch.bfloat16,
                                 device=CUDA) is False
     with attn.sdp_kernel(enable_flash=True):
-        assert attn._use_pallas(shape, 128, False, dtype=torch.float32,
+        # a forced backend takes the kernels where they take the input,
+        # and the dense path where they do not (float32, d > 128)
+        assert attn._use_pallas(shape, 128, False, dtype=torch.bfloat16,
                                 device=CUDA) is True
+        assert attn._use_pallas(shape, 128, False, dtype=torch.float32,
+                                device=CUDA) is False
     assert flags.flag_value("flash_attention_backend") == "auto"
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 64, True), (torch.float16, 128, True),
+    (torch.bfloat16, 96, True), (torch.float32, 128, False),
+    (torch.bfloat16, 160, False), (torch.float16, 256, False)])
+def test_forced_pallas_decision(monkeypatch, dtype, d, want):
+    """FLAGS_flash_attention_backend=pallas, decided for a CUDA device on
+    the CPU (no tensor goes to the card): the kernels only where they take
+    the dtype and head dim, and the router is not asked."""
+    monkeypatch.setattr(ar, "route", lambda *a, **kw: pytest.fail(
+        "a forced backend must not ask the router"))
+    flags.set_flags({"FLAGS_flash_attention_backend": "pallas"})
+    assert attn._use_pallas((2, 512, 4, d), d, False, dtype=dtype,
+                            causal=True, device=CUDA) is want
+
+
+def test_backward_router_error_takes_the_kernels(monkeypatch):
+    """A router that raises in the backward's 'auto' mode: the backward
+    takes the kernels (their plain version on the CPU), as the reference's
+    _fa_bwd does, and gives the gradients of an explicit 'pallas'."""
+    def broken_route(*a, **kw):
+        raise RuntimeError("measurement failed")
+    rs = np.random.RandomState(8)
+    q, k, v = (rs.randn(1, 48, 2, 64).astype(np.float32) for _ in range(3))
+
+    def grads():
+        qt, kt, vt = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+        fa.flash_attention_bshd(qt, kt, vt, causal=True).sum().backward()
+        return [x.grad for x in (qt, kt, vt)]
+    flags.set_flags({"FLAGS_flash_attention_bwd": "pallas"})
+    want = grads()
+    flags.set_flags({"FLAGS_flash_attention_bwd": "auto"})
+    monkeypatch.setattr(ar, "route", broken_route)
+    for got, w in zip(grads(), want):
+        assert torch.equal(got, w)
 
 
 def test_prefill_follows_router(monkeypatch):

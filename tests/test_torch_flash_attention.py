@@ -103,6 +103,22 @@ def test_bshd_matches_reference(h, kvh, d, causal):
                                atol=F32_TOL)
 
 
+@pytest.mark.parametrize("d", [160, 256])
+def test_head_dim_above_128_matches_reference(d):
+    """Head dims the kernels do not take run on the CPU's plain path, as
+    the reference pads them to a multiple of 128 and takes any d."""
+    rs = np.random.RandomState(6)
+    q = _rand(rs, 1, 40, 4, d)
+    k, v = _rand(rs, 1, 40, 2, d), _rand(rs, 1, 40, 2, d)
+    ref = jfa.flash_attention_bshd(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal=True)
+    out = fa.flash_attention_bshd(torch.as_tensor(q), torch.as_tensor(k),
+                                  torch.as_tensor(v), causal=True)
+    assert out.shape == (1, 40, 4, d)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=F32_TOL,
+                               atol=F32_TOL)
+
+
 def test_bf16_matches_reference():
     rs = np.random.RandomState(2)
     q = _rand(rs, 2, 128, 4, 64)
@@ -144,9 +160,14 @@ def test_wrapper_raises(bad):
         with pytest.raises(RuntimeError, match="differentiate twice"):
             dq.sum().backward()
     elif bad == "head_dim":
+        # the plain path takes any head dim; the kernels' own check refuses
+        # one above 128 on the card, where flash_attention_bshd takes the
+        # dense path instead
         x = torch.randn(1, 16, 2, 160)
+        assert fa.flash_attention_bshd(x, x, x).shape == x.shape
+        xb = x[0].transpose(0, 1).contiguous().to(torch.bfloat16)
         with pytest.raises(ValueError, match="head dim"):
-            fa.flash_attention_bshd(x, x, x)
+            fa._check_kernel_inputs("flash_fwd", (xb, xb, xb), 160)
     elif bad == "heads":
         with pytest.raises(ValueError, match="divisible"):
             fa.flash_attention_bshd(q, torch.randn(1, 16, 3, 64),

@@ -155,6 +155,30 @@ def test_autograd_matches_jax_grad(h, kvh, d, causal):
                                    rtol=F32_TOL, atol=F32_TOL, err_msg=name)
 
 
+@pytest.mark.parametrize("d", [160, 256])
+def test_head_dim_above_128_backward_matches_reference(d):
+    """Head dims the kernels do not take: autograd through the CPU's plain
+    path against jax.grad of the reference, which pads d to a multiple of
+    128."""
+    rs = np.random.RandomState(7)
+    q = _rand(rs, 1, 40, 4, d)
+    k, v = _rand(rs, 1, 40, 2, d), _rand(rs, 1, 40, 2, d)
+    w = _rand(rs, 1, 40, 4, d)
+
+    def ref_loss(q_, k_, v_):
+        return jnp.sum(jfa.flash_attention_bshd(q_, k_, v_, causal=True)
+                       * jnp.asarray(w))
+    want = jax.grad(ref_loss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    qt, kt, vt = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    out = fa.flash_attention_bshd(qt, kt, vt, causal=True)
+    (out * torch.as_tensor(w)).sum().backward()
+    for x, wg, name in zip((qt, kt, vt), want, ("dq", "dk", "dv")):
+        assert x.grad.shape == x.shape, name
+        np.testing.assert_allclose(x.grad.numpy(), np.asarray(wg),
+                                   rtol=F32_TOL, atol=F32_TOL, err_msg=name)
+
+
 def test_cpu_tensors_do_not_launch_the_backward_kernels():
     before = (fa.flash_bwd_dq_launches, fa.flash_bwd_dkv_launches)
     x = torch.randn(1, 64, 2, 64, requires_grad=True)

@@ -194,10 +194,20 @@ def test_epilogue_wrapper_raises(bad):
         with pytest.raises(ValueError, match="together"):
             fa._flash_fwd_bhsd(x, x, x, True, 0.1, residual=x)
     else:
-        x = torch.randn(1, 16, 2, 160)
+        # the plain path takes a head dim above 128, as the reference
+        # takes any d; the kernel's own check refuses it on the card, where
+        # the wrapper takes the dense math instead
+        rs = np.random.RandomState(11)
+        x, w = _rand(rs, 1, 16, 2, 160), _rand(rs, 160)
+        want = jfa.flash_attention_rms_epilogue_bshd(_j(x), _j(x), _j(x),
+                                                     _j(x), _j(w))
+        got = fa.flash_attention_rms_epilogue_bshd(
+            *(torch.as_tensor(t) for t in (x, x, x, x, w)))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=F32_TOL, atol=F32_TOL)
+        xb = torch.as_tensor(x[0]).to(torch.bfloat16)
         with pytest.raises(ValueError, match="head dim"):
-            fa.flash_attention_rms_epilogue_bshd(x, x, x, x,
-                                                 torch.randn(160))
+            fa._check_kernel_inputs("flash_fwd_rms_epilogue", (xb,), 160)
 
 
 @pytest.mark.parametrize("with_residual", [False, True])

@@ -54,6 +54,15 @@ def test_import_loads_no_jax_and_no_reference(code):
     assert _loaded_after(code) == []
 
 
+@pytest.mark.parametrize("sub", [
+    "observability", "resilience", "profiler", "inference",
+    "inference.serving", "ops.paged_attention", "nn.quant"])
+def test_serving_subpackages_load_no_jax_and_no_reference(sub):
+    """The serving engine's subpackages, each imported alone: copies of
+    jax-free reference modules must not reach back into the reference."""
+    assert _loaded_after(f"import paddle_tpu_torch.{sub}") == []
+
+
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
     list(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
