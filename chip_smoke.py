@@ -68,6 +68,30 @@ Phases, each of which makes the script exit non-zero if it fails:
      device times, tokens/s, TTFT and TPOT medians, the device's busy
      share over the decode window, peak memory and graph captures, and the
      same for generate at batch 8.
+  9b. engine knobs, on the same model and engine knobs, every decode
+     program a captured CUDA graph and no K1-K4 launch from the first
+     add_request to the last token: speculative decode (depth 2, 3-grams)
+     on phase 9's mix, whose streams must be phase 9's at decode_steps 4
+     and 1, and on 8 greedy requests whose 512-token prompts tile one
+     5-token motif (128 new tokens), against the same engine without
+     speculation; int8 and fp8_e4m3 pools at the bf16 pool's bytes, which
+     must hold 1.9x its blocks, give first-chunk logits within
+     QUANT_LOGITS_RTOL of the bf16 pool's and the same streams with and
+     without speculation, and one int8 run with serve.kv_dequant forced
+     through FLAGS_fault_injection, which must capture again and finish
+     every stream; an AdapterStore from demo_store_for_engine (4 adapters
+     of rank 8, 8 slots) under 4 base and 4 adapter requests, whose base
+     lanes must equal the storeless engine's and adapter lanes repeat
+     across two runs, with a fifth adapter registered and served mid-run
+     adding no capture; the prefix cache on and off over 8 requests that
+     share a 1,024-token prefix (one of them exactly the prefix, so a COW
+     fork happens), equal streams; and the SLO scheduler on phase 9's mix
+     with 4 best_effort requests and speculation, one forced preemption
+     and the ladder stepped to disable_speculation, streams equal to a run
+     without them and one capture per program key. Prints, for each run,
+     tokens/s, tokens per dispatch, acceptance, TTFT and TPOT medians,
+     peak memory and graph captures, and the device time of every decode
+     graph, beside the card's name and power limit.
   10. fused epilogue: incubate's fused_attention_rms_epilogue at llama_7b's
      attention widths (b4 s512, 32 heads of 128) and at llama_1.3b's
      training attention shape (b8 s2048, 16 heads), bf16, residual and
@@ -107,7 +131,9 @@ from paddle_tpu_torch import optimizer
 from paddle_tpu_torch.models import build_scanned_llama
 from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.incubate.nn import functional as IF
-from paddle_tpu_torch.inference import ContinuousBatchingEngine
+from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
+                                        SLOScheduler, demo_store_for_engine)
+from paddle_tpu_torch.inference.scheduler import level_index
 from paddle_tpu_torch.observability.quantiles import quantile_from_cumulative
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import attention_router as ar
@@ -217,6 +243,48 @@ ENGINE_SAMPLED_AT = (2, 5, 10, 13)      # 4 sampled requests, 2 a wave
 # so each logit may differ by a few bf16 steps of the largest logit (2^-8
 # relative): |err| <= ENGINE_LOGITS_RTOL * max|logit|
 ENGINE_LOGITS_RTOL = 5e-2
+
+# the engine-knobs phase (after phase 9), on phase 9's model and knobs:
+# speculative decode at depth 2 over 3-grams; a second mix of 8 greedy
+# requests whose 512-token prompts tile one 5-token motif (bench.py's
+# decode A/B mix), 128 new tokens each
+KNOB_SPEC = dict(speculative_decode=True, draft_depth=2, draft_ngram=3)
+MOTIF_REQUESTS, MOTIF_PROMPT, MOTIF_NEW = 8, 512, 128
+# quantized pools at the bf16 pool's bytes must hold this many times its
+# blocks (int8: 4,096 payload + 64 scale bytes a token and head set,
+# against 8,192)
+QUANT_MIN_BLOCKS = 1.9
+# each prompt's first-chunk logits with a quantized pool against the bf16
+# pool's, relative to the largest |logit|. Quantization error of a stored
+# K or V element: int8 rounds to 1/254 of its (token, head) absmax, about
+# the size of a bf16 rounding of a large element, so int8 takes phase 9's
+# tolerance for a bf16 pool against the dense forward; fp8 e4m3 keeps 3
+# mantissa bits, a relative step of 2^-3 (16 times bf16's 2^-7), so its
+# tolerance is four times int8's (the error of sums of many such
+# roundings grows as the square root of their count)
+QUANT_LOGITS_RTOL = {"int8": ENGINE_LOGITS_RTOL,
+                     "fp8_e4m3": 4 * ENGINE_LOGITS_RTOL}
+# the kv-dequant degradation is forced on this decode phase's hit of the
+# serve.kv_dequant site (FLAGS_fault_injection)
+KV_DEQUANT_FAULT = "serve.kv_dequant:6:TimeoutError"
+# adapters: demo_store_for_engine with 4 adapters of rank 8 in 8 slots.
+# Its default scale 0.5 is sized for hidden 64; at hidden 4096 the delta
+# x A B would be about 35 times the base projection, so the factors here
+# are scaled to 0.05, a delta of the base projection's order
+ADAPTERS = dict(names=["ad0", "ad1", "ad2", "ad3"], rank=8, n_slots=8,
+                scale=0.05)
+# prefix cache: 8 requests share a 1,024-token system prefix, with tails
+# of 64-256 tokens; one request is exactly the prefix. The engine prefills
+# at one width (512): a block-aligned full match re-runs only the last
+# prompt position, and in a chunk of another width the bf16 products would
+# round it differently from the cache-off run; at one width every
+# position's forward is the same whichever chunk holds it
+PREFIX_LEN, PREFIX_TAILS = 1024, (64, 96, 128, 160, 192, 224, 256, 0)
+PREFIX_BUCKETS = (512,)
+
+
+# the card's name and power limit as nvidia-smi gives them (phase 1)
+CARD = "not read"
 
 
 def log(*args):
@@ -351,7 +419,9 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
-    log("nvidia-smi:", smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    log("nvidia-smi:", CARD)
     log("torch", torch.__version__, "cuda", torch.version.cuda,
         "device", torch.cuda.get_device_name(0))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -865,10 +935,10 @@ def graph_matches_eager(eng):
         same = []
         for sampled in (False, True):
             for k in (1, 4):
-                prog = eng._graphs.get((sampled, k))
+                prog = eng._graphs.get((sampled, k, 0))
                 if prog is None:
-                    prog = eng._graphs[(sampled, k)] = eng._capture(sampled,
-                                                                    k)
+                    prog = eng._graphs[(sampled, k, 0)] = eng._capture(
+                        sampled, k)
                     eng.graph_captures += 1
                 restore()
                 prog.graph.replay()
@@ -905,7 +975,7 @@ def engine_device_ms(eng):
             lambda: eng._prefill_chunk(ids, 0, 511, table), reset_greedy)
         tile_ms = {}
         for sampled, reset in ((False, reset_greedy), (True, reset_sampled)):
-            key = (sampled, eng.decode_steps)
+            key = (sampled, eng.decode_steps, 0)
             if key not in eng._graphs:
                 eng._graphs[key] = eng._capture(*key)
                 eng.graph_captures += 1
@@ -921,8 +991,8 @@ def chunk_logits_check(eng, model, prompts):
     """Each prompt's first chunk through the engine's prefill program (into
     blocks reserved for the check) against the dense model forward: the
     logits of the chunk's last position. Returns the largest error over
-    the largest |logit|."""
-    worst = 0.0
+    the largest |logit| and the engine's logits of each prompt."""
+    worst, logits = 0.0, []
     with torch.no_grad():
         for i, p in enumerate(prompts):
             n = min(len(p), eng.chunk)
@@ -938,7 +1008,8 @@ def chunk_logits_check(eng, model, prompts):
                 sys.exit("chip_smoke: non-finite first-chunk logits")
             worst = max(worst, (got - want).abs().max().item()
                         / want.abs().max().item())
-    return worst
+            logits.append(got)
+    return worst, logits
 
 
 def hist_median(name):
@@ -955,7 +1026,8 @@ def phase_engine(model):
     decode_steps 4 (timed; the second traced over its decode window) and
     one at decode_steps 1, which also holds every decode graph against
     the same program run eagerly. Then generate at the same batch, for
-    comparison."""
+    comparison. Returns run 1's streams and each prompt's first-chunk
+    logits, which the knob phase holds its engines against."""
     cfg = model.config
     prompts, knobs = engine_traffic(cfg.vocab_size)
     log(f"engine: {ENGINE_REQUESTS} requests, prompts {min(map(len, prompts))}"
@@ -978,7 +1050,7 @@ def phase_engine(model):
     eng = a["engine"]
     captures = eng.graph_captures
     chunk_ms, tile_ms = engine_device_ms(eng)
-    worst = chunk_logits_check(eng, model, prompts)
+    worst, chunk_logits = chunk_logits_check(eng, model, prompts)
     del eng, a["engine"]
     gc.collect()
     torch.cuda.empty_cache()
@@ -1056,6 +1128,7 @@ def phase_engine(model):
         sys.exit("chip_smoke: engine first-chunk logits disagree with the "
                  "dense forward")
     phase_engine_generate(model, tokens_per_lane=ENGINE_NEW)
+    return a["streams"], chunk_logits
 
 
 def phase_engine_generate(model, tokens_per_lane):
@@ -1092,6 +1165,436 @@ def phase_engine_generate(model, tokens_per_lane):
         f"{short}-token call {wall * 1e3:.1f} ms, kernels "
         + ("not measured" if traced is None else
            f"{traced:.1f} ms, device busy {traced / 1e3 / wall:.1%}"))
+
+
+def knob_traffic(vocab):
+    """The knob phase's mixes: phase 9's 16 requests, the motif mix and
+    the shared-prefix mix, as [(prompt, request knobs)]."""
+    prompts, knobs = engine_traffic(vocab)
+    mix9 = [(p, dict(kw, max_new_tokens=ENGINE_NEW))
+            for p, kw in zip(prompts, knobs)]
+    motif = np.random.RandomState(7).randint(0, vocab, (5,))
+    mix_motif = [(np.tile(motif, MOTIF_PROMPT // 5 + 1)[:MOTIF_PROMPT],
+                  dict(max_new_tokens=MOTIF_NEW))] * MOTIF_REQUESTS
+    rs = np.random.RandomState(11)
+    prefix = rs.randint(0, vocab, PREFIX_LEN)
+    mix_prefix = [(np.concatenate([prefix, rs.randint(0, vocab, t)]),
+                   dict(max_new_tokens=ENGINE_NEW)) for t in PREFIX_TAILS]
+    return mix9, mix_motif, mix_prefix
+
+
+def knob_run(model, reqs, plan="waves", on_step=None, engine=None, **kw):
+    """One engine run of `reqs` through ContinuousBatchingEngine at phase
+    9's knobs plus `kw` (or on `engine`). plan "waves": half the requests
+    before the first step, the rest after the third (phase 9's); "all":
+    every request at once; "first": one request, the rest once its prefill
+    is done. Observability on, from zero. Returns the engine, the streams,
+    finish reasons, K1-K4 launches from the first add_request to the last
+    token, and the run's numbers."""
+    eng = engine if engine is not None else ContinuousBatchingEngine(
+        model, **{**ENGINE, "decode_steps": 4, **kw})
+    obs.get_registry().reset()
+    obs.enable()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = {"waves": len(reqs) // 2, "all": len(reqs), "first": 1}[plan]
+    zero_flash_launches()                    # the path starts here
+    t0 = time.perf_counter()
+    rids = [eng.add_request(p, **rk) for p, rk in reqs[:first]]
+    steps = 0
+    while eng.has_work() or len(rids) < len(reqs):
+        eng.step()
+        steps += 1
+        late = ((plan == "waves" and steps == 3)
+                or (plan == "first" and not eng.queue
+                    and not eng._prefill_tasks))
+        if late and len(rids) < len(reqs):
+            rids += [eng.add_request(p, **rk) for p, rk in reqs[first:]]
+        if on_step is not None:
+            on_step(eng, steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = flash_launches()              # and ends at the last token
+    reg = obs.get_registry()
+
+    def value(name):
+        fam = reg.get(name)
+        return 0.0 if fam is None else fam.value
+    streams = [eng.finished[r].generated for r in rids]
+    tokens = sum(map(len, streams))
+    dispatches = value("serving_decode_dispatches_total")
+    drafted = value("serving_draft_tokens_total")
+    run = dict(
+        engine=eng, streams=streams, launches=launches, wall=wall,
+        reasons=[eng.finished[r].finish_reason for r in rids],
+        tokens=tokens, steps=steps,
+        # decode tokens (every token but each request's first, which its
+        # prefill chooses) over decode dispatches
+        per_dispatch=(tokens - len(rids)) / max(1.0, dispatches),
+        acceptance=(value("serving_accepted_tokens_total") / drafted
+                    if drafted else None),
+        ttft=hist_median("serving_ttft_seconds"),
+        tpot=hist_median("serving_tpot_seconds"),
+        peak=torch.cuda.max_memory_allocated(),
+        captures=eng.graph_captures, keys=sorted(eng.program_keys_used),
+        prefix=dict(saved=value("serving_prefix_tokens_saved_total"),
+                    shared=value("serving_prefix_shared_blocks"),
+                    forks=value("serving_prefix_cow_forks_total"),
+                    hits=value("serving_prefix_hits_total")))
+    obs.disable()
+    return run
+
+
+def knob_report(name, run):
+    """One line of a knob run's numbers, beside the card."""
+    fmt = (lambda x, f: "not measured" if x is None else f.format(x))
+    log(f"knobs {name} [{CARD}]: {run['tokens']} tokens in "
+        f"{run['wall']:.3f} s, {run['tokens'] / run['wall']:.1f} tokens/s "
+        f"(host clock, prefill included), {run["per_dispatch"]:.3f} tokens "
+        f"per dispatch (all lanes), acceptance {fmt(run['acceptance'], '{:.4f}')}, "
+        f"TTFT median {fmt(run['ttft'], '{:.4f}')} s, TPOT median "
+        f"{fmt(run['tpot'], '{:.5f}')} s, peak memory "
+        f"{run['peak'] / 2**30:.2f} GiB, graph captures {run['captures']} "
+        f"for keys {run['keys']} (sampled, K, draft depth)")
+
+
+def knob_check(name, run, want=None, new=None):
+    """Fail the phase if a run launched K1-K4, a stream did not finish
+    with its tokens in the vocabulary, or the streams differ from
+    `want`."""
+    if run["launches"] != 0:
+        sys.exit(f"chip_smoke: knobs {name} launched K1-K4 "
+                 f"{run['launches']} times")
+    vocab = run["engine"].embed_w.shape[0]
+    for s, reason, n in zip(run["streams"], run["reasons"],
+                            new or [None] * len(run["streams"])):
+        if reason != "length" or (n is not None and len(s) != n):
+            sys.exit(f"chip_smoke: knobs {name}: a request ended "
+                     f"{reason} with {len(s)} tokens")
+        if any(t < 0 or t >= vocab for t in s):
+            sys.exit(f"chip_smoke: knobs {name}: a token id is out of the "
+                     "vocabulary")
+    if want is not None and run["streams"] != want:
+        bad = sum(a != b for a, b in zip(run["streams"], want))
+        sys.exit(f"chip_smoke: knobs {name}: {bad} streams differ from the "
+                 "run they must equal")
+
+
+def graph_tile_ms(eng):
+    """CUDA-event medians (5 replays) of every decode graph the engine
+    captured, all 8 lanes alive at position 1,024 (profile_serving's lane
+    state; sampled graphs with phase 9's sampling knobs, speculative ones
+    over a history of motif tokens, adapter lanes on slots 0-7), the lane
+    state restored before each replay."""
+    d, B = eng._dev, eng.max_batch
+    vocab = eng.embed_w.shape[0]
+    reset_lanes = profile_serving.lane_state(eng, vocab)
+    hist = None
+    if "hist" in d:
+        motif = np.random.RandomState(7).randint(0, vocab, (5,))
+        hist = torch.as_tensor(np.tile(motif, d["hist"].shape[1] // 5 + 1)[
+            :d["hist"].shape[1]], device=eng.device).expand(B, -1)
+    out = {}
+    with torch.no_grad():
+        for key, prog in sorted(eng._graphs.items()):
+            sampled, K, D = key
+
+            def reset():
+                reset_lanes()
+                d["do_sample"].fill_(sampled)
+                d["seeds"].copy_(torch.arange(B, device=eng.device))
+                d["temp"].fill_(ENGINE_SAMPLED["temperature"])
+                d["top_k"].fill_(ENGINE_SAMPLED["top_k"])
+                d["top_p"].fill_(ENGINE_SAMPLED["top_p"])
+                if hist is not None:
+                    d["hist"].copy_(hist)
+                if "adapter_ids" in d:
+                    d["adapter_ids"].copy_(
+                        torch.arange(B, device=eng.device)
+                        % eng.adapters.n_slots)
+            name = (("sampled" if sampled else "greedy") + f" K={K}"
+                    + (f" spec D={D}" if D else ""))
+            out[name] = profile_serving.median_ms(prog.graph.replay, reset)
+    for lane in range(B):
+        eng.pool.release(lane)
+    log(f"knobs tiles, {eng.pool.fmt.name} pool"
+        + (", adapter store" if eng.adapters is not None else "")
+        + f" [{CARD}]: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in out.items())
+        + " (graph replay over 8 lanes at position 1,024, CUDA events, "
+        "median of 5)")
+    return out
+
+
+def free(*runs):
+    """Drop the runs' engines and their pools."""
+    for run in runs:
+        run.pop("engine", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def knobs_spec(model, mix9, mix_motif, plain9):
+    """Speculative decode on phase 9's mix (against phase 9's plain
+    streams, at decode_steps 4 and 1) and on the motif mix (against its
+    own plain run)."""
+    new9 = [ENGINE_NEW] * len(mix9)
+    s4 = knob_run(model, mix9, **KNOB_SPEC)
+    knob_report("spec mix16 K=4", s4)
+    knob_check("spec mix16 K=4", s4, plain9, new9)
+    graph_tile_ms(s4["engine"])
+    free(s4)
+    s1 = knob_run(model, mix9, **dict(KNOB_SPEC, decode_steps=1))
+    knob_report("spec mix16 K=1", s1)
+    knob_check("spec mix16 K=1", s1, plain9, new9)
+    free(s1)
+    newm = [MOTIF_NEW] * len(mix_motif)
+    pm = knob_run(model, mix_motif, plan="all")
+    knob_report("plain motif", pm)
+    knob_check("plain motif", pm, new=newm)
+    sm = knob_run(model, mix_motif, plan="all", **KNOB_SPEC)
+    knob_report("spec motif", sm)
+    knob_check("spec motif", sm, pm["streams"], newm)
+    graph_tile_ms(sm["engine"])
+    free(pm, sm)
+    return s4, sm
+
+
+def first_chunk_logits(eng, prompts):
+    """Each prompt's first chunk through the engine's prefill program,
+    into blocks reserved for the check: the chunk's last-position
+    logits."""
+    out = []
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            n = min(len(p), eng.chunk)
+            table = torch.full((ENGINE["max_blocks_per_seq"],),
+                               eng.pool.scratch_block, dtype=torch.int64)
+            t = eng.pool.ensure(("check", i), n)
+            table[:len(t)] = torch.as_tensor(t)
+            ids = torch.as_tensor(p[:n], device=eng.device)[None]
+            out.append(eng._prefill_chunk(ids, 0, n - 1,
+                                          table.to(eng.device)))
+            eng.pool.release(("check", i))
+    return out
+
+
+def knobs_quant(model, mix9, bf16_logits):
+    """int8 and fp8_e4m3 pools at the bf16 pool's bytes: capacity, first-
+    chunk logits against the bf16 pool's, spec streams against plain ones
+    within each format, and one int8 run that forces the kv-dequant
+    degradation, which must capture again and finish every stream."""
+    cfg = model.config
+    hd = cfg.hidden_size // cfg.num_attention_heads
+    bf16_bytes = (ENGINE["num_blocks"] * cfg.num_hidden_layers
+                  * ENGINE["block_size"] * 2 * cfg.num_key_value_heads * hd
+                  * 2)
+    new9 = [ENGINE_NEW] * len(mix9)
+    out = {}
+    for fmt in ("int8", "fp8_e4m3"):
+        kw = dict(kv_cache_dtype=fmt, kv_pool_bytes=bf16_bytes)
+        q = knob_run(model, mix9, **kw)
+        eng = q["engine"]
+        ratio = eng.pool.num_blocks / ENGINE["num_blocks"]
+        got = first_chunk_logits(eng, [p for p, _ in mix9])
+        err = max(((g - w).abs().max() / w.abs().max()).item()
+                  for g, w in zip(got, bf16_logits))
+        knob_report(f"{fmt} plain", q)
+        log(f"knobs {fmt} [{CARD}]: pool of {bf16_bytes} bytes holds "
+            f"{eng.pool.num_blocks} blocks, {ratio:.3f}x the bf16 pool's "
+            f"{ENGINE['num_blocks']}; first-chunk logits vs the bf16 pool: "
+            f"max|err| / max|logit| {err:.3e} (tol "
+            f"{QUANT_LOGITS_RTOL[fmt]})")
+        knob_check(f"{fmt} plain", q, new=new9)
+        graph_tile_ms(eng)
+        if ratio < QUANT_MIN_BLOCKS:
+            sys.exit(f"chip_smoke: the {fmt} pool holds {ratio:.3f}x the "
+                     f"bf16 pool's blocks, below {QUANT_MIN_BLOCKS}")
+        if not err <= QUANT_LOGITS_RTOL[fmt]:
+            sys.exit(f"chip_smoke: {fmt} first-chunk logits disagree with "
+                     "the bf16 pool's")
+        free(q)
+        qs = knob_run(model, mix9, **kw, **KNOB_SPEC)
+        knob_report(f"{fmt} spec", qs)
+        knob_check(f"{fmt} spec", qs, q["streams"], new9)
+        graph_tile_ms(qs["engine"])
+        free(qs)
+        out[fmt] = (q, qs)
+    pt.set_flags({"FLAGS_fault_injection": KV_DEQUANT_FAULT})
+    try:
+        f = knob_run(model, mix9, kv_cache_dtype="int8",
+                     kv_pool_bytes=bf16_bytes, **KNOB_SPEC)
+    finally:
+        pt.set_flags({"FLAGS_fault_injection": ""})
+    eng = f["engine"]
+    knob_report("int8 spec, kv-dequant forced", f)
+    knob_check("int8 spec, kv-dequant forced", f, new=new9)
+    if eng.pool.fmt.quantized or f["captures"] <= len(f["keys"]):
+        sys.exit("chip_smoke: the forced kv-dequant degradation did not "
+                 "leave a native pool captured again")
+    log(f"knobs kv-dequant [{CARD}]: pool now {eng.pool.k.dtype}, "
+        f"{f['captures']} captures for {len(f['keys'])} keys")
+    free(f)
+    return out
+
+
+def knobs_adapters(model, mix9):
+    """An AdapterStore from demo_store_for_engine: 4 base lanes equal the
+    storeless engine's streams, each adapter lane repeats across two runs,
+    and a fifth adapter registered mid-run (a hot swap) adds no graph
+    capture."""
+    reqs = [(p, dict(kw, max_new_tokens=ENGINE_NEW))
+            for p, kw in mix9[:8]]
+    names = ADAPTERS["names"]
+    plain = knob_run(model, reqs, plan="all")
+    knob_report("adapters storeless", plain)
+    knob_check("adapters storeless", plain, new=[ENGINE_NEW] * 8)
+    store = demo_store_for_engine(plain["engine"], names,
+                                  rank=ADAPTERS["rank"],
+                                  n_slots=ADAPTERS["n_slots"],
+                                  scale=ADAPTERS["scale"])
+    free(plain)
+    with_ad = [(p, dict(kw, adapter=names[i - 4] if i >= 4 else None))
+               for i, (p, kw) in enumerate(reqs)]
+    first = knob_run(model, with_ad, plan="all", adapters=store)
+    engine = first.pop("engine")
+    swap = {}
+
+    def hot_swap(eng, step):
+        if step == 3:
+            swap["before"] = (eng.graph_captures,
+                              set(eng.program_keys_used))
+            r = np.random.RandomState(6)
+            L, H, R = store.num_layers, store.hidden, store.rank
+            store.register("ad4", *(
+                r.randn(*shape).astype(np.float32) * ADAPTERS["scale"]
+                for shape in ((L, H, R), (L, R, store.q_out), (L, H, R),
+                              (L, R, store.v_out))))
+            swap["rid"] = eng.add_request(reqs[0][0], max_new_tokens=16,
+                                          adapter="ad4")
+    hot = knob_run(model, with_ad, plan="all", engine=engine,
+                   on_step=hot_swap)
+    first["engine"] = engine
+    swapped = engine.finished[swap["rid"]]
+    slot = store.resident().get("ad4")
+    knob_report("adapters store run 1", first)
+    knob_report("adapters store run 2, hot swap", hot)
+    for name, run in (("adapters store run 1", first),
+                      ("adapters hot swap", hot)):
+        knob_check(name, run, new=[ENGINE_NEW] * 8)
+        if run["streams"][:4] != plain["streams"][:4]:
+            sys.exit(f"chip_smoke: {name}: a base lane differs from the "
+                     "storeless engine's")
+    if first["streams"][4:] != hot["streams"][4:]:
+        sys.exit("chip_smoke: an adapter lane differs between two runs")
+    if first["streams"][4:] == plain["streams"][4:]:
+        sys.exit("chip_smoke: the adapter lanes equal the base model's")
+    # captures after the swap: only those of program keys first used
+    # after it (a lane mix that turns all-greedy, say), never a recapture
+    new_keys = set(hot["keys"]) - swap["before"][1]
+    if (swapped.finish_reason != "length"
+            or hot["captures"] - swap["before"][0] != len(new_keys)):
+        sys.exit("chip_smoke: the hot swap did not serve, or added a "
+                 "graph capture")
+    log(f"knobs adapters [{CARD}]: base lanes equal the storeless "
+        f"engine's; adapter lanes repeat; hot swap of ad4 into slot "
+        f"{slot} added no capture ({hot['captures']} captures, "
+        f"{len(new_keys)} for program keys first used after it); store "
+        f"{store.stats()}")
+    graph_tile_ms(engine)
+    del engine
+    free(first, hot)
+
+
+def knobs_prefix(model, mix_prefix):
+    """The shared-prefix mix with the prefix cache on and off: equal
+    streams; prefill tokens saved, shared blocks, COW forks, TTFT."""
+    new = [ENGINE_NEW] * len(mix_prefix)
+    runs = {}
+    for on in (False, True):
+        run = knob_run(model, mix_prefix, plan="first", prefix_cache=on,
+                       prefill_buckets=PREFIX_BUCKETS)
+        name = f"prefix cache {'on' if on else 'off'}"
+        knob_report(name, run)
+        knob_check(name, run, runs.get(False, {}).get("streams"), new)
+        log(f"knobs {name} [{CARD}]: prefill tokens saved "
+            f"{run['prefix']['saved']:.0f}, hits {run['prefix']['hits']:.0f}"
+            f", shared blocks {run['prefix']['shared']:.0f}, COW forks "
+            f"{run['prefix']['forks']:.0f}, TTFT median "
+            f"{run['ttft']:.4f} s")
+        free(run)
+        runs[on] = run
+    if runs[True]["prefix"]["forks"] < 1 or runs[True]["prefix"]["saved"] < (
+            len(mix_prefix) - 1) * (PREFIX_LEN - 1):
+        sys.exit("chip_smoke: the prefix cache shared less than the prefix")
+    return runs
+
+
+def knobs_scheduler(model, mix9):
+    """SLOScheduler on phase 9's mix with 4 best_effort requests, and
+    speculation: a run without preemption, then one that forces a
+    preemption and steps the ladder to disable_speculation (K 4 -> 2,
+    depth 2 -> 1, no speculation) and lets it recover. Streams must be
+    equal; captures must equal the distinct program keys."""
+    reqs = [(p, dict(kw, priority="best_effort" if i % 4 == 3
+                     else "interactive"))
+            for i, (p, kw) in enumerate(mix9)]
+    # wall-clock targets off: the ladder moves only where the script moves
+    # it (a TTFT breach could engage cap_max_new_tokens mid-run)
+    sched = dict(ttft_target=1e9, tpot_target=1e9)
+    base = knob_run(model, reqs, scheduler=SLOScheduler(**sched),
+                    **KNOB_SPEC)
+    knob_report("scheduler", base)
+    knob_check("scheduler", base, new=[ENGINE_NEW] * len(reqs))
+    free(base)
+    forced = {}
+
+    def drive(eng, step):
+        # once the second wave is in: preempt a decoding lane, and on the
+        # next step move the ladder
+        if "preempt" in forced and "ladder" not in forced:
+            # a transition starts the ladder's dwell and recovery streak,
+            # so the rung holds for a few dispatches before it recovers
+            eng.scheduler._transition(level_index("disable_speculation"),
+                                      "up")
+            eng.scheduler._apply(eng)
+            forced["ladder"] = (eng.decode_steps, eng.draft_depth, eng.spec)
+        elif step >= 4 and eng._decode_active() and "preempt" not in forced:
+            forced["preempt"] = eng._try_preempt(eng._decode_active()[0],
+                                                 why="drill")
+    run = knob_run(model, reqs, on_step=drive,
+                   scheduler=SLOScheduler(**sched), **KNOB_SPEC)
+    eng = run["engine"]
+    knob_report("scheduler, preempted and laddered", run)
+    knob_check("scheduler, preempted and laddered", run, base["streams"],
+               [ENGINE_NEW] * len(reqs))
+    log(f"knobs scheduler [{CARD}]: preempted {forced.get('preempt')}, "
+        f"ladder at disable_speculation gave (K, depth, spec) "
+        f"{forced.get('ladder')}, back to level {eng.scheduler.level}; "
+        f"transitions down {eng.scheduler.transitions_down}")
+    if (not forced.get("preempt") or forced.get("ladder") != (2, 1, False)
+            or not any(k[1:] == (2, 0) for k in run["keys"])
+            or run["captures"] != len(run["keys"])):
+        sys.exit("chip_smoke: the scheduler drill did not preempt, step "
+                 "the ladder, or captured other than once per key")
+    free(run)
+
+
+def phase_knobs(model, plain9, bf16_logits):
+    """The engine's knobs on llama_7b at phase 9's knobs: speculative
+    decode, quantized KV, adapters, the prefix cache and the SLO
+    scheduler. Every decode program is a captured CUDA graph; K1-K4 must
+    not launch."""
+    mix9, mix_motif, mix_prefix = knob_traffic(model.config.vocab_size)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    knobs_spec(model, mix9, mix_motif, plain9)
+    knobs_quant(model, mix9, bf16_logits)
+    knobs_adapters(model, mix9)
+    knobs_prefix(model, mix_prefix)
+    knobs_scheduler(model, mix9)
+    log(f"knobs: phase done in {time.perf_counter() - t0:.1f} s")
 
 
 def phase_epilogue(decisions):
@@ -1254,7 +1757,8 @@ def main():
     phase_tiny_train()
     model = build_llama_7b()
     serve = phase_slice(decisions["prefill"][0], model)
-    phase_engine(model)
+    plain9, bf16_logits = phase_engine(model)
+    phase_knobs(model, plain9, bf16_logits)
     del model
     epilogue = phase_epilogue(decisions)
     train = phase_train(decisions["train"][0])

@@ -137,23 +137,26 @@ def _llama_layer_prefill_chunk(lp, h, kc, vc, table_row, start, cfg,
     block_size, KVH, D) pool; table_row: (max_blocks,) block table of the
     owning sequence; start: absolute position of the chunk's first token.
     Returns (h_out, (kc, vc)), or (h_out, (kc, vc, kc_scale, vc_scale))
-    with a quantized `fmt` and its scale pools. `lora`, the reference's
-    per-adapter low-rank delta, waits for the adapter store (ROADMAP.md
-    Queue 1, slice 4, "adapters"): anything but None raises."""
+    with a quantized `fmt` and its scale pools. `lora`: an optional
+    (A_q [H, r], B_q [r, Dq], A_v [H, r], B_v [r, Dv]) tuple of this
+    layer's adapter factors; the q and v projections gain x @ A @ B deltas
+    (reference :177-184)."""
     from .ops.paged_attention import (kv_write_chunk,
                                       paged_attention_prefill_chunk)
-    if lora is not None:
-        raise NotImplementedError(
-            "LoRA adapters are not ported yet (ROADMAP.md Queue 1, slice 4: "
-            "adapters=)")
     eps, theta = cfg["eps"], cfg["theta"]
     nh, nkv, hd = cfg["heads"], cfg["kv_heads"], cfg["head_dim"]
     b, c, _ = h.shape                      # b == 1: one admission at a time
     pos = start + torch.arange(c, device=h.device)[None]     # (1, C)
     x = _rms(h, lp["input_layernorm.weight"], eps)
-    q = (x @ lp["self_attn.q_proj.weight"]).reshape(b, c, nh, hd)
+    q = x @ lp["self_attn.q_proj.weight"]
+    v = x @ lp["self_attn.v_proj.weight"]
+    if lora is not None:
+        a_q, b_q, a_v, b_v = (w.to(x.dtype) for w in lora)
+        q = q + (x @ a_q) @ b_q
+        v = v + (x @ a_v) @ b_v
+    q = q.reshape(b, c, nh, hd)
     k = (x @ lp["self_attn.k_proj.weight"]).reshape(b, c, nkv, hd)
-    v = (x @ lp["self_attn.v_proj.weight"]).reshape(b, c, nkv, hd)
+    v = v.reshape(b, c, nkv, hd)
     q = _rope(q, pos, theta)
     k = _rope(k, pos, theta)
     quant = fmt is not None and fmt.quantized

@@ -3,10 +3,11 @@
 reference: paddle_tpu/inference/serving.py — `Request` (:90),
 `_LayeredBlockPool` (:174), `_PrefillTask`, `_Inflight`,
 `ContinuousBatchingEngine` (:343) with its chunked prefill (:1324-1508),
-its fused K-step decode (`_make_decode`, :2161) and `_device_sample`
+its fused K-step decode (`_make_decode`, :2161), its speculative decode
+(`_make_decode_spec`, :2292, `_ngram_draft`, :2487) and `_device_sample`
 (:2514).
 
-Two programs serve every request mix:
+Three program families serve every request mix:
 
   - chunked prefill: a prompt is split into fixed-width chunks; each chunk
     forward writes its K/V into the paged pool and attends over every
@@ -15,30 +16,51 @@ Two programs serve every request mix:
   - fused K-step decode: one program advances every lane `decode_steps`
     tokens: greedy argmax, per-lane sampling for sampled lanes, the paged
     writes and the EOS/length masking all on the device, returning a
-    [B, K] token tile. On CUDA each (sampled, K) program is captured once
-    as a `torch.cuda.CUDAGraph` over static lane-state and pool tensors
-    and each dispatch is one replay; if a capture fails the engine raises
-    and never decodes eagerly on the card. On the CPU, which has no
-    graphs, the same function runs eagerly.
+    [B, K] token tile.
+  - speculative decode: each of the K steps drafts `draft_depth` tokens
+    per lane from the device-resident token history, verifies the step
+    token and the drafts, commits the accepted run plus one correction
+    token and rolls back the rejected writes, returning a [B, K, D + 2]
+    tile: D + 1 tokens and the commit count of each step. Each verified
+    position goes through the plain decode step's own operations (the same
+    shapes, one token per lane), and the pages are gathered once per
+    layer: the committed stream is the plain decode's bit for bit, in any
+    dtype (the reference verifies all positions in one batched forward,
+    which rounds differently in bf16).
+
+On CUDA each decode program, keyed by (sampled, K, draft depth; 0 for the
+plain decode), is captured once as a `torch.cuda.CUDAGraph` over static
+lane-state and pool tensors, and each dispatch is one replay; a capture
+that fails raises and the engine never decodes eagerly on the card. On the
+CPU, which has no graphs, the same functions run eagerly.
 
 Lane state (block tables, lengths, next tokens, alive mask, sampling
-knobs) is device-resident: `_upload_lane_state` fills the static tensors
-in place only when lane membership changes
-(`serving_lane_state_uploads_total`). Dispatch is double-buffered: tile
-N+1 is enqueued before tile N is read back. Each replay is followed by a
-non-blocking copy of its token tile to pinned host memory under a CUDA
-event, which `_drain_one` waits on.
+knobs, token history, adapter slots) is device-resident:
+`_upload_lane_state` fills the static tensors in place only when lane
+membership changes (`serving_lane_state_uploads_total`). Dispatch is
+double-buffered: tile N+1 is enqueued before tile N is read back. Each
+replay is followed by one non-blocking copy of its output to pinned host
+memory under a CUDA event, which `_drain_one` waits on.
 
 Memory is allocated in block_size granules from one (L, num_blocks, ...)
-pool; the last block is the scratch target of dead lanes.
+pool; the last block is the scratch target of dead lanes. Blocks are
+refcounted so the prefix cache can share prompt blocks across requests.
+Quantized formats (int8, fp8) keep a scale pool beside the payload.
 
-Not ported yet (ROADMAP.md Queue 1, slice 4, next step): speculative
-decode, LoRA adapters, the SLO scheduler with preemption, the prefix
-cache, quantized KV formats in the engine, and the mesh's export_kv /
-import_kv. Asking for any of them raises NotImplementedError. The engine
-has no PIR cost model either: `predicted_costs` and
+The knobs: speculative decode (`drafting.py` for the pluggable drafters),
+LoRA adapters (`adapters.py`), the SLO scheduler with preemption and the
+brownout ladder (`scheduler.py`), the prefix cache (`prefix_cache.py`)
+and quantized KV. Not ported: the mesh's export_kv / import_kv /
+adopt_identity / prefill_sink (ROADMAP.md Queue 1, slice 4, step 6), which
+raise NotImplementedError, and the PIR cost model: `predicted_costs` and
 `predicted_service_seconds` return None, as the reference's do before it
 has calibrated.
+
+Where the reference rebinds arrays functionally, this engine fills the
+tensors that the captured graphs hold in place: adapter uploads, COW
+forks and the lane state. The one exception is the kv-dequant
+degradation, which makes a pool of another dtype: it drops every graph
+and the next dispatch captures again.
 """
 
 from __future__ import annotations
@@ -60,10 +82,16 @@ from ..observability.tracing import LANE_TID_BASE
 from ..observability.tracing import get_tracer as _get_tracer
 from ..observability.tracing import new_trace_id as _new_trace_id
 from ..ops.flash_attention import kernel_takes
-from ..ops.paged_attention import (KVBlockFormat, kv_write_token,
-                                   paged_attention_decode_inner)
+from ..ops.paged_attention import (KVBlockFormat, kv_rollback_tokens,
+                                   kv_write_token, kv_write_tokens,
+                                   paged_attention_decode_inner,
+                                   paged_attention_verify)
 from ..profiler.phases import get_phase_accountant as _get_phases
 from ..resilience.faults import FaultInjected, fault_point
+from .adapters import AdapterLoadError
+from .drafting import _lookup
+from .prefix_cache import PrefixCacheIndex
+from .scheduler import PRIORITY_CLASSES, SLOScheduler
 
 __all__ = ["ContinuousBatchingEngine", "Request", "BackpressureError",
            "KVPoolExhaustedError"]
@@ -72,14 +100,11 @@ __all__ = ["ContinuousBatchingEngine", "Request", "BackpressureError",
 # they surface from an admission / prefill-chunk / host-sync seam
 _TRANSIENT_ERRORS = (TimeoutError, ConnectionError, OSError, FaultInjected)
 
-# the request priority classes of the reference's scheduler.py (:55); the
-# engine validates the name, and only a scheduler (not ported) reads it
-PRIORITY_CLASSES = ("interactive", "batch", "best_effort")
-
 
 def _not_ported(what):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1, slice 4, next step)")
+        f"{what} is not ported yet (ROADMAP.md Queue 1, slice 4, step 6: "
+        "the serving mesh)")
 
 
 class BackpressureError(RuntimeError):
@@ -98,17 +123,17 @@ class Request:
                  "generated", "done", "do_sample", "temperature", "top_k",
                  "top_p", "rng", "sample_seed", "t_arrival", "deadline_s",
                  "t_deadline", "finish_reason", "shed_count", "trace_id",
-                 "tenant", "priority", "t_first", "adapter")
+                 "tenant", "priority", "t_first", "adapter", "adapter_id")
 
     def __init__(self, rid, prompt, max_new_tokens, eos_token_id,
                  do_sample=False, temperature=1.0, top_k=0, top_p=1.0,
                  seed=None, deadline_s=None, tenant="-",
                  priority="interactive", adapter=None):
         self.rid = rid
-        # a named LoRA adapter; the port has no adapter store, so the
-        # engine rejects such a request at admission, as the reference's
-        # engine does without a store
+        # a named LoRA adapter (None = the base model); adapter_id is its
+        # slot in the engine's AdapterStore, bound at admission (0 = base)
         self.adapter = str(adapter) if adapter else None
+        self.adapter_id = 0
         self.tenant = str(tenant) if tenant else "-"
         self.priority = priority
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -167,8 +192,17 @@ class Request:
 class _LayeredBlockPool:
     """Block allocator over a (L, num_blocks, block_size, KVH, D) pool; one
     block-id table per sequence, shared by all layers. The last block is
-    the scratch target of dead decode lanes. The reference's refcounted
-    sharing (pin, adopt, fork_cow) waits for the prefix cache."""
+    the scratch target of dead decode lanes.
+
+    Blocks are REFCOUNTED: a block's references are each request whose
+    table holds it and an optional prefix-cache pin (`pin`/`unpin`).
+    `release` decrements, so requests sharing a prompt prefix return a
+    block once, when the last holder lets go. Shared blocks are only read;
+    the one write that can land in one (the tail of a block-aligned
+    full-prefix match) goes through `fork_cow` first.
+
+    Quantized formats hold int8/fp8 payloads plus a parallel
+    (L, num_blocks, block_size, KVH) scale pool."""
 
     def __init__(self, num_layers, num_blocks, block_size, kv_heads,
                  head_dim, dtype, device, fmt=None):
@@ -176,18 +210,36 @@ class _LayeredBlockPool:
         self.num_blocks = num_blocks
         self.fmt = fmt if fmt is not None else KVBlockFormat(
             "native", native_dtype=dtype)
+        store = self.fmt.store_dtype if self.fmt.quantized else dtype
         shape = (num_layers, num_blocks, block_size, kv_heads, head_dim)
-        self.k = torch.zeros(shape, dtype=dtype, device=device)
-        self.v = torch.zeros(shape, dtype=dtype, device=device)
+        self.k = torch.zeros(shape, dtype=store, device=device)
+        self.v = torch.zeros(shape, dtype=store, device=device)
+        if self.fmt.quantized:
+            sshape = shape[:-1]
+            self.k_scale = torch.zeros(sshape, dtype=self.fmt.scale_dtype,
+                                       device=device)
+            self.v_scale = torch.zeros_like(self.k_scale)
+        else:
+            self.k_scale = self.v_scale = None
         self.scratch_block = num_blocks - 1
         self._free = list(range(num_blocks - 2, -1, -1))
         self.tables: dict[int, list[int]] = {}
+        # block id -> reference count; absent == free (on self._free)
+        self._ref: dict[int, int] = {}
 
     def blocks_needed(self, n_tokens):
         return (n_tokens + self.block_size - 1) // self.block_size
 
     def can_fit(self, n_tokens, have=0):
         return len(self._free) >= self.blocks_needed(n_tokens) - have
+
+    def _deref(self, b):
+        n = self._ref.get(b, 1) - 1
+        if n <= 0:
+            self._ref.pop(b, None)
+            self._free.append(b)
+        else:
+            self._ref[b] = n
 
     def ensure(self, rid, n_tokens):
         table = self.tables.setdefault(rid, [])
@@ -196,11 +248,67 @@ class _LayeredBlockPool:
             if not self._free:
                 _metric("serving_pool_exhausted_total").inc()
                 raise KVPoolExhaustedError("paged KV pool exhausted")
-            table.append(self._free.pop())
+            b = self._free.pop()
+            self._ref[b] = 1
+            table.append(b)
         return table
 
     def release(self, rid):
-        self._free.extend(self.tables.pop(rid, []))
+        for b in self.tables.pop(rid, []):
+            self._deref(b)
+
+    # --- cross-request prefix sharing -----------------------------------
+    def adopt(self, rid, blocks):
+        """Start rid's table with already-resident shared blocks (a
+        prefix-cache hit): each gains a reference; ensure() fills the
+        rest."""
+        table = self.tables.setdefault(rid, [])
+        if table:
+            raise ValueError(f"adopt on rid {rid} with a non-empty table")
+        for b in blocks:
+            self._ref[b] = self._ref.get(b, 0) + 1
+            table.append(int(b))
+        return table
+
+    def pin(self, b):
+        """Prefix-cache reference: keeps the block resident after its
+        request retires."""
+        self._ref[b] = self._ref.get(b, 0) + 1
+
+    def unpin(self, b):
+        """Drop a prefix-cache reference (index eviction / clear). The
+        block frees only when no request still holds it."""
+        self._deref(b)
+
+    def shared_count(self, rid):
+        """How many of rid's blocks are shared (refcount > 1)."""
+        return sum(1 for b in self.tables.get(rid, ())
+                   if self._ref.get(b, 1) > 1)
+
+    def fork_cow(self, rid, idx):
+        """Copy-on-write: give rid a PRIVATE copy of table[idx] before a
+        write lands in it. The payload (and scales) are copied byte for
+        byte into a fresh block IN PLACE in the pool tensors, whose
+        addresses the captured decode graphs hold; the table entry swaps
+        and the old reference drops. No-op when the block is already
+        private. Raises KVPoolExhaustedError when no block is free."""
+        old = self.tables[rid][idx]
+        if self._ref.get(old, 1) <= 1:
+            return old
+        if not self._free:
+            _metric("serving_pool_exhausted_total").inc()
+            raise KVPoolExhaustedError(
+                "paged KV pool exhausted (copy-on-write fork)")
+        new = self._free.pop()
+        self._ref[new] = 1
+        pools = [self.k, self.v]
+        if self.fmt.quantized:
+            pools += [self.k_scale, self.v_scale]
+        for pool in pools:
+            pool[:, new].copy_(pool[:, old])
+        self.tables[rid][idx] = new
+        self._deref(old)
+        return new
 
 
 class _PrefillTask:
@@ -218,16 +326,19 @@ class _PrefillTask:
 
 
 class _Inflight:
-    """One dispatched-but-unread decode tile: the [B, K] token tile (a
-    pinned host tensor on CUDA, filled under `event`) plus the lane
-    snapshot (request refs + lane epochs) that credits tokens only to
-    lanes whose occupancy did not change while the tile was in flight."""
+    """One dispatched-but-unread decode tile: its output (a pinned host
+    tensor on CUDA, filled under `event`) plus the lane snapshot (request
+    refs + lane epochs) that credits tokens only to lanes whose occupancy
+    did not change while the tile was in flight. `spec` marks a
+    speculative tile ([B, K, D + 2]: tokens and commit counts); it is per
+    tile, so tiles dispatched before a switch drain under the program
+    they ran."""
 
     __slots__ = ("tile", "event", "t_dispatch", "reqs", "epochs", "k",
-                 "covers_all", "tile_id")
+                 "covers_all", "tile_id", "spec")
 
     def __init__(self, tile, event, t_dispatch, reqs, epochs, k, covers_all,
-                 tile_id=0):
+                 tile_id=0, spec=False):
         self.tile = tile
         self.event = event
         self.t_dispatch = t_dispatch
@@ -236,10 +347,11 @@ class _Inflight:
         self.k = k
         self.covers_all = covers_all
         self.tile_id = tile_id
+        self.spec = spec
 
 
 class _DecodeGraph:
-    """One captured decode program: its graph and its static token tile."""
+    """One captured decode program: its graph and its static output."""
 
     __slots__ = ("graph", "tile")
 
@@ -265,15 +377,39 @@ class ContinuousBatchingEngine:
       prefill_chunks_per_step: chunks advanced per engine step while
         decode lanes are active (back to back when none are).
       compat_step_loop: the pre-fused host-bound loop — decode_steps 1,
-        lane state uploaded every step, every tile drained synchronously.
-      kv_cache_dtype: "bf16"/"native" (the pool holds the model dtype).
-      kv_pool_bytes: size the pool by a byte budget instead of num_blocks.
+        lane state uploaded every step, every tile drained synchronously,
+        never speculative.
+      speculative_decode: each of the K steps proposes draft_depth tokens
+        from the drafter, verifies them, and commits the accepted run plus
+        a correction token — up to K * (draft_depth + 1) tokens per
+        dispatch; streams are the plain decode's.
+      draft_depth: draft tokens per step (clamped to block_size - 1, so
+        one step's writes and their rollback never alias within a block).
+      draft_ngram: context length of the built-in prompt-lookup drafter.
+      drafter: `fn(hist, lens, toks, depth) -> [B, depth]` int64 tensor of
+        drafts, run inside the decode program (see drafting.py); None =
+        the built-in n-gram drafter.
+      kv_cache_dtype: the pool's block format: "bf16"/"native" (the model
+        dtype), "int8", "fp8_e4m3", "fp8_e5m2" (quantized payloads and
+        per-(token, head) scales, dequantized at the attention reads).
+      kv_pool_bytes: size the pool by a byte budget instead of num_blocks;
+        int8 fits about twice the blocks of bf16.
       max_queue / max_sheds: backpressure and shed limits.
-
-    speculative_decode, adapters, scheduler, prefix_cache and a quantized
-    kv_cache_dtype raise NotImplementedError (ROADMAP.md); draft_depth,
-    draft_ngram, drafter and prefix_cache_blocks, which only those knobs
-    read, are taken for the reference's signature and have no effect.
+      scheduler: the SLO scheduler (scheduler.SLOScheduler): priority
+        classes with decode-lane preemption, per-tenant DRR and quotas,
+        and the reversible brownout ladder. None = FIFO admission; True =
+        an SLOScheduler with defaults; or a configured instance.
+      prefix_cache: cross-request prompt-prefix sharing: admission
+        resolves the prompt's leading block-aligned chunks against a
+        chained-hash index of resident blocks, prefill runs only on the
+        tail, shared blocks are refcounted, and the tail of a
+        block-aligned full match forks a private copy first (COW). Index
+        failures degrade to a miss (the serve.prefix_match fault site).
+      prefix_cache_blocks: optional cap on indexed blocks (LRU-evicted);
+        None = bounded by pool pressure only.
+      adapters: an adapters.AdapterStore on the engine's device. Lanes
+        carry an adapter slot, and the prefill and decode programs add
+        each lane's LoRA delta (slot 0, the base model, adds exactly 0).
     """
 
     def __init__(self, model, num_blocks=256, block_size=16, max_batch=8,
@@ -286,16 +422,6 @@ class ContinuousBatchingEngine:
                  kv_cache_dtype="bf16", kv_pool_bytes=None,
                  scheduler=None, prefix_cache=False,
                  prefix_cache_blocks=None, adapters=None):
-        if speculative_decode:
-            raise _not_ported("speculative_decode=True")
-        if adapters is not None:
-            raise _not_ported("adapters=")
-        if scheduler is not None:
-            raise _not_ported("scheduler=")
-        if prefix_cache:
-            raise _not_ported("prefix_cache=True")
-        if kv_cache_dtype not in ("bf16", "native"):
-            raise _not_ported(f"kv_cache_dtype={kv_cache_dtype!r}")
         config = model.config
         self.cfg = dict(eps=config.rms_norm_eps, theta=config.rope_theta,
                         heads=config.num_attention_heads,
@@ -315,6 +441,8 @@ class ContinuousBatchingEngine:
         L = config.num_hidden_layers
         fmt = KVBlockFormat(kv_cache_dtype, native_dtype=dtype)
         if kv_pool_bytes is not None:
+            # blocks = budget / bytes per block (k and v, all layers,
+            # payload and scales)
             per_block = (L * block_size * 2 *
                          fmt.bytes_per_token(self.cfg["kv_heads"],
                                              self.cfg["head_dim"]))
@@ -329,6 +457,10 @@ class ContinuousBatchingEngine:
         self.compat_step_loop = bool(compat_step_loop)
         self.decode_steps = (1 if self.compat_step_loop
                              else max(1, int(decode_steps)))
+        self.spec = bool(speculative_decode) and not self.compat_step_loop
+        self.draft_depth = max(1, min(int(draft_depth), block_size - 1))
+        self.draft_ngram = max(2, int(draft_ngram))
+        self._drafter = drafter
         self.chunk = int(prefill_chunk or self.buckets[-1])
         self.prefill_chunks_per_step = max(1, int(prefill_chunks_per_step))
         # chunk widths a prefill piece may run at: every bucket that fits
@@ -365,6 +497,23 @@ class ContinuousBatchingEngine:
         self.finished: dict[int, Request] = {}
         self._next_rid = 0
         self._prefill_tasks: dict[int, _PrefillTask] = {}
+        if adapters is not None:
+            nh, nkv, hd = (self.cfg["heads"], self.cfg["kv_heads"],
+                           self.cfg["head_dim"])
+            H = nh * hd
+            if (adapters.num_layers != L or adapters.hidden != H
+                    or adapters.q_out != nh * hd
+                    or adapters.v_out != nkv * hd):
+                raise ValueError(
+                    "AdapterStore dimensions do not match this model: "
+                    f"store (L={adapters.num_layers}, H={adapters.hidden},"
+                    f" q={adapters.q_out}, v={adapters.v_out}) vs model "
+                    f"(L={L}, H={H}, q={nh * hd}, v={nkv * hd})")
+            if adapters.device != self.device:
+                raise ValueError(
+                    f"AdapterStore lives on {adapters.device}, the engine "
+                    f"on {self.device}")
+        self.adapters = adapters
         # device-resident lane state: static tensors that the decode
         # graphs read and write, refilled in place by _upload_lane_state
         # only on membership change (self._dirty)
@@ -378,14 +527,24 @@ class ContinuousBatchingEngine:
             seeds=_zeros(B), do_sample=_zeros(B, dtype=torch.bool),
             temp=_zeros(B, dtype=torch.float32), top_k=_zeros(B),
             top_p=_zeros(B, dtype=torch.float32))
-        self._variant = None          # "greedy" | "sampled" once uploaded
+        if self.spec:
+            # each lane's prompt and committed tokens, the drafter's corpus;
+            # the last column is the scratch target of dead lanes' and
+            # out-of-range writes (the reference's JAX drops them)
+            self._dev["hist"] = _zeros(B, MB * block_size + 1)
+        if adapters is not None:
+            self._dev["adapter_ids"] = _zeros(B)
+        self._variant = None      # "greedy"|"sampled"[".spec"] once uploaded
         self._dirty = True
         self._inflight: deque[_Inflight] = deque()
-        # (sampled, K) -> captured decode program (CUDA only); the graphs
-        # share one memory pool, as they never run at once
+        # (sampled, K, draft depth; 0 = plain decode) -> captured program
+        # (CUDA only); the graphs share one memory pool, as they never run
+        # at once, and every output the host reads is copied out right
+        # after its replay
         self._graphs: dict[tuple, _DecodeGraph] = {}
         self._graph_pool = None
         self.graph_captures = 0
+        self.program_keys_used: set[tuple] = set()
         # observability handles bound once (catalog names; no-ops while
         # the layer is disabled)
         self._m_ttft = _metric("serving_ttft_seconds")
@@ -403,7 +562,11 @@ class ContinuousBatchingEngine:
         self._m_hostsync = _metric("serving_hostsync_seconds")
         self._m_hostsync_retries = _metric("serving_hostsync_retries_total")
         self._m_chunks = _metric("serving_prefill_chunks_total")
+        self._m_draft = _metric("serving_draft_tokens_total")
+        self._m_accept = _metric("serving_accepted_tokens_total")
+        self._m_accept_rate = _metric("serving_spec_acceptance_rate")
         self._m_tok_disp = _metric("serving_tokens_per_dispatch")
+        _metric("serving_preempted_total")  # incremented by _try_preempt
         self._tracer = _get_tracer()
         self._reg = _get_registry()
         self._rec = _get_recorder()
@@ -413,6 +576,42 @@ class ContinuousBatchingEngine:
         # collapse to "overflow"
         self._tenants: set[str] = set()
         self._max_tenants = 32
+        # the brownout ladder's base values, so its degradations are
+        # reversible; _spec_allowed separates the reversible switch from
+        # the permanent draft_verify-fault degradation
+        self._base_decode_steps = self.decode_steps
+        self._base_draft_depth = self.draft_depth
+        self._base_chunk = self.chunk
+        self._mnt_cap = None
+        self._spec_allowed = self.spec
+        # rid -> (request, cached length, next token): decode lanes parked
+        # by preemption; their blocks stay allocated, so a resume is a
+        # lane-state upload, not a prefill
+        self._preempted: dict[int, tuple[Request, int, int]] = {}
+        # arrival times (trailing window): the scheduler's offered rate
+        self._arrivals: deque[float] = deque(maxlen=256)
+        if scheduler is True:
+            scheduler = SLOScheduler()
+        self.scheduler = scheduler
+        # the prefix index; its identity string folds the block format and
+        # geometry into every chain key, so entries never resolve across a
+        # format change (the kv_dequant degradation also clears it)
+        if prefix_cache:
+            ident = (f"{self.pool.fmt.name}:{block_size}:"
+                     f"{self.cfg['kv_heads']}x{self.cfg['head_dim']}:"
+                     f"{str(dtype).removeprefix('torch.')}")
+            self._prefix = PrefixCacheIndex(ident, block_size,
+                                            max_blocks=prefix_cache_blocks)
+        else:
+            self._prefix = None
+        # rid -> tokens resolved from the index at admission
+        self._prefix_matched: dict[int, int] = {}
+        self._m_pfx_hits = _metric("serving_prefix_hits_total")
+        self._m_pfx_miss = _metric("serving_prefix_misses_total")
+        self._m_pfx_saved = _metric("serving_prefix_tokens_saved_total")
+        self._m_pfx_shared = _metric("serving_prefix_shared_blocks")
+        self._m_pfx_evict = _metric("serving_prefix_evictions_total")
+        self._m_pfx_cow = _metric("serving_prefix_cow_forks_total")
 
     # --- public API -------------------------------------------------------
     def add_request(self, prompt, max_new_tokens=32, eos_token_id=None,
@@ -423,9 +622,11 @@ class ContinuousBatchingEngine:
         budget from arrival: once exceeded the request finishes with what
         it has and finish_reason='timeout'. `tenant` labels its telemetry
         (bounded cardinality). `priority` must name a class of
-        PRIORITY_CLASSES. A request naming an `adapter` is rejected at
-        admission (no adapter store). Raises BackpressureError when the
-        admission queue is at max_queue."""
+        scheduler.PRIORITY_CLASSES (only a scheduler reads it). `adapter`
+        names a LoRA adapter of the engine's AdapterStore (None = base);
+        one the store cannot make resident at admission is a typed
+        rejection, never a base-weights stream. Raises BackpressureError
+        when the admission queue is at max_queue."""
         if priority not in PRIORITY_CLASSES:
             raise ValueError(
                 f"unknown priority class {priority!r}; registered: "
@@ -451,6 +652,7 @@ class ContinuousBatchingEngine:
                       seed, deadline_s, tenant=tenant, priority=priority,
                       adapter=adapter)
         self.queue.append(req)
+        self._arrivals.append(req.t_arrival)
         if self._tracer.enabled:
             self._tracer.add_span("request.admit",
                                   int(req.t_arrival * 1e9), 0,
@@ -459,7 +661,7 @@ class ContinuousBatchingEngine:
 
     def has_work(self):
         return (bool(self.queue) or any(r is not None for r in self.lanes)
-                or bool(self._inflight))
+                or bool(self._inflight) or bool(self._preempted))
 
     def run(self, max_steps=10_000):
         """Drive to completion; returns {rid: [generated tokens]}."""
@@ -470,10 +672,23 @@ class ContinuousBatchingEngine:
         return {rid: r.generated for rid, r in self.finished.items()}
 
     def export_kv(self, req, first_tok):
-        raise _not_ported("export_kv (the serving mesh)")
+        raise _not_ported("export_kv")
 
     def import_kv(self, record):
-        raise _not_ported("import_kv (the serving mesh)")
+        raise _not_ported("import_kv")
+
+    def adopt_identity(self, rid, trace_id, t_arrival=None):
+        raise _not_ported("adopt_identity")
+
+    @property
+    def prefill_sink(self):
+        """The disaggregated prefill worker's hand-off; always None here."""
+        return None
+
+    @prefill_sink.setter
+    def prefill_sink(self, sink):
+        if sink is not None:
+            raise _not_ported("prefill_sink")
 
     def predicted_costs(self):
         """None: the engine has no PIR cost model yet (ROADMAP.md slice
@@ -494,6 +709,10 @@ class ContinuousBatchingEngine:
         with _span("serving.step"):
             self._expire_deadlines()
             self._m_queue.set(len(self.queue))
+            if self.scheduler is not None:
+                # the closed-loop decision (brownout ladder and at most
+                # one preemption): admission policy, timed as "admit"
+                self.scheduler.on_step(self)
             self._admit()
             ph.mark("admit")
             self._run_prefill_tasks()
@@ -514,6 +733,7 @@ class ContinuousBatchingEngine:
         # request.finish span and the recorder event share `reason`
         req.done = True
         req.finish_reason = reason
+        self._prefix_matched.pop(req.rid, None)
         self.finished[req.rid] = req
         _metric("serving_finished_total", reason=reason).inc()
         _metric("serving_tenant_finished_total",
@@ -528,11 +748,21 @@ class ContinuousBatchingEngine:
             self._rec.record("finish", rid=req.rid, reason=reason,
                              tokens=len(req.generated))
 
+    def _adapter_release(self, req):
+        """Drop the request's adapter reference (idempotent): acquired at
+        admission, held while parked, dropped wherever its blocks are
+        released."""
+        if self.adapters is not None and req.adapter_id:
+            self.adapters.release(req.adapter_id)
+        req.adapter_id = 0
+
     def _vacate(self, lane):
-        """Empty a lane: its prefill task, its blocks and its slot."""
+        """Empty a lane: its prefill task, its blocks, its adapter
+        reference and its slot."""
         req = self.lanes[lane]
         self._prefill_tasks.pop(lane, None)
         self.pool.release(req.rid)
+        self._adapter_release(req)
         self.lanes[lane] = None
         self.lane_len[lane] = 0
         self._lane_epoch[lane] += 1
@@ -545,9 +775,9 @@ class ContinuousBatchingEngine:
         self._finish(req, reason)
 
     def _expire_deadlines(self):
-        """An expired queued request finishes empty; an expired decoding
-        (or prefilling) lane finishes with the tokens it has and releases
-        its blocks."""
+        """An expired queued request finishes empty; an expired decoding,
+        prefilling or parked request finishes with the tokens it has and
+        releases its blocks."""
         now = time.perf_counter()
         if any(r.t_deadline is not None and now >= r.t_deadline
                for r in self.queue):
@@ -569,11 +799,23 @@ class ContinuousBatchingEngine:
                 if self._rec.enabled:
                     self._rec.record("timeout", rid=req.rid, where="decode")
                 self._retire_lane(lane, "timeout")
+        for rid in [rid for rid, (req, _ln, _tok)
+                    in self._preempted.items()
+                    if req.t_deadline is not None
+                    and now >= req.t_deadline]:
+            req, _ln, _tok = self._preempted.pop(rid)
+            self.pool.release(rid)
+            self._adapter_release(req)
+            _metric("serving_timeouts_total", where="preempted").inc()
+            if self._rec.enabled:
+                self._rec.record("timeout", rid=rid, where="preempted")
+            self._m_retired.inc()
+            self._finish(req, "timeout")
 
     def cancel(self, rid):
-        """Withdraw one request wherever it lives (queued or in a lane)
-        without a finished record; its blocks release. Returns whether
-        anything was withdrawn."""
+        """Withdraw one request wherever it lives (queued, in a lane or
+        parked) without a finished record; its blocks release. Returns
+        whether anything was withdrawn."""
         rid = int(rid)
         for i, req in enumerate(self.queue):
             if req.rid == rid:
@@ -582,9 +824,15 @@ class ContinuousBatchingEngine:
         else:
             lane = next((i for i, r in enumerate(self.lanes)
                          if r is not None and r.rid == rid), None)
-            if lane is None:
+            if lane is not None:
+                self._vacate(lane)
+            elif rid in self._preempted:
+                req, _ln, _tok = self._preempted.pop(rid)
+                self.pool.release(rid)
+                self._adapter_release(req)
+            else:
                 return False
-            self._vacate(lane)
+        self._prefix_matched.pop(rid, None)
         if self._rec.enabled:
             self._rec.record("sched", action="cancel", rid=rid)
         return True
@@ -614,72 +862,232 @@ class ContinuousBatchingEngine:
         req.generated = []
         self.queue.appendleft(req)
 
+    # --- priority preemption ----------------------------------------------
+    def _try_preempt(self, lane, why="slo"):
+        """Park a decode-active lane so a higher-priority request can take
+        it. Unlike _shed, the blocks STAY resident and the host cursor
+        (lane_len / lane_tok) is saved: resuming is a lane-state upload,
+        and the stream continues as it would have. Tokens of the lane in a
+        tile still in flight are regenerated identically after the resume
+        (the tile wrote the same values to the same positions); the epoch
+        bump keeps them from being credited twice. Returns False when the
+        lane is empty or still prefilling, or the serve.preempt fault site
+        fires (the victim keeps decoding)."""
+        req = self.lanes[lane]
+        if req is None or lane in self._prefill_tasks:
+            return False
+        try:
+            fault_point("serve.preempt", rid=req.rid, lane=lane)
+        except _TRANSIENT_ERRORS:
+            _metric("serving_deferred_total", reason="preempt_fault").inc()
+            return False
+        self._preempted[req.rid] = (req, int(self.lane_len[lane]),
+                                    int(self.lane_tok[lane]))
+        self.lanes[lane] = None
+        self.lane_len[lane] = 0
+        self._lane_epoch[lane] += 1
+        self._dirty = True
+        _metric("serving_preempted_total").inc()
+        _metric("serving_preemptions_total",
+                **{"class": req.priority}).inc()
+        if self._rec.enabled:
+            self._rec.record("sched", action="preempt", rid=req.rid,
+                             lane=lane, why=why,
+                             tokens=len(req.generated))
+        if self._tracer.enabled:
+            self._tracer.add_span("request.preempt",
+                                  time.perf_counter_ns(), 0,
+                                  trace_id=req.trace_id,
+                                  args={"rid": req.rid, "why": why})
+        return True
+
+    def _resume_preempted(self):
+        """Re-admit parked requests into free lanes, oldest first: the host
+        cursor comes back, the epoch bumps, and the next _decode_phase
+        uploads the lane state."""
+        for rid in list(self._preempted):
+            lane = next((i for i, r in enumerate(self.lanes)
+                         if r is None and i not in self._prefill_tasks),
+                        None)
+            if lane is None:
+                return
+            req, lane_len, lane_tok = self._preempted.pop(rid)
+            self.lanes[lane] = req
+            self.lane_len[lane] = lane_len
+            self.lane_tok[lane] = lane_tok
+            self._lane_epoch[lane] += 1
+            self._dirty = True
+            if self._rec.enabled:
+                self._rec.record("sched", action="resume", rid=rid,
+                                 lane=lane, tokens=len(req.generated))
+
     # --- admission / chunked prefill -------------------------------------
     def _admit(self):
-        """FIFO admission: reserve a lane and the request's whole block
-        footprint; the prompt prefills chunk by chunk in
-        _run_prefill_tasks."""
+        """Reserve a lane and the request's whole block footprint; the
+        prompt prefills chunk by chunk in _run_prefill_tasks. With a
+        scheduler, parked requests resume first when it allows, and the
+        queue order comes from its priority-class and tenant-DRR pick
+        instead of FIFO."""
+        if self._preempted and (self.scheduler is None
+                                or self.scheduler.should_resume(self)):
+            self._resume_preempted()
         while self.queue:
             free_lanes = [i for i, r in enumerate(self.lanes) if r is None]
             if not free_lanes:
                 return
-            req = self.queue[0]
+            if self.scheduler is not None:
+                idx = self.scheduler.pick_index(self)
+                if idx is None:
+                    return
+            else:
+                idx = 0
+            req = self.queue[idx]
+            if (self.scheduler is not None
+                    and self.scheduler.shed_best_effort
+                    and req.priority == "best_effort"):
+                # deepest brownout rung: best_effort is not served; a
+                # typed, counted shed
+                del self.queue[idx]
+                req.generated = []
+                _metric("serving_shed_total").inc()
+                if self._rec.enabled:
+                    self._rec.record("sched", action="shed_best_effort",
+                                     rid=req.rid)
+                self._finish(req, "shed")
+                continue
+            if self._mnt_cap is not None \
+                    and req.max_new_tokens > self._mnt_cap:
+                # cap_max_new_tokens rung: the budget is reshaped at
+                # admission and stays so after recovery
+                req.max_new_tokens = self._mnt_cap
+                if self._rec.enabled:
+                    self._rec.record("sched", action="cap_max_new_tokens",
+                                     rid=req.rid, cap=self._mnt_cap)
             total = req.prompt.size + req.max_new_tokens
             if total > self.max_blocks_per_seq * self.pool.block_size:
                 # cannot ever serve: rejected with an empty result
-                self.queue.popleft()
+                del self.queue[idx]
                 req.generated = []
                 self._finish(req, "rejected")
                 _metric("serving_rejected_total", reason="oversized").inc()
                 continue
             if req.max_new_tokens <= 0:
-                self.queue.popleft()
+                del self.queue[idx]
                 self._finish(req, "length")
                 continue
-            # admit only if the WHOLE sequence fits: no mid-flight
-            # eviction of live requests
-            if not self.pool.can_fit(total):
+            # prefix-cache lookup: the prompt's leading block-aligned
+            # chunks resolved to resident shared blocks; any index failure
+            # is a plain miss (full prefill, the same stream)
+            matched, m_tok = [], 0
+            s = int(req.prompt.size)
+            if self._prefix is not None:
+                try:
+                    fault_point("serve.prefix_match", rid=req.rid)
+                    matched, m_tok = self._prefix.lookup(req.prompt)
+                except _TRANSIENT_ERRORS:
+                    matched, m_tok = [], 0
+                    _metric("serving_runtime_degradations_total",
+                            what="prefix_miss").inc()
+                    if self._rec.enabled:
+                        self._rec.record("degrade", what="prefix_miss",
+                                         rid=req.rid)
+            # a block-aligned FULL match must still prefill the final
+            # position (the first token comes from its logits): that one
+            # write lands in the last shared block, which is forked first
+            need_fork = bool(matched) and m_tok >= s
+            if need_fork:
+                m_tok = s - 1
+            # admit only if the WHOLE sequence fits (no mid-flight eviction
+            # of live requests); index-only blocks are reclaimable cache,
+            # evicted LRU before deferring
+            have = len(matched) - (1 if need_fork else 0)
+
+            def _fits():
+                return (self.pool.can_fit(total, have) if have
+                        else self.pool.can_fit(total))
+
+            if not _fits() and self._prefix is not None:
+                protect = frozenset(matched)
+                while not _fits():
+                    b = self._prefix.evict(protect)
+                    if b is None:
+                        break
+                    self.pool.unpin(b)
+                    self._m_pfx_evict.inc()
+                self._m_pfx_shared.set(len(self._prefix))
+            if not _fits():
                 _metric("serving_deferred_total", reason="pool_full").inc()
                 return
-            self.queue.popleft()
+            del self.queue[idx]
+            # adapter binding: make the named adapter resident and check
+            # the slot the lane will gather from. Any store failure is a
+            # typed rejection, never a stream on the wrong weights
+            req.adapter_id = 0
             if req.adapter:
-                # no adapter store: a typed rejection, never a base-weights
-                # stream under an adapter's name
                 try:
                     fault_point("serve.adapter_load", rid=req.rid,
                                 adapter=req.adapter)
-                except _TRANSIENT_ERRORS:
-                    pass
-                req.generated = []
-                self._finish(req, "rejected")
-                _metric("serving_rejected_total", reason="adapter").inc()
-                _metric("serving_adapter_load_failures_total").inc()
-                if self._rec.enabled:
-                    self._rec.record("adapter", action="reject",
-                                     rid=req.rid, adapter=req.adapter)
-                continue
+                    if self.adapters is None:
+                        raise AdapterLoadError(
+                            f"request names adapter {req.adapter!r} but "
+                            "the engine has no AdapterStore attached")
+                    req.adapter_id = self.adapters.acquire(req.adapter)
+                    fault_point("serve.adapter_gather", rid=req.rid,
+                                slot=req.adapter_id)
+                    self.adapters.check_resident(req.adapter_id)
+                except (AdapterLoadError,) + _TRANSIENT_ERRORS:
+                    self._adapter_release(req)
+                    req.generated = []
+                    self._finish(req, "rejected")
+                    _metric("serving_rejected_total",
+                            reason="adapter").inc()
+                    _metric("serving_adapter_load_failures_total").inc()
+                    if self._rec.enabled:
+                        self._rec.record("adapter", action="reject",
+                                         rid=req.rid,
+                                         adapter=req.adapter)
+                    continue
             lane = free_lanes[0]
             try:
                 fault_point("serve.admit", rid=req.rid)
                 # reserve the FULL footprint now, so decode never exhausts
-                # the pool mid-flight
+                # the pool mid-flight; matched blocks are adopted first
+                if matched:
+                    self.pool.adopt(req.rid, matched)
+                    if need_fork:
+                        self.pool.fork_cow(req.rid, len(matched) - 1)
+                        self._m_pfx_cow.inc()
                 self.pool.ensure(req.rid, total)
             except MemoryError:
                 self.pool.release(req.rid)
+                self._adapter_release(req)
                 self.queue.appendleft(req)
                 _metric("serving_deferred_total",
                         reason="pool_exhausted").inc()
                 return
             except _TRANSIENT_ERRORS:
                 self.pool.release(req.rid)
+                self._adapter_release(req)
                 self.queue.appendleft(req)
                 _metric("serving_deferred_total",
                         reason="admit_fault").inc()
                 return
+            if self._prefix is not None:
+                if m_tok > 0:
+                    self._m_pfx_hits.inc()
+                    self._m_pfx_saved.inc(m_tok)
+                    self._prefix_matched[req.rid] = m_tok
+                    if self._rec.enabled:
+                        self._rec.record("prefix_hit", rid=req.rid,
+                                         tokens=m_tok,
+                                         blocks=len(matched))
+                else:
+                    self._m_pfx_miss.inc()
             self.lanes[lane] = req
             self._lane_epoch[lane] += 1
+            # prefill covers only the unmatched tail
             self._prefill_tasks[lane] = _PrefillTask(
-                req, lane, self._chunk_plan(req.prompt.size))
+                req, lane, self._chunk_plan(req.prompt.size, m_tok))
             if self._tracer.enabled:
                 t0 = int(req.t_arrival * 1e9)
                 self._tracer.add_span(
@@ -693,7 +1101,7 @@ class ContinuousBatchingEngine:
     def _chunk_plan(self, s, start=0):
         """(start, width) pieces covering tokens [start, s) of a prompt:
         full chunks, then a tail padded to the smallest chunk width that
-        fits."""
+        fits. A non-zero start is a prefix-cache hit."""
         pieces = []
         while s - start > self.chunk:
             pieces.append((start, self.chunk))
@@ -736,22 +1144,32 @@ class ContinuousBatchingEngine:
         self.queue.appendleft(task.req)
         _metric("serving_deferred_total", reason=reason).inc()
 
-    def _prefill_chunk(self, ids, start, last_idx, table_row):
+    def _prefill_chunk(self, ids, start, last_idx, table_row, adapter_id=0):
         """The prefill program: one chunk forward over every layer,
-        writing the chunk's K/V into the pool; returns the f32 logits of
-        the chunk's position `last_idx`. ids (1, W)."""
-        cfg = self.cfg
+        writing the chunk's K/V (encoded in the pool's format) into the
+        pool, with the lane's adapter delta when a store is attached;
+        returns the f32 logits of the chunk's position `last_idx`. ids
+        (1, W)."""
+        cfg, pool = self.cfg, self.pool
+        quant = pool.fmt.quantized
+        ad = self.adapters
         h = self.embed_w[ids]                                   # (1, W, H)
         for li, lp in enumerate(self.layers):
+            lora = (None if ad is None else
+                    (ad.A_q[li, adapter_id], ad.B_q[li, adapter_id],
+                     ad.A_v[li, adapter_id], ad.B_v[li, adapter_id]))
             h, _ = _llama_layer_prefill_chunk(
-                lp, h, self.pool.k[li], self.pool.v[li], table_row, start,
-                cfg)
+                lp, h, pool.k[li], pool.v[li], table_row, start, cfg,
+                fmt=pool.fmt if quant else None,
+                kc_scale=pool.k_scale[li] if quant else None,
+                vc_scale=pool.v_scale[li] if quant else None, lora=lora)
         return (_rms(h[0, last_idx], self.norm_w, cfg["eps"])
                 @ self._out_w).float()
 
     def _prefill_one_chunk(self, task):
         """Run one chunk forward; on the final chunk, choose the first
-        token and activate the lane. Returns True when the task is done."""
+        token, index the prompt's blocks and activate the lane. Returns
+        True when the task is done."""
         req = task.req
         start, width = task.pieces[task.idx]
         s = req.prompt.size
@@ -768,7 +1186,7 @@ class ContinuousBatchingEngine:
         t0 = time.perf_counter()
         logits = self._prefill_chunk(
             torch.from_numpy(ids).to(self.device), int(start), int(last_idx),
-            torch.from_numpy(table).to(self.device))
+            torch.from_numpy(table).to(self.device), req.adapter_id)
         host_logits = logits.cpu().numpy() if is_final else None
         dt = time.perf_counter() - t0
         self._m_prefill.observe(dt)
@@ -794,6 +1212,29 @@ class ContinuousBatchingEngine:
         self._m_ttft.observe(ttft, exemplar=req.trace_id)
         _metric("serving_tenant_ttft_seconds",
                 tenant=req.tenant).observe(ttft)
+        if self.adapters is not None:
+            _metric("serving_adapter_ttft_seconds",
+                    adapter=req.adapter or "base").observe(ttft)
+        if self.scheduler is not None:
+            self.scheduler.note_ttft(ttft)
+        # index the full-prompt blocks for the next sharer; a failure
+        # leaves them unindexed and never touches a stream
+        if self._prefix is not None:
+            try:
+                fault_point("serve.prefix_match", rid=req.rid)
+                for b in self._prefix.insert(req.prompt,
+                                             self.pool.tables[req.rid]):
+                    self.pool.pin(b)
+                for b in self._prefix.trim():
+                    self.pool.unpin(b)
+                    self._m_pfx_evict.inc()
+                self._m_pfx_shared.set(len(self._prefix))
+            except _TRANSIENT_ERRORS:
+                _metric("serving_runtime_degradations_total",
+                        what="prefix_miss").inc()
+                if self._rec.enabled:
+                    self._rec.record("degrade", what="prefix_miss",
+                                     rid=req.rid)
         self.lane_len[lane] = s
         self.lane_tok[lane] = first_tok
         self._dirty = True
@@ -818,6 +1259,19 @@ class ContinuousBatchingEngine:
         force a drain + lane-state upload."""
         if self.compat_step_loop:
             self._dirty = True      # pre-fused loop: re-upload every step
+        # the degradation sites fire BEFORE the drain/upload decision, so
+        # an in-flight tile drains under the program it ran with before
+        # the upload switches programs
+        if self.spec:
+            try:
+                fault_point("serve.draft_verify", depth=self.draft_depth)
+            except _TRANSIENT_ERRORS:
+                self._disable_spec("draft_verify_fault")
+        if self.pool.fmt.quantized:
+            try:
+                fault_point("serve.kv_dequant", fmt=self.pool.fmt.name)
+            except _TRANSIENT_ERRORS:
+                self._degrade_kv_to_bf16()
         active = self._decode_active()
         if not active:
             if self._inflight:
@@ -839,7 +1293,7 @@ class ContinuousBatchingEngine:
             fault_point("serve.decode_oom", active=len(active))
             with _span("serving.decode_step", active=len(active),
                        k=self.decode_steps):
-                tile, event = self._dispatch()
+                tile, event, spec = self._dispatch()
         except MemoryError:
             # device OOM (or the serve.decode_oom fault site): shed one
             # lane and requeue it rather than killing every request
@@ -868,7 +1322,7 @@ class ContinuousBatchingEngine:
         self._tile_seq += 1
         self._inflight.append(_Inflight(
             tile, event, t0, snap, self._lane_epoch.copy(), K, covers_all,
-            tile_id))
+            tile_id, spec=spec))
         if self._rec.enabled:
             self._rec.record("dispatch", tile=tile_id, lanes=list(active),
                              epochs=[int(self._lane_epoch[i])
@@ -880,22 +1334,123 @@ class ContinuousBatchingEngine:
             if not self._drain_one():
                 break
 
+    def _disable_spec(self, why):
+        """serve.draft_verify degradation: fall back to the plain fused
+        decode for the engine's lifetime (a later brownout recovery cannot
+        turn a faulted drafter back on). Streams continue unchanged; only
+        the tokens per dispatch drop. _decode_phase drains in-flight tiles
+        (flagged spec per tile) before honouring _dirty."""
+        self.spec = False
+        self._spec_allowed = False
+        _metric("serving_runtime_degradations_total",
+                what="speculation_off").inc()
+        if self._rec.enabled:
+            self._rec.record("degrade", what="speculation_off", why=why)
+        self._dirty = True
+
+    def _degrade_kv_to_bf16(self):
+        """serve.kv_dequant degradation: dequantize the whole pool into a
+        new pool of the native dtype, layer by layer (both pools are
+        resident while it converts), and drop the quantized format for the
+        engine's lifetime. Every captured graph read the old pool's
+        tensors, so all are dropped once the stream is idle, and the next
+        dispatch captures again. The lane state is untouched: decode goes
+        on where the last dispatched tile left it."""
+        t0 = time.perf_counter()
+        pool, fmt = self.pool, self.pool.fmt
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self._graphs.clear()
+        self._graph_pool = None
+        for name, scale in (("k", pool.k_scale), ("v", pool.v_scale)):
+            old = getattr(pool, name)
+            new = torch.empty(old.shape, dtype=fmt.native_dtype,
+                              device=old.device)
+            for li in range(old.shape[0]):
+                new[li] = fmt.decode(old[li], scale[li])
+            setattr(pool, name, new)
+            del old
+        pool.k_scale = pool.v_scale = None
+        pool.fmt = KVBlockFormat("native", native_dtype=self.embed_w.dtype)
+        # the index promised the old byte layout: drop every entry (the
+        # blocks free once no resident request still holds them)
+        if self._prefix is not None:
+            for b in self._prefix.clear():
+                self.pool.unpin(b)
+                self._m_pfx_evict.inc()
+            self._m_pfx_shared.set(0)
+        _metric("serving_kv_dequant_seconds").observe(
+            time.perf_counter() - t0)
+        _metric("serving_runtime_degradations_total", what="kv_bf16").inc()
+        if self._rec.enabled:
+            self._rec.record("degrade", what="kv_bf16", fmt=fmt.name)
+
+    # --- brownout knobs ---------------------------------------------------
+    # The ladder's setters are REVERSIBLE, unlike the fault degradations
+    # above: they flip the knob and mark the lane state dirty. The
+    # membership machinery drains any in-flight tile under its dispatch-
+    # time program before the next dispatch replays (or captures) the
+    # program of the new (sampled, K, depth) key, so a mid-flight knob
+    # change never double-emits or drops a token.
+    def _set_decode_steps(self, k):
+        k = 1 if self.compat_step_loop else max(1, int(k))
+        if k == self.decode_steps:
+            return
+        self.decode_steps = k
+        self._dirty = True
+
+    def _set_draft_depth(self, d):
+        d = max(1, min(int(d), self.pool.block_size - 1))
+        if d == self.draft_depth:
+            return
+        self.draft_depth = d
+        self._dirty = True
+
+    def _set_speculation(self, on):
+        want = bool(on) and self._spec_allowed \
+            and not self.compat_step_loop
+        if want == self.spec:
+            return
+        self.spec = want
+        self._dirty = True
+
+    def _set_prefill_chunk_small(self, on):
+        # force_small_prefill_chunk rung: future admissions plan their
+        # prefill at the smallest chunk width; plans already issued stay
+        self.chunk = self._chunk_widths[0] if on else self._base_chunk
+
+    def _set_mnt_cap(self, cap):
+        # cap_max_new_tokens rung: requests admitted while engaged are
+        # clamped to `cap` generated tokens; None restores uncapped
+        self._mnt_cap = None if cap is None else max(1, int(cap))
+
+    def _program(self, sampled, K, D):
+        """The decode program of key (sampled, K, D) as a callable: the
+        plain fused decode for D == 0, else the speculative one at draft
+        depth D."""
+        if D == 0:
+            return lambda: self._decode_tile(sampled, K)
+        return lambda: self._decode_tile_spec(sampled, K, D)
+
     def _dispatch(self):
         """Enqueue one decode tile over the uploaded lane state: on CUDA a
-        replay of the (variant, K) graph, captured on first use, then a
-        non-blocking copy of its tile to pinned host memory under an
-        event; on the CPU an eager run. Returns (tile, event or None)."""
-        sampled = self._variant == "sampled"
+        replay of the (sampled, K, D) graph, captured on first use, then
+        one non-blocking copy of its output to pinned host memory under
+        an event; on the CPU an eager run. Returns (tile, event or None,
+        whether the tile is speculative)."""
+        spec = self._variant.endswith(".spec")
+        sampled = self._variant.startswith("sampled")
         K = self.decode_steps
+        key = (sampled, K, self.draft_depth if spec else 0)
+        self.program_keys_used.add(key)
         if self.device.type != "cuda":
-            tile = self._decode_tile(sampled, K)
+            tile = self._program(*key)()
             self._phases.mark("decode.dispatch")
-            return tile, None
-        key = (sampled, K)
+            return tile, None, spec
         prog = self._graphs.get(key)
         cold = prog is None
         if cold:
-            prog = self._capture(sampled, K)
+            prog = self._capture(*key)
             self._graphs[key] = prog
             self.graph_captures += 1
             _metric("jit_retrace_total").inc()
@@ -906,36 +1461,90 @@ class ContinuousBatchingEngine:
         event = torch.cuda.Event()
         event.record()
         self._phases.mark("compile" if cold else "decode.dispatch")
-        return host, event
+        return host, event, spec
 
-    def _capture(self, sampled, K):
-        """Capture the decode program as a CUDA graph. The warm-up run that
-        capture needs goes with every lane dead, so it writes only the
-        scratch block and leaves the lane state as it was. A failure
+    def _capture(self, sampled, K, D=0):
+        """Capture the decode program of key (sampled, K, D) as a CUDA
+        graph. The warm-up run that capture needs goes with every lane
+        dead, so it writes only the scratch block and the history's
+        scratch column and leaves the lane state as it was. A failure
         raises: the engine never decodes eagerly on the card."""
         d = self._dev
+        fn = self._program(sampled, K, D)
         alive = d["alive"].clone()
         try:
             d["alive"].zero_()
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
-                self._decode_tile(sampled, K)
+                warm = fn()
             torch.cuda.current_stream(self.device).wait_stream(side)
             d["alive"].copy_(alive)
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
-            tile = torch.zeros((self.max_batch, K), dtype=torch.int64,
-                               device=self.device)
+            tile = torch.zeros_like(warm)
+            del warm
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=self._graph_pool):
-                tile.copy_(self._decode_tile(sampled, K))
+                tile.copy_(fn())
         except Exception as e:
             d["alive"].copy_(alive)
             raise RuntimeError(
-                f"capturing the decode program (sampled={sampled}, K={K}) "
-                f"as a CUDA graph failed: {e}") from e
+                f"capturing the decode program (sampled={sampled}, K={K}, "
+                f"draft depth={D}) as a CUDA graph failed: {e}") from e
         return _DecodeGraph(graph, tile)
+
+    def _pool_layer(self, li):
+        """(format or None, k, v, k_scale, v_scale) of one layer's pool."""
+        pool = self.pool
+        if pool.fmt.quantized:
+            return (pool.fmt, pool.k[li], pool.v[li], pool.k_scale[li],
+                    pool.v_scale[li])
+        return None, pool.k[li], pool.v[li], None, None
+
+    def _qkv(self, li, lp, h, pos, aids):
+        """One token per lane into attention: h [B, 1, H] at positions pos
+        [B, 1] -> rotated q [B, nh, hd], rotated k and v [B, nkv, hd], with
+        each lane's LoRA delta on q and v when a store is attached (slot 0
+        adds exactly zero). The plain and the speculative decode both go
+        through here, so each verified position repeats the plain step's
+        operations exactly."""
+        cfg = self.cfg
+        nh, nkv, hd = cfg["heads"], cfg["kv_heads"], cfg["head_dim"]
+        B = h.shape[0]
+        x = _rms(h, lp["input_layernorm.weight"], cfg["eps"])
+        q = x @ lp["self_attn.q_proj.weight"]
+        v = x @ lp["self_attn.v_proj.weight"]
+        if aids is not None:
+            ad = self.adapters
+            q = q + _lora_delta(x, ad.A_q[li], ad.B_q[li], aids)
+            v = v + _lora_delta(x, ad.A_v[li], ad.B_v[li], aids)
+        k = (x @ lp["self_attn.k_proj.weight"]).reshape(B, 1, nkv, hd)
+        q = _rope(q.reshape(B, 1, nh, hd), pos, cfg["theta"])[:, 0]
+        k = _rope(k, pos, cfg["theta"])[:, 0]
+        return q, k, v.reshape(B, nkv, hd)
+
+    def _attn_out(self, lp, h, attn):
+        """The rest of a layer after attention: o_proj, residual, MLP."""
+        B = h.shape[0]
+        h = h + (attn.reshape(B, 1, -1) @ lp["self_attn.o_proj.weight"])
+        return _mlp(lp, h, self.cfg["eps"])
+
+    def _logits(self, h):
+        """f32 logits [B, V] of h [B, 1, H]."""
+        return (_rms(h[:, 0], self.norm_w, self.cfg["eps"])
+                @ self._out_w).float()
+
+    def _choose(self, logits, lens, sampled):
+        """Each lane's token for the position after `lens`: the argmax, or
+        the lane's (seed, position) draw for sampled lanes."""
+        nxt = torch.argmax(logits, dim=-1)
+        if sampled:
+            d = self._dev
+            samp = _device_sample(logits, d["seeds"], lens, d["temp"],
+                                  d["top_k"], d["top_p"])
+            nxt = torch.where(d["do_sample"], samp, nxt)
+        return nxt
 
     def _decode_tile(self, sampled, K):
         """The fused decode program: K steps of every lane over the static
@@ -944,45 +1553,121 @@ class ContinuousBatchingEngine:
         and re-emit their last token (never credited: the host walk stops
         at the same eos/length boundary)."""
         d, cfg = self._dev, self.cfg
-        eps, theta = cfg["eps"], cfg["theta"]
-        nh, nkv, hd = cfg["heads"], cfg["kv_heads"], cfg["head_dim"]
+        scale = 1.0 / (cfg["head_dim"] ** 0.5)
         scratch = self.pool.scratch_block
         toks, lens, alive, rem = d["toks"], d["lens"], d["alive"], d["rem"]
         tables = d["tables"]
-        B = toks.shape[0]
+        aids = d.get("adapter_ids")
         out = []
         for _ in range(K):
             h = self.embed_w[toks][:, None]                     # (B, 1, H)
             pos = lens[:, None]                                 # write pos
             for li, lp in enumerate(self.layers):
-                kc, vc = self.pool.k[li], self.pool.v[li]
-                x = _rms(h, lp["input_layernorm.weight"], eps)
-                q = (x @ lp["self_attn.q_proj.weight"]).reshape(B, 1, nh, hd)
-                k = (x @ lp["self_attn.k_proj.weight"]).reshape(B, 1, nkv,
-                                                                hd)
-                v = (x @ lp["self_attn.v_proj.weight"]).reshape(B, 1, nkv,
-                                                                hd)
-                q = _rope(q, pos, theta)[:, 0]
-                k = _rope(k, pos, theta)[:, 0]
-                kv_write_token(None, kc, vc, None, None, k, v[:, 0], tables,
-                               lens, active=alive, scratch_block=scratch)
+                fmt, kc, vc, ksc, vsc = self._pool_layer(li)
+                q, k, v = self._qkv(li, lp, h, pos, aids)
+                kv_write_token(fmt, kc, vc, ksc, vsc, k, v, tables, lens,
+                               active=alive, scratch_block=scratch)
                 attn = paged_attention_decode_inner(
-                    q, kc, vc, tables, lens + 1, scale=1.0 / (hd ** 0.5))
-                h = h + (attn.reshape(B, 1, nh * hd)
-                         @ lp["self_attn.o_proj.weight"])
-                h = _mlp(lp, h, eps)
-            logits = (_rms(h[:, 0], self.norm_w, eps) @ self._out_w).float()
-            nxt = torch.argmax(logits, dim=-1)
-            if sampled:
-                samp = _device_sample(logits, d["seeds"], lens, d["temp"],
-                                      d["top_k"], d["top_p"])
-                nxt = torch.where(d["do_sample"], samp, nxt)
+                    q, kc, vc, tables, lens + 1, scale=scale, fmt=fmt,
+                    k_scale_cache=ksc, v_scale_cache=vsc)
+                h = self._attn_out(lp, h, attn)
+            nxt = self._choose(self._logits(h), lens, sampled)
             nxt = torch.where(alive, nxt, toks)
             rem = rem - alive.long()
             lens = lens + alive.long()
             alive = alive & (nxt != d["eos"]) & (rem > 0)
             toks = nxt
             out.append(nxt)
+        d["toks"].copy_(toks)
+        d["lens"].copy_(lens)
+        d["alive"].copy_(alive)
+        d["rem"].copy_(rem)
+        return torch.stack(out, dim=1)
+
+    def _decode_tile_spec(self, sampled, K, D):
+        """The speculative decode program (reference `_make_decode_spec`):
+        each of K steps records the step token into the lane's history,
+        drafts D tokens, writes the K/V of the step token and the drafts
+        (C = D + 1 positions per lane), verifies them, accepts the leading
+        run of drafts that equal what the plain decode would emit, rolls
+        back the rejected positions' writes byte for byte, and commits the
+        accepted run plus one correction token.
+
+        Position i of a step goes through the plain decode step's own
+        operations (`_qkv`, paged_attention_verify's per-query decode
+        attention over pages gathered once per layer, `_attn_out`,
+        `_logits`, `_choose` at position lens + i), so the token it yields
+        is the plain decode's bit for bit and the committed stream cannot
+        change. Acceptance, the EOS clip and the rollback mask stay
+        tensors: no host sync. Returns the [B, K, C + 1] int64 tile: each
+        step's C tokens, then its commit count (0 once the lane died)."""
+        d, cfg = self._dev, self.cfg
+        scale = 1.0 / (cfg["head_dim"] ** 0.5)
+        scratch = self.pool.scratch_block
+        C = D + 1
+        toks, lens, alive, rem = d["toks"], d["lens"], d["alive"], d["rem"]
+        tables, hist, eos = d["tables"], d["hist"], d["eos"]
+        aids = d.get("adapter_ids")
+        hmax = hist.shape[1] - 1             # the last column is scratch
+        B = toks.shape[0]
+        rows = torch.arange(B, device=toks.device)
+        steps = torch.arange(C, device=toks.device)
+        out = []
+        for _ in range(K):
+            # the step token at lens; dead lanes write the scratch column
+            hist[rows, torch.where(alive, lens, hmax)] = toks
+            if self._drafter is not None:
+                drafts = self._drafter(hist[:, :hmax], lens, toks, D).long()
+            else:
+                drafts = _ngram_draft(hist[:, :hmax], lens, toks, D,
+                                      self.draft_ngram)
+            didx = torch.where(alive[:, None], lens[:, None] + 1
+                               + steps[None, :D], hmax).clamp(max=hmax)
+            hist[rows[:, None], didx] = drafts
+            u = torch.cat([toks[:, None], drafts], dim=1)       # (B, C)
+            hs = [self.embed_w[u[:, i]][:, None] for i in range(C)]
+            pos = [(lens + i)[:, None] for i in range(C)]
+            saved = []
+            for li, lp in enumerate(self.layers):
+                fmt, kc, vc, ksc, vsc = self._pool_layer(li)
+                qkv = [self._qkv(li, lp, hs[i], pos[i], aids)
+                       for i in range(C)]
+                q, k, v = (torch.stack(t, dim=1) for t in zip(*qkv))
+                *_, sv = kv_write_tokens(fmt, kc, vc, ksc, vsc, k, v,
+                                         tables, lens, active=alive,
+                                         scratch_block=scratch)
+                saved.append(sv)
+                attn = paged_attention_verify(
+                    q, kc, vc, tables, lens, scale=scale, fmt=fmt,
+                    k_scale_cache=ksc, v_scale_cache=vsc)
+                hs = [self._attn_out(lp, hs[i], attn[:, i])
+                      for i in range(C)]
+            # g[:, i]: the token the plain decode emits at position
+            # lens + i + 1 given that the drafts before i were right
+            g = torch.stack([self._choose(self._logits(hs[i]), lens + i,
+                                          sampled)
+                             for i in range(C)], dim=1)         # (B, C)
+            n_acc = torch.cumprod((drafts == g[:, :D]).long(),
+                                  dim=1).sum(dim=1)
+            commits = torch.minimum(n_acc + 1, rem)
+            iseos = g == eos[:, None]
+            eos_clip = torch.where(iseos.any(dim=1),
+                                   iseos.long().argmax(dim=1) + 1, C)
+            commits = torch.minimum(commits, eos_clip)
+            commits = torch.where(alive, commits, 0)
+            keep = (steps[None, :] < commits[:, None]) & alive[:, None]
+            for li, sv in enumerate(saved):
+                fmt, kc, vc, ksc, vsc = self._pool_layer(li)
+                kv_rollback_tokens(fmt, kc, vc, ksc, vsc, sv, tables, lens,
+                                   keep, active=alive, scratch_block=scratch)
+            last = (commits - 1).clamp(0, C - 1)
+            g_last = g.gather(1, last[:, None])[:, 0]
+            ended_eos = alive & (commits > 0) & (g_last == eos)
+            toks = torch.where(alive, g_last, toks)
+            rem = rem - commits
+            lens = lens + commits
+            alive = alive & ~ended_eos & (rem > 0)
+            out.append(torch.cat([g, commits[:, None]], dim=1))
         d["toks"].copy_(toks)
         d["lens"].copy_(lens)
         d["alive"].copy_(alive)
@@ -1033,24 +1718,39 @@ class ContinuousBatchingEngine:
                 if r is not None and not r.done:
                     ex = r.trace_id
                     break
-        per_tok = (t1 - infl.t_dispatch) / infl.k
-        self._m_tpot.observe(per_tok, exemplar=ex)
-        for t in sorted({r.tenant for r in infl.reqs
-                         if r is not None and not r.done}):
-            _metric("serving_tenant_tpot_seconds",
-                    tenant=t).observe(per_tok)
+        if not infl.spec:
+            self._observe_tpot(infl, (t1 - infl.t_dispatch) / infl.k, ex)
         if self._rec.enabled:
             self._rec.record("readback", tile=infl.tile_id,
                              wait_ms=round((t1 - t0) * 1e3, 3))
         if self._tracer.enabled:
             self._trace_tile(infl, t1)
-        self._process_tile(arr, infl)
+        if infl.spec:
+            self._process_tile_spec(arr[..., :-1], arr[..., -1], infl, t1,
+                                    ex)
+        else:
+            self._process_tile(arr, infl)
         ph = self._phases
         if ph.enabled:
             ph.mark("commit")
             tenants = sorted({r.tenant for r in infl.reqs if r is not None})
             ph.credit_tenants(tenants, t1 - infl.t_dispatch)
         return True
+
+    def _observe_tpot(self, infl, per_tok, ex):
+        """A drained tile's per-token latency into the TPOT histograms
+        (overall, per tenant and per adapter) and the scheduler."""
+        self._m_tpot.observe(per_tok, exemplar=ex)
+        if self.scheduler is not None:
+            self.scheduler.note_tpot(per_tok)
+        live = [r for r in infl.reqs if r is not None and not r.done]
+        for t in sorted({r.tenant for r in live}):
+            _metric("serving_tenant_tpot_seconds",
+                    tenant=t).observe(per_tok)
+        if self.adapters is not None:
+            for a in sorted({r.adapter or "base" for r in live}):
+                _metric("serving_adapter_tpot_seconds",
+                        adapter=a).observe(per_tok)
 
     def _live(self, infl, lane):
         """Whether a tile's row `lane` still belongs to the request it was
@@ -1100,11 +1800,62 @@ class ContinuousBatchingEngine:
                     break
         self._m_tok_disp.set(credited)
 
+    def _process_tile_spec(self, tile, counts, infl, t1, ex):
+        """Credit a speculative tile: tokens [B, K, D + 1] and counts
+        [B, K]. Step k of a lane commits its first counts[lane, k] tokens
+        (the accepted drafts and one correction token); counts drop to 0
+        once the lane died on the device. The host walk applies the
+        device's eos/length rules; the draft and accept counts and the
+        acceptance rate (exemplar: the worst-accepting request) are
+        credited once per drained tile."""
+        D = tile.shape[2] - 1
+        credited = 0
+        lanes_credited = 0
+        drafted = accepted = 0
+        worst = None
+        for lane in range(self.max_batch):
+            if not self._live(infl, lane):
+                continue            # occupancy changed while in flight
+            req = infl.reqs[lane]
+            lanes_credited += 1
+            lane_drafted = lane_accepted = 0
+            for k in range(infl.k):
+                c = int(counts[lane, k])
+                if c <= 0:
+                    break
+                lane_drafted += D
+                lane_accepted += c - 1
+                for i in range(c):
+                    self.lane_len[lane] += 1
+                    tok = int(tile[lane, k, i])
+                    self.lane_tok[lane] = tok
+                    credited += 1
+                    self._emit(lane, tok)
+                    if req.done or self.lanes[lane] is not req:
+                        break
+                if req.done or self.lanes[lane] is not req:
+                    break
+            drafted += lane_drafted
+            accepted += lane_accepted
+            if lane_drafted:
+                rate = lane_accepted / lane_drafted
+                if worst is None or rate < worst[0]:
+                    worst = (rate, req.trace_id)
+        if drafted:
+            self._m_draft.inc(drafted)
+            self._m_accept.inc(accepted)
+            self._m_accept_rate.observe(
+                accepted / drafted, exemplar=worst[1] if worst else None)
+        self._m_tok_disp.set(credited)
+        # per-token latency over the tokens one lane actually committed
+        eff = credited / max(1, lanes_credited)
+        self._observe_tpot(infl, (t1 - infl.t_dispatch) / max(1.0, eff), ex)
+
     # --- device-resident lane state ---------------------------------------
     def _upload_lane_state(self, active):
         """Refill the device lane state from the host mirrors, in place —
-        called only on membership change (admission / retire / shed),
-        never in the steady state."""
+        called only on membership change (admission / retire / shed /
+        preempt / resume / a knob change), never in the steady state."""
         B, MB = self.max_batch, self.max_blocks_per_seq
         tables = np.full((B, MB), self.pool.scratch_block, np.int64)
         lens = np.zeros(B, np.int64)
@@ -1117,6 +1868,7 @@ class ContinuousBatchingEngine:
         temp = np.ones(B, np.float32)
         top_k = np.zeros(B, np.int64)
         top_p = np.ones(B, np.float32)
+        aids = np.zeros(B, np.int64)
         sampled = any(self.lanes[i].do_sample for i in active)
         for i in active:
             r = self.lanes[i]
@@ -1126,6 +1878,7 @@ class ContinuousBatchingEngine:
             toks[i] = self.lane_tok[i]
             alive[i] = True
             rem[i] = r.max_new_tokens - len(r.generated)
+            aids[i] = r.adapter_id
             if r.eos_token_id is not None:
                 eos[i] = r.eos_token_id
             if r.do_sample:
@@ -1134,18 +1887,53 @@ class ContinuousBatchingEngine:
                 temp[i] = max(r.temperature, 1e-6)
                 top_k[i] = r.top_k
                 top_p[i] = r.top_p
-        for name, host in (("tables", tables), ("lens", lens),
-                           ("toks", toks), ("alive", alive), ("rem", rem),
-                           ("eos", eos), ("seeds", seeds),
-                           ("do_sample", do_s), ("temp", temp),
-                           ("top_k", top_k), ("top_p", top_p)):
-            self._dev[name].copy_(torch.from_numpy(host))
-        self._variant = "sampled" if sampled else "greedy"
+        host = dict(tables=tables, lens=lens, toks=toks, alive=alive,
+                    rem=rem, eos=eos, seeds=seeds, do_sample=do_s,
+                    temp=temp, top_k=top_k, top_p=top_p)
+        if self.adapters is not None:
+            # slot 0 (the all-zeros base) for empty lanes and base requests
+            host["adapter_ids"] = aids
+        if self.spec:
+            # each lane's prompt and committed tokens up to its cached
+            # length: the drafter's corpus, extended on the device
+            hist = np.zeros(self._dev["hist"].shape, np.int64)
+            hmax = hist.shape[1] - 1
+            for i in active:
+                r = self.lanes[i]
+                seq = (np.concatenate([r.prompt, np.asarray(
+                    r.generated[:-1], np.int32)]) if r.generated
+                    else r.prompt)
+                n = min(seq.size, hmax)
+                hist[i, :n] = seq[:n]
+            host["hist"] = hist
+        for name, arr in host.items():
+            self._dev[name].copy_(torch.from_numpy(arr))
+        self._variant = (("sampled" if sampled else "greedy")
+                         + (".spec" if self.spec else ""))
         self._dirty = False
         self._m_uploads.inc()
         if self._rec.enabled:
             self._rec.record("membership", active=list(active),
                              variant=self._variant)
+
+
+def _lora_delta(x, a_pool, b_pool, aids):
+    """Each lane's low-rank delta x @ A[aid] @ B[aid]: x [B, c, H], the
+    layer's factor pools [n_slots, H, r] and [n_slots, r, D], aids [B] slot
+    ids. Slot 0 holds zeros, so a base lane adds exactly 0."""
+    a = a_pool[aids].to(x.dtype)                            # (B, H, r)
+    b = b_pool[aids].to(x.dtype)                            # (B, r, D)
+    return torch.bmm(torch.bmm(x, a), b)
+
+
+def _ngram_draft(hist, lens, toks, depth, ngram):
+    """The built-in drafter, prompt-lookup decoding (reference :2487): per
+    lane, the `depth` tokens that followed the most recent earlier
+    occurrence of the trailing `ngram`-token suffix of the history (the
+    step token at hist[b, lens[b]]); lanes with no match propose the step
+    token `depth` times. Batched index arithmetic over the device-resident
+    history, so it runs inside the captured decode graph."""
+    return _lookup(hist, lens, toks, depth, ngram)[0]
 
 
 def _is_oom(e):

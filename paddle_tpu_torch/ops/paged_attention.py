@@ -319,14 +319,20 @@ def paged_attention_decode_inner(q, k_cache, v_cache, block_tables,
     and no transposed copy of the pages is made. The scores come out
     [B, H, L], so the softmax runs along contiguous rows.
     """
-    B, H, D = q.shape
-    KVH = k_cache.shape[2]
-    G = H // KVH
     if scale is None:
-        scale = 1.0 / math.sqrt(D)
+        scale = 1.0 / math.sqrt(q.shape[-1])
     k, v = _gather_pages(k_cache, v_cache, block_tables, fmt,
                          k_scale_cache, v_scale_cache)   # [B, L, KVH, D]
-    L = k.shape[1]
+    return _decode_attend(q, k, v, seq_lens, scale)
+
+
+def _decode_attend(q, k, v, seq_lens, scale):
+    """The products and softmax of paged_attention_decode_inner over pages
+    already gathered: q [B, H, D] against k/v [B, L, KVH, D], positions
+    < seq_lens[b] valid. Returns [B, H, D]."""
+    B, H, D = q.shape
+    L, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
     k = k.reshape(B, L, KVH * D).to(q.dtype)
     v = v.reshape(B, L, KVH * D)
     eye = torch.eye(KVH, dtype=q.dtype, device=q.device)
@@ -374,12 +380,22 @@ def paged_attention_verify(q, k_cache, v_cache, block_tables, base_lens,
     q: [B, C, H, D]; base_lens: [B], the lane length BEFORE this step's
     write, so query i sits at position base_lens[b] + i and attends to
     every cached position <= it. Returns [B, C, H, D].
+
+    The pages are gathered once, and query i then goes through the decode
+    step's own products and softmax (`_decode_attend`) at seq_lens
+    base_lens + i + 1, so its output equals paged_attention_decode_inner's
+    for the same query bit for bit, whatever the dtype: a speculative
+    decode that accepts a draft commits exactly the token the plain decode
+    would have. (The reference takes all C queries in one causal product;
+    that rounds differently in bf16.)
     """
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     k, v = _gather_pages(k_cache, v_cache, block_tables, fmt,
                          k_scale_cache, v_scale_cache)
-    return _causal_over_cache(q, k, v, base_lens, scale)
+    return torch.stack([_decode_attend(q[:, i], k, v, base_lens + i + 1,
+                                       scale)
+                        for i in range(q.shape[1])], dim=1)
 
 
 def paged_attention_prefill_chunk(q, k_cache, v_cache, table_row, start,

@@ -56,7 +56,9 @@ def test_import_loads_no_jax_and_no_reference(code):
 
 @pytest.mark.parametrize("sub", [
     "observability", "resilience", "profiler", "inference",
-    "inference.serving", "ops.paged_attention", "nn.quant"])
+    "inference.serving", "inference.drafting", "inference.adapters",
+    "inference.scheduler", "inference.prefix_cache", "ops.paged_attention",
+    "nn.quant"])
 def test_serving_subpackages_load_no_jax_and_no_reference(sub):
     """The serving engine's subpackages, each imported alone: copies of
     jax-free reference modules must not reach back into the reference."""
