@@ -98,13 +98,39 @@ Phases, each of which makes the script exit non-zero if it fails:
      gamma from a seeded numpy draw: one K2 launch per call where the
      ledger marks the fusion a winner, the output against the unfused
      composition.
+  12. load generation: llama_7b through ContinuousBatchingEngine at phase
+     9's knobs (decode_steps 4, an admission queue of 64) under
+     inference.loadgen.run_scenario, each of the six SCENARIOS at its own
+     distributions for 8 s of schedule on a fresh engine (shared_prefix
+     with the prefix cache, structured_output under an SLOScheduler whose
+     ladder only the cost model's headroom moves, a rung a step each way;
+     multi_adapter on a cold
+     engine without a store, so loadgen installs the demo store). Every
+     report must pass loadgen.check_report (the prefix hit rate and
+     adapter loads where they apply), and no K1-K4 launch. Then chat at
+     10, 20, 40 and 80 requests/s, 6 s each without draining: in every run
+     slo_headroom must reach <= 0 no later than the timeline sample where
+     shed passes 10%. Prints per run goodput, TTFT and TPOT p50/p95, shed,
+     the headroom floor, each program's calibrated cost and measured over
+     predicted ratio, and adapter swap recompiles.
+  13. predictor: the same llama_7b saved by jit.save (InputSpec [4, 512]
+     int64; a torch.export program that takes the params as an input)
+     into a temporary directory, then create_predictor(Config(prefix)) on
+     the card, run twice on phase 8's prompts: the runs must agree bit for
+     bit, the logits must agree with the model's eager forward within
+     PREDICTOR_LOGITS_RTOL of the largest |logit|, the program must hold
+     the flash_fwd operator once per layer, and K1 must launch once per
+     layer per run where the router picks it at this shape. Prints save
+     and load seconds, the artifact's bytes, the run's and the eager
+     forward's device times and the run's peak memory.
   11. training slice: llama_1.3b (bench.py's top rung) in bf16 at full
      width and depth, batch 8, sequence 2048, per-layer remat, chunked LM
      loss, AdamW: one warm-up step and 8 timed steps through
      paddle_tpu_torch.tools.train_llama.run_one. Every loss must be finite,
      the last below the first, and with the router's choice of the
      kernels each step must launch K1 twice per layer (forward and remat
-     recompute) and K3 and K4 once per layer.
+     recompute) and K3 and K4 once per layer. It runs last, after 12 and
+     13, once llama_7b is freed.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -114,10 +140,13 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -131,9 +160,12 @@ from paddle_tpu_torch import optimizer
 from paddle_tpu_torch.models import build_scanned_llama
 from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.incubate.nn import functional as IF
+from paddle_tpu_torch import inference, jit
 from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                         SLOScheduler, demo_store_for_engine)
+from paddle_tpu_torch.inference import loadgen
 from paddle_tpu_torch.inference.scheduler import level_index
+from paddle_tpu_torch.profiler.phases import get_phase_accountant
 from paddle_tpu_torch.observability.quantiles import quantile_from_cumulative
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import attention_router as ar
@@ -281,6 +313,24 @@ ADAPTERS = dict(names=["ad0", "ad1", "ad2", "ad3"], rank=8, n_slots=8,
 # position's forward is the same whichever chunk holds it
 PREFIX_LEN, PREFIX_TAILS = 1024, (64, 96, 128, 160, 192, 224, 256, 0)
 PREFIX_BUCKETS = (512,)
+# load generation (phase 12): every scenario for this many seconds of
+# schedule at phase 9's knobs with a bounded admission queue (overload is
+# shed by backpressure, as the reference harness's engine sheds it), then
+# chat at each sweep rate without draining; the floors check_report takes
+# for the shared_prefix and multi_adapter scenarios are the reference
+# CLI's defaults
+LOADGEN_SECONDS = 8.0
+LOADGEN_QUEUE = 64
+SWEEP_RATES, SWEEP_SECONDS = (10.0, 20.0, 40.0, 80.0), 6.0
+MIN_PREFIX_HIT_RATE, MIN_ADAPTER_LOADS = 0.5, 1
+# the predictor phase (13): the saved llama_7b runs phase 8's prompts; its
+# logits against the model's eager forward, both bf16 on the card through
+# the same kernels, relative to the largest |logit|: the exported program
+# runs the forward's aten ops, so the two should agree to the bit, and the
+# bound is phase 9's bf16 tolerance for two forwards that round in another
+# order
+PREDICTOR_SPEC = ([4, 512], "int64")
+PREDICTOR_LOGITS_RTOL = ENGINE_LOGITS_RTOL
 
 
 # the card's name and power limit as nvidia-smi gives them (phase 1)
@@ -1539,9 +1589,11 @@ def knobs_scheduler(model, mix9):
     reqs = [(p, dict(kw, priority="best_effort" if i % 4 == 3
                      else "interactive"))
             for i, (p, kw) in enumerate(mix9)]
-    # wall-clock targets off: the ladder moves only where the script moves
-    # it (a TTFT breach could engage cap_max_new_tokens mid-run)
-    sched = dict(ttft_target=1e9, tpot_target=1e9)
+    # wall-clock targets off and no escalation of the ladder's own: it
+    # moves only where the script moves it (a TTFT breach, or the cost
+    # model's headroom while a wave arrives, could engage
+    # cap_max_new_tokens mid-run)
+    sched = dict(ttft_target=1e9, tpot_target=1e9, escalate_after=10**9)
     base = knob_run(model, reqs, scheduler=SLOScheduler(**sched),
                     **KNOB_SPEC)
     knob_report("scheduler", base)
@@ -1595,6 +1647,228 @@ def phase_knobs(model, plain9, bf16_logits):
     knobs_prefix(model, mix_prefix)
     knobs_scheduler(model, mix9)
     log(f"knobs: phase done in {time.perf_counter() - t0:.1f} s")
+
+
+def loadgen_engine(model, warm=True, **kw):
+    """A fresh engine at phase 9's knobs with a bounded admission queue.
+    With `warm`, two short requests run first, so the first dispatch of
+    the run is not the decode graph's capture."""
+    eng = ContinuousBatchingEngine(model, decode_steps=4,
+                                   max_queue=LOADGEN_QUEUE, **ENGINE, **kw)
+    if warm:
+        eng.add_request(np.arange(1, 8), max_new_tokens=12)
+        eng.add_request(np.arange(1, 21), max_new_tokens=12)
+        eng.run()
+        eng.finished.clear()
+    return eng
+
+
+def loadgen_run(eng, scenario, **kw):
+    """run_scenario with observability and the phase accountant on, from
+    zero; returns the report and the K1-K4 launches of the run."""
+    obs.get_registry().reset()
+    obs.enable()
+    acct = get_phase_accountant()
+    acct.reset()
+    acct.enable()
+    zero_flash_launches()                    # the path starts here
+    try:
+        report = loadgen.run_scenario(eng, scenario, seed=0, **kw)
+    finally:
+        launches = flash_launches()          # and ends here
+        acct.disable()
+        acct.reset()
+        obs.disable()
+    return report, launches
+
+
+def loadgen_line(name, report):
+    """One line of a run's numbers, beside the card."""
+    def q(block, key):
+        v = block.get(key)
+        return "not measured" if v is None else f"{v:.4f}"
+    costs = {k: (None if c["seconds"] is None else round(c["seconds"], 6))
+             for k, c in sorted((report["cost"]["programs"] or {}).items())}
+    # measured over predicted, for the programs this run's engine measured
+    # (the registry keeps the gauge of a program no dispatch of this run
+    # observed at the 0 of its reset)
+    ratios = {k.removeprefix("program="): round(v, 4)
+              for k, v in sorted(report["cost"]["ratio"].items()) if v > 0}
+    ad = report.get("adapters") or {}
+    pfx = report.get("prefix") or {}
+    log(f"loadgen {name} [{CARD}]: {report['schedule']['arrivals']} "
+        f"arrivals, issued {report['issued']}, finished "
+        f"{report['finished']}, goodput {report['goodput']}, goodput_rps "
+        f"{report['goodput_rps']}, TTFT p50/p95 {q(report['ttft'], 'p50')}"
+        f"/{q(report['ttft'], 'p95')} s, TPOT p50/p95 "
+        f"{q(report['tpot'], 'p50')}/{q(report['tpot'], 'p95')} s, shed "
+        f"{report['shed']}, headroom_floor {report['headroom_floor']}, "
+        f"predicted s {costs}, pir_cost_ratio {ratios}, swap_recompiles "
+        f"{ad.get('swap_recompiles')}, prefix hit rate "
+        f"{pfx.get('hit_rate')}, brownout transitions "
+        f"{report['brownout_transitions']}, wall {report['wall_s']} s")
+
+
+def headroom_leads_shed(report):
+    """The timeline samples where slo_headroom first reached <= 0 and
+    where the shed fraction first passed 10% (None where it never did)."""
+    tl = report["timeline"]
+    over = next((i for i, s in enumerate(tl) if s["headroom"] is not None
+                 and s["headroom"] <= 0.0), None)
+    shed = next((i for i, s in enumerate(tl) if s["shed_frac"] > 0.10),
+                None)
+    return over, shed
+
+
+def phase_loadgen(model):
+    """Every scenario of inference/loadgen.py through the engine, then the
+    chat sweep across saturation. Returns the sweep's rows."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    knobs = {"shared_prefix": dict(prefix_cache=True),
+             # the ladder moves on the cost model's headroom alone, a rung
+             # a step each way, so it can come back to 0 while the run
+             # drains (check_report fails a run that ends degraded)
+             "structured_output": dict(scheduler=SLOScheduler(
+                 ttft_target=1e9, tpot_target=1e9, escalate_after=1,
+                 recover_after=1, min_dwell=0))}
+    for name in sorted(loadgen.SCENARIOS):
+        adapters = loadgen.SCENARIOS[name].adapter_population > 0
+        eng = loadgen_engine(model, warm=not adapters, **knobs.get(name, {}))
+        report, launches = loadgen_run(eng, name,
+                                       duration_s=LOADGEN_SECONDS)
+        loadgen_line(name, report)
+        problems = loadgen.check_report(
+            report,
+            min_prefix_hit_rate=(MIN_PREFIX_HIT_RATE
+                                 if name == "shared_prefix" else None),
+            min_adapter_loads=MIN_ADAPTER_LOADS if adapters else None)
+        if launches:
+            problems.append(f"{launches} K1-K4 launches in the engine run")
+        if problems:
+            sys.exit(f"chip_smoke: loadgen {name} failed its check: "
+                     f"{problems}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows = []
+    for rate in SWEEP_RATES:
+        eng = loadgen_engine(model)
+        report, launches = loadgen_run(eng, "chat", rate_rps=rate,
+                                       duration_s=SWEEP_SECONDS,
+                                       drain=False)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        over, shed = headroom_leads_shed(report)
+        attempts = report["issued"] + report["rejected"]
+        # goodput as the share of the offered requests that finished good
+        # inside the run (report["goodput"] counts finished requests
+        # only, so a run that refuses or queues most of its traffic still
+        # reads 1.0; here a refused request, and one still queued or in
+        # flight when the run stops, counts against it)
+        good = sum(report["finished"].get(r, 0)
+                   for r in loadgen.GOOD_REASONS)
+        rows.append(dict(rate=rate, goodput=good / max(1, attempts),
+                         goodput_rps=report["goodput_rps"],
+                         shed=report["shed"],
+                         shed_frac=report["shed"] / max(1, attempts),
+                         floor=report["headroom_floor"]))
+        loadgen_line(f"chat at {rate:g} rps", report)
+        log(f"loadgen sweep [{CARD}]: {rate:g} rps offered, goodput "
+            f"{rows[-1]['goodput']:.4f} ({good} of {attempts} offered "
+            f"requests finished good in the run), goodput_rps "
+            f"{report['goodput_rps']}, TTFT p50 {report['ttft']['p50']} s, "
+            f"shed {report['shed']} of {attempts} "
+            f"({rows[-1]['shed_frac']:.4f}), headroom <= 0 at sample "
+            f"{over}, shed > 10% at sample {shed}")
+        if shed is not None and (over is None or over > shed):
+            sys.exit(f"chip_smoke: at {rate:g} rps the shed fraction "
+                     f"passed 10% (sample {shed}) before slo_headroom "
+                     f"reached 0 (sample {over})")
+        if launches:
+            sys.exit(f"chip_smoke: {launches} K1-K4 launches in the sweep")
+    ok = [r["rate"] for r in rows if r["goodput"] >= 0.95]
+    log(f"loadgen sweep [{CARD}]: highest rate with goodput >= 0.95: "
+        f"{max(ok) if ok else 'none'} rps; phase done in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def phase_predictor(model, decision):
+    """llama_7b saved by jit.save and run by create_predictor on the card;
+    returns K1's launches over the two runs. `decision` is the router's at
+    the prefill shape (phase 6): each run launches K1 once per layer,
+    through the flash_fwd operator, if its forward is the kernel."""
+    cfg = model.config
+    shape, dtype = PREDICTOR_SPEC
+    ids = np.random.RandomState(0).randint(0, cfg.vocab_size, tuple(shape))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_predictor_")
+    try:
+        prefix = os.path.join(tmp, "llama_7b")
+        t0 = time.perf_counter()
+        jit.save(model, prefix, input_spec=[jit.InputSpec(shape, dtype)])
+        save_s = time.perf_counter() - t0
+        nbytes = {ext: os.path.getsize(prefix + ext)
+                  for ext in (".pdmodel", ".pdiparams")}
+        t0 = time.perf_counter()
+        pred = inference.create_predictor(inference.Config(prefix))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp)
+    ops = sum(1 for n in pred._module.graph.nodes
+              if n.target == torch.ops.paddle_tpu_torch.flash_fwd.default)
+    want = cfg.num_hidden_layers if decision.fwd == "pallas" else 0
+    log(f"predictor [{CARD}]: saved in {save_s:.2f} s ({nbytes['.pdmodel']} "
+        f"bytes of program, {nbytes['.pdiparams']} of params), loaded on "
+        f"{pred._device} in {load_s:.2f} s; the program holds {ops} "
+        f"flash_fwd nodes (router at the prefill shape: fwd={decision.fwd})")
+    if ops != want:
+        sys.exit(f"chip_smoke: the saved program holds {ops} flash_fwd "
+                 f"nodes, expected {want}")
+    handle = pred.get_input_handle(pred.get_input_names()[0])
+    handle.copy_from_cpu(ids)
+    torch.cuda.reset_peak_memory_stats()
+    outs = []
+    fa.flash_fwd_launches = 0                  # the main path starts here
+    for _ in range(2):
+        before = fa.flash_fwd_launches
+        pred.run()
+        outs.append(pred.get_output_handle("out0").copy_to_cpu())
+        if fa.flash_fwd_launches - before != want:
+            sys.exit(f"chip_smoke: a predictor run launched "
+                     f"{fa.flash_fwd_launches - before} K1, expected {want}")
+    launches = fa.flash_fwd_launches           # the main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    if not np.array_equal(outs[0], outs[1]):
+        sys.exit("chip_smoke: two predictor runs disagree")
+    ids_dev = torch.as_tensor(ids, device="cuda")
+    with torch.no_grad():
+        eager = model(ids_dev).float().cpu().numpy()
+    if outs[0].shape != eager.shape or not np.isfinite(outs[0]).all():
+        sys.exit(f"chip_smoke: predictor logits {outs[0].shape} are not "
+                 f"finite logits of {eager.shape}")
+    err = float(np.abs(outs[0] - eager).max() / np.abs(eager).max())
+    with torch.no_grad():
+        run_ms = profile_serving.median_ms(pred.run, lambda: None)
+        eager_ms = profile_serving.median_ms(
+            lambda: model(ids_dev).float().cpu(), lambda: None)
+    log(f"predictor [{CARD}]: logits against the eager forward: max err / "
+        f"max|logit| {err:.3e} (tol {PREDICTOR_LOGITS_RTOL}), runs equal; "
+        f"K1 launches {launches} over 2 runs; run {run_ms:.3f} ms, eager "
+        f"forward {eager_ms:.3f} ms (CUDA events, median of 5, each with "
+        f"the logits' copy to the host); peak memory {peak / 2**30:.2f} GiB")
+    if not err <= PREDICTOR_LOGITS_RTOL:
+        sys.exit("chip_smoke: predictor logits disagree with the eager "
+                 "forward")
+    del pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def phase_epilogue(decisions):
@@ -1759,6 +2033,8 @@ def main():
     serve = phase_slice(decisions["prefill"][0], model)
     plain9, bf16_logits = phase_engine(model)
     phase_knobs(model, plain9, bf16_logits)
+    phase_loadgen(model)
+    predictor = phase_predictor(model, decisions["prefill"][0])
     del model
     epilogue = phase_epilogue(decisions)
     train = phase_train(decisions["train"][0])
@@ -1766,12 +2042,13 @@ def main():
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    # K1 runs on both paths; its times are the training shape's. K2's are
+    # K1 runs on the serving, predictor and training paths; its times are
+    # the training shape's. K2's are
     # the serving prefill shape's (no single library call computes it).
     # "ms" and "library_ms" are device times from back-to-back calls
     kernels = [dict(name="flash_fwd", route="cuda", source=src + "fwd.cu",
                     replaces=ref + "116",
-                    launches=serve + train["flash_fwd"],
+                    launches=serve + predictor + train["flash_fwd"],
                     **{key: k1["train"][key] for key in keys}),
                dict(name="flash_fwd_rms_epilogue", route="cuda",
                     source=src + "fwd.cu", replaces=ref + "116",

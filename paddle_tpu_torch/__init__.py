@@ -7,8 +7,11 @@ no work that needs a GPU; the CUDA kernels are built at first use
 (ops/_build.py).
 """
 
-from . import generation, models, optimizer
-from .framework import get_device, get_flags, seed, set_device, set_flags
+__version__ = "0.1.0"
+
+from . import generation, models, optimizer  # noqa: E402
+from .framework import (get_device, get_flags, seed,  # noqa: E402
+                        set_device, set_flags)
 
 __all__ = ["seed", "set_device", "get_device", "set_flags", "get_flags",
            "models", "generation", "optimizer"]

@@ -23,7 +23,7 @@ from .framework.device import resolve_device
 from .framework.dtypes import convert_dtype
 
 __all__ = ["state_from_reference", "load_reference_state",
-           "tree_from_reference"]
+           "tree_from_reference", "tensor_from_bytes"]
 
 _LAYER = re.compile(r"^llama\.layers\.(\d+)\.(.+)$")
 
@@ -69,11 +69,22 @@ def _check(np_state, shapes: dict) -> None:
                              f"{tuple(np.shape(np_state[k]))} != {tuple(shape)}")
 
 
+def tensor_from_bytes(raw, dtype_name, shape) -> torch.Tensor:
+    """A CPU tensor of torch dtype `dtype_name` ("bfloat16",
+    "float8_e4m3fn", "float8_e5m2", ...) and `shape` from its raw bytes:
+    how the port reads dtypes numpy has no type for, without ml_dtypes."""
+    dtype = getattr(torch, dtype_name)
+    flat = np.ascontiguousarray(raw).reshape(-1).view(np.uint8)
+    if not flat.size:
+        return torch.empty(tuple(shape), dtype=dtype)
+    return torch.from_numpy(flat.copy()).view(dtype).reshape(tuple(shape))
+
+
 def _tensor(a) -> torch.Tensor:
     """A torch copy of an array (JAX hands out read-only arrays)."""
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":   # ml_dtypes' bf16, which torch can't read
-        return torch.tensor(a.astype(np.float32)).to(torch.bfloat16)
+    if a.dtype.kind == "V":   # ml_dtypes' bf16/fp8, which torch can't read
+        return tensor_from_bytes(a, a.dtype.name, a.shape)
     return torch.tensor(a)
 
 

@@ -1,5 +1,5 @@
 """Dtype names to torch dtypes. reference: paddle_tpu/framework/dtypes.py
-(the names that `LlamaConfig.dtype` takes)."""
+(the names that `LlamaConfig.dtype` and `jit.InputSpec` take)."""
 
 from __future__ import annotations
 
@@ -20,6 +20,12 @@ NAME2DTYPE = {
     "float8_e5m2": torch.float8_e5m2,
     "fp8_e4m3": torch.float8_e4m3fn,
     "fp8_e5m2": torch.float8_e5m2,
+    "int8": torch.int8,
+    "int16": torch.int16,
+    "int32": torch.int32,
+    "int64": torch.int64,
+    "uint8": torch.uint8,
+    "bool": torch.bool,
 }
 
 

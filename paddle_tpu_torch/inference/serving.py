@@ -52,9 +52,17 @@ LoRA adapters (`adapters.py`), the SLO scheduler with preemption and the
 brownout ladder (`scheduler.py`), the prefix cache (`prefix_cache.py`)
 and quantized KV. Not ported: the mesh's export_kv / import_kv /
 adopt_identity / prefill_sink (ROADMAP.md Queue 1, slice 4, step 6), which
-raise NotImplementedError, and the PIR cost model: `predicted_costs` and
-`predicted_service_seconds` return None, as the reference's do before it
-has calibrated.
+raise NotImplementedError.
+
+The cost model (reference :1397-1443, :1765-1767, :1886-1942): each
+program is priced once by `pir.analysis.price` on its first run, which is
+never a timed one: a prefill width on its first chunk, whose time is not
+observed, and a decode program in the eager warm-up run of its capture
+(on the CPU, its first dispatch, not observed either). The first measured
+dispatch after that calibrates the scale; `predicted_service_seconds` then
+feeds the scheduler's headroom and loadgen's `slo_headroom`. On CUDA only
+a final prefill chunk, whose logits copy synchronises, is observed: an
+earlier chunk's wall time is only its enqueue.
 
 Where the reference rebinds arrays functionally, this engine fills the
 tensors that the captured graphs hold in place: adapter uploads, COW
@@ -86,6 +94,7 @@ from ..ops.paged_attention import (KVBlockFormat, kv_rollback_tokens,
                                    kv_write_token, kv_write_tokens,
                                    paged_attention_decode_inner,
                                    paged_attention_verify)
+from ..pir.analysis import price
 from ..profiler.phases import get_phase_accountant as _get_phases
 from ..resilience.faults import FaultInjected, fault_point
 from .adapters import AdapterLoadError
@@ -332,13 +341,16 @@ class _Inflight:
     did not change while the tile was in flight. `spec` marks a
     speculative tile ([B, K, D + 2]: tokens and commit counts); it is per
     tile, so tiles dispatched before a switch drain under the program
-    they ran."""
+    they ran. `key` is the compile_reports key of the dispatched program,
+    None for a cold dispatch (a capture or a priced run), whose wall time
+    the cost model does not read."""
 
     __slots__ = ("tile", "event", "t_dispatch", "reqs", "epochs", "k",
-                 "covers_all", "tile_id", "spec")
+                 "covers_all", "tile_id", "spec", "key")
 
     def __init__(self, tile, event, t_dispatch, reqs, epochs, k, covers_all,
-                 tile_id=0, spec=False):
+                 tile_id=0, spec=False, key=None):
+        self.key = key
         self.tile = tile
         self.event = event
         self.t_dispatch = t_dispatch
@@ -497,23 +509,6 @@ class ContinuousBatchingEngine:
         self.finished: dict[int, Request] = {}
         self._next_rid = 0
         self._prefill_tasks: dict[int, _PrefillTask] = {}
-        if adapters is not None:
-            nh, nkv, hd = (self.cfg["heads"], self.cfg["kv_heads"],
-                           self.cfg["head_dim"])
-            H = nh * hd
-            if (adapters.num_layers != L or adapters.hidden != H
-                    or adapters.q_out != nh * hd
-                    or adapters.v_out != nkv * hd):
-                raise ValueError(
-                    "AdapterStore dimensions do not match this model: "
-                    f"store (L={adapters.num_layers}, H={adapters.hidden},"
-                    f" q={adapters.q_out}, v={adapters.v_out}) vs model "
-                    f"(L={L}, H={H}, q={nh * hd}, v={nkv * hd})")
-            if adapters.device != self.device:
-                raise ValueError(
-                    f"AdapterStore lives on {adapters.device}, the engine "
-                    f"on {self.device}")
-        self.adapters = adapters
         # device-resident lane state: static tensors that the decode
         # graphs read and write, refilled in place by _upload_lane_state
         # only on membership change (self._dirty)
@@ -532,8 +527,6 @@ class ContinuousBatchingEngine:
             # the last column is the scratch target of dead lanes' and
             # out-of-range writes (the reference's JAX drops them)
             self._dev["hist"] = _zeros(B, MB * block_size + 1)
-        if adapters is not None:
-            self._dev["adapter_ids"] = _zeros(B)
         self._variant = None      # "greedy"|"sampled"[".spec"] once uploaded
         self._dirty = True
         self._inflight: deque[_Inflight] = deque()
@@ -543,8 +536,16 @@ class ContinuousBatchingEngine:
         # after its replay
         self._graphs: dict[tuple, _DecodeGraph] = {}
         self._graph_pool = None
+        self._adapters = None
+        self.adapters = adapters
         self.graph_captures = 0
         self.program_keys_used: set[tuple] = set()
+        # cost-model key ("prefill.b{width}", "decode[.sampled][.spec]")
+        # -> the program's ProgramCost; the first measured dispatch sets
+        # _cost_scale
+        self.compile_reports: dict = {}
+        self._cost_scale = None
+        self._m_cost_err = _metric("pir_cost_model_error")
         # observability handles bound once (catalog names; no-ops while
         # the layer is disabled)
         self._m_ttft = _metric("serving_ttft_seconds")
@@ -612,6 +613,45 @@ class ContinuousBatchingEngine:
         self._m_pfx_shared = _metric("serving_prefix_shared_blocks")
         self._m_pfx_evict = _metric("serving_prefix_evictions_total")
         self._m_pfx_cow = _metric("serving_prefix_cow_forks_total")
+
+    @property
+    def adapters(self):
+        """The engine's AdapterStore, or None."""
+        return self._adapters
+
+    @adapters.setter
+    def adapters(self, store):
+        """Attach an AdapterStore, checked against the model, before the
+        first decode capture (a captured program holds no adapter slots);
+        loadgen attaches its demo store so to a cold engine."""
+        if self._graphs and (store is None) != (self._adapters is None):
+            raise ValueError(
+                "attach or detach the AdapterStore before the first "
+                "decode: the captured decode programs are built with or "
+                "without adapter slots")
+        if store is None:
+            self._dev.pop("adapter_ids", None)
+        else:
+            L = len(self.layers)
+            nh, nkv, hd = (self.cfg["heads"], self.cfg["kv_heads"],
+                           self.cfg["head_dim"])
+            H = nh * hd
+            if (store.num_layers != L or store.hidden != H
+                    or store.q_out != nh * hd or store.v_out != nkv * hd):
+                raise ValueError(
+                    "AdapterStore dimensions do not match this model: "
+                    f"store (L={store.num_layers}, H={store.hidden},"
+                    f" q={store.q_out}, v={store.v_out}) vs model "
+                    f"(L={L}, H={H}, q={nh * hd}, v={nkv * hd})")
+            if store.device != self.device:
+                raise ValueError(
+                    f"AdapterStore lives on {store.device}, the engine "
+                    f"on {self.device}")
+            if "adapter_ids" not in self._dev:
+                self._dev["adapter_ids"] = torch.zeros(
+                    self.max_batch, dtype=torch.int64, device=self.device)
+                self._dirty = True
+        self._adapters = store
 
     # --- public API -------------------------------------------------------
     def add_request(self, prompt, max_new_tokens=32, eos_token_id=None,
@@ -690,16 +730,59 @@ class ContinuousBatchingEngine:
         if sink is not None:
             raise _not_ported("prefill_sink")
 
+    # --- static cost model (pir/analysis.py) ------------------------------
+    def _cost_observe(self, key, dt):
+        """Predicted-vs-measured cost of one dispatch of the program
+        compile_reports[key]. The FIRST measured dispatch calibrates the
+        platform scale (its ratio is 1.0 by construction); every later
+        one updates the per-program ratio gauge and the pooled error
+        histogram whose exemplar carries the worst-predicted program."""
+        cost = self.compile_reports.get(key)
+        if cost is None or cost.raw_seconds <= 0 or dt <= 0:
+            return
+        if self._cost_scale is None:
+            self._cost_scale = dt / cost.raw_seconds
+        ratio = dt / (cost.raw_seconds * self._cost_scale)
+        _metric("pir_cost_ratio", program=key).set(ratio)
+        self._m_cost_err.observe(ratio, exemplar=key)
+
     def predicted_costs(self):
-        """None: the engine has no PIR cost model yet (ROADMAP.md slice
-        6), as the reference returns no calibrated cost before its first
-        measured dispatch."""
-        return None
+        """{program key: {flops, bytes, raw_seconds, seconds}} for every
+        priced program; `seconds` is the calibrated prediction (None until
+        a dispatch calibrated the scale). The loadgen harness derives its
+        slo_headroom capacity signal from this."""
+        out = {}
+        for key, cost in self.compile_reports.items():
+            out[key] = {"flops": cost.flops, "bytes": cost.bytes,
+                        "raw_seconds": cost.raw_seconds,
+                        "seconds": (cost.raw_seconds * self._cost_scale
+                                    if self._cost_scale else None)}
+        return out
 
     def predicted_service_seconds(self, output_tokens=32):
-        """None until a cost model is ported; callers fall back to
+        """Calibrated engine seconds one request of `output_tokens`
+        consumes: its share of the fused decode dispatches (a tile
+        advances all max_batch lanes together) plus one prefill chunk.
+        None until the cost model is calibrated — callers fall back to
         measured throughput."""
-        return None
+        if self._cost_scale is None:
+            return None
+        costs = self.predicted_costs()
+        decode = next((c for k, c in sorted(costs.items())
+                       if k.startswith("decode")), None)
+        if decode is None or decode["seconds"] is None:
+            return None
+        # priced against the BASE decode program (the calibrated report
+        # belongs to it): the estimate stays a stable capacity signal
+        # for the undegraded engine even while the brownout ladder has
+        # decode_steps temporarily shrunk
+        t = (output_tokens / self._base_decode_steps) \
+            * decode["seconds"] / self.max_batch
+        prefill = next((c for k, c in sorted(costs.items())
+                        if k.startswith("prefill")), None)
+        if prefill is not None and prefill["seconds"] is not None:
+            t += prefill["seconds"]
+        return t
 
     # --- scheduling -------------------------------------------------------
     @torch.no_grad()
@@ -1183,16 +1266,27 @@ class ContinuousBatchingEngine:
         table[:len(t)] = t
         is_final = task.idx == len(task.pieces) - 1
         last_idx = (s - 1 - start) if is_final else 0
+        key = f"prefill.b{width}"
+        cold = key not in self.compile_reports
+        args = (torch.from_numpy(ids).to(self.device), int(start),
+                int(last_idx), torch.from_numpy(table).to(self.device),
+                req.adapter_id)
         t0 = time.perf_counter()
-        logits = self._prefill_chunk(
-            torch.from_numpy(ids).to(self.device), int(start), int(last_idx),
-            torch.from_numpy(table).to(self.device), req.adapter_id)
+        if cold:
+            # the width's first chunk is priced, and its time not read
+            logits, self.compile_reports[key] = price(
+                self._prefill_chunk, *args, name=f"serving.{key}")
+        else:
+            logits = self._prefill_chunk(*args)
         host_logits = logits.cpu().numpy() if is_final else None
         dt = time.perf_counter() - t0
         self._m_prefill.observe(dt)
         self._m_chunks.inc()
         if self._phases.enabled:
-            self._phases.mark("prefill.chunk", tenant=req.tenant)
+            self._phases.mark("compile" if cold else "prefill.chunk",
+                              tenant=req.tenant)
+        if not cold and (is_final or self.device.type != "cuda"):
+            self._cost_observe(key, dt)
         if self._tracer.enabled:
             self._tracer.add_span(
                 "request.prefill.chunk", int(t0 * 1e9), int(dt * 1e9),
@@ -1288,12 +1382,11 @@ class ContinuousBatchingEngine:
         if self._dirty or self._variant is None:
             self._upload_lane_state(active)
             self._phases.mark("lane_upload")
-        t0 = time.perf_counter()
         try:
             fault_point("serve.decode_oom", active=len(active))
             with _span("serving.decode_step", active=len(active),
                        k=self.decode_steps):
-                tile, event, spec = self._dispatch()
+                tile, event, spec, cost_key, t0 = self._dispatch()
         except MemoryError:
             # device OOM (or the serve.decode_oom fault site): shed one
             # lane and requeue it rather than killing every request
@@ -1322,7 +1415,7 @@ class ContinuousBatchingEngine:
         self._tile_seq += 1
         self._inflight.append(_Inflight(
             tile, event, t0, snap, self._lane_epoch.copy(), K, covers_all,
-            tile_id, spec=spec))
+            tile_id, spec=spec, key=cost_key))
         if self._rec.enabled:
             self._rec.record("dispatch", tile=tile_id, lanes=list(active),
                              epochs=[int(self._lane_epoch[i])
@@ -1437,20 +1530,35 @@ class ContinuousBatchingEngine:
         replay of the (sampled, K, D) graph, captured on first use, then
         one non-blocking copy of its output to pinned host memory under
         an event; on the CPU an eager run. Returns (tile, event or None,
-        whether the tile is speculative)."""
+        whether the tile is speculative, the compile_reports key to
+        observe or None for a cold dispatch, and the host time the
+        dispatch began: on the CPU after the run that priced it). Every K
+        and draft depth of one family shares a compile_reports key,
+        priced once."""
+        t0 = time.perf_counter()
         spec = self._variant.endswith(".spec")
         sampled = self._variant.startswith("sampled")
         K = self.decode_steps
         key = (sampled, K, self.draft_depth if spec else 0)
         self.program_keys_used.add(key)
+        cost_key = ("decode" + (".sampled" if sampled else "")
+                    + (".spec" if spec else ""))
+        unpriced = cost_key not in self.compile_reports
         if self.device.type != "cuda":
+            if unpriced:
+                # priced in a run of its own with every lane dead, as the
+                # card prices it in the capture's warm-up
+                self._dead_run(self._program(*key), cost_key)
+                self._phases.mark("compile")
+                t0 = time.perf_counter()
             tile = self._program(*key)()
             self._phases.mark("decode.dispatch")
-            return tile, None, spec
+            return tile, None, spec, cost_key, t0
         prog = self._graphs.get(key)
         cold = prog is None
         if cold:
-            prog = self._capture(*key)
+            prog = self._capture(*key, cost_key=cost_key if unpriced
+                                 else None)
             self._graphs[key] = prog
             self.graph_captures += 1
             _metric("jit_retrace_total").inc()
@@ -1461,25 +1569,38 @@ class ContinuousBatchingEngine:
         event = torch.cuda.Event()
         event.record()
         self._phases.mark("compile" if cold else "decode.dispatch")
-        return host, event, spec
+        return host, event, spec, None if cold else cost_key, t0
 
-    def _capture(self, sampled, K, D=0):
-        """Capture the decode program of key (sampled, K, D) as a CUDA
-        graph. The warm-up run that capture needs goes with every lane
-        dead, so it writes only the scratch block and the history's
-        scratch column and leaves the lane state as it was. A failure
-        raises: the engine never decodes eagerly on the card."""
-        d = self._dev
-        fn = self._program(sampled, K, D)
-        alive = d["alive"].clone()
+    def _dead_run(self, fn, cost_key=None):
+        """Run a decode program once with every lane dead: it writes only
+        the scratch block and the history's scratch column, and the lane
+        state is left as it was. With a `cost_key`, the run prices the
+        program into compile_reports. Returns its output."""
+        alive = self._dev["alive"]
+        saved = alive.clone()
+        alive.zero_()
         try:
-            d["alive"].zero_()
+            if cost_key is None:
+                return fn()
+            out, self.compile_reports[cost_key] = price(
+                fn, name=f"serving.{cost_key}")
+            return out
+        finally:
+            alive.copy_(saved)
+
+    def _capture(self, sampled, K, D=0, cost_key=None):
+        """Capture the decode program of key (sampled, K, D) as a CUDA
+        graph. The warm-up run that capture needs is a dead-lane run
+        (`_dead_run`), which also prices the program when a `cost_key` is
+        given. A failure raises: the engine never decodes eagerly on the
+        card."""
+        fn = self._program(sampled, K, D)
+        try:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
-                warm = fn()
+                warm = self._dead_run(fn, cost_key)
             torch.cuda.current_stream(self.device).wait_stream(side)
-            d["alive"].copy_(alive)
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
             tile = torch.zeros_like(warm)
@@ -1488,7 +1609,6 @@ class ContinuousBatchingEngine:
             with torch.cuda.graph(graph, pool=self._graph_pool):
                 tile.copy_(fn())
         except Exception as e:
-            d["alive"].copy_(alive)
             raise RuntimeError(
                 f"capturing the decode program (sampled={sampled}, K={K}, "
                 f"draft depth={D}) as a CUDA graph failed: {e}") from e
@@ -1709,6 +1829,8 @@ class ContinuousBatchingEngine:
         self._inflight.popleft()
         self._m_hostsync.observe(t1 - t0)
         self._phases.mark("hostsync")
+        if infl.key is not None:
+            self._cost_observe(infl.key, t1 - infl.t_dispatch)
         # one dispatch advances every active lane K tokens, so the
         # dispatch->readback wall over K is the per-token latency; the
         # first live lane's trace id stands for the tile

@@ -15,7 +15,10 @@ The kernels are hand-written CUDA C++ for Hopper
 built by `ops/_build.py`. `_flash_fwd_bhsd_plain` and
 `_flash_bwd_bhsd_plain` are the same functions in dense torch math. The
 wrappers take the plain versions only for tensors on the CPU; for CUDA
-tensors they launch the kernels or raise. The backward is K3 then K4, or
+tensors they launch the kernels or raise. K1 and K2 are registered
+operators (`torch.ops.paddle_tpu_torch.flash_fwd` and
+`flash_fwd_rms_epilogue`, `torch.library.custom_op`), so torch.export
+records them and an exported program launches them. The backward is K3 then K4, or
 the dense rematerialised backward, as `FLAGS_flash_attention_bwd` (or, in
 its 'auto' mode, ops/attention_router) picks.
 """
@@ -237,6 +240,48 @@ def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, causal, scale, q_per_kv):
     return dk, dv
 
 
+# K1 and K2 as registered operators, so that torch.export records each as
+# one node (a FakeTensor has no storage, so the ctypes launch itself cannot
+# be traced): the CPU implementation is the plain version, the CUDA one
+# launches the kernel, and the fake one gives the (out, lse) shapes.
+# _FlashAttention stays around the forward operator for the backward.
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_fwd", mutates_args=(), device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, bool causal, float scale, "
+           "int q_per_kv) -> (Tensor, Tensor)")
+def flash_fwd_op(q, k, v, causal, scale, q_per_kv):
+    return _flash_fwd_bhsd_plain(q, k, v, causal, scale, q_per_kv)
+
+
+@torch.library.custom_op(
+    "paddle_tpu_torch::flash_fwd_rms_epilogue", mutates_args=(),
+    device_types="cpu",
+    schema="(Tensor q, Tensor k, Tensor v, Tensor residual, "
+           "Tensor rms_weight, bool causal, float scale, int q_per_kv, "
+           "float rms_eps, int rms_d) -> (Tensor, Tensor)")
+def flash_fwd_rms_epilogue_op(q, k, v, residual, rms_weight, causal, scale,
+                              q_per_kv, rms_eps, rms_d):
+    return _flash_fwd_bhsd_plain(q, k, v, causal, scale, q_per_kv, residual,
+                                 rms_weight, rms_eps, rms_d)
+
+
+flash_fwd_op.register_kernel("cuda")(_flash_fwd_cuda)
+flash_fwd_rms_epilogue_op.register_kernel("cuda")(
+    _flash_fwd_rms_epilogue_cuda)
+
+
+@flash_fwd_op.register_fake
+def _flash_fwd_fake(q, k, v, causal, scale, q_per_kv):
+    return torch.empty_like(q), q.new_empty(q.shape[:2],
+                                            dtype=torch.float32)
+
+
+@flash_fwd_rms_epilogue_op.register_fake
+def _flash_fwd_rms_epilogue_fake(q, k, v, residual, rms_weight, causal,
+                                 scale, q_per_kv, rms_eps, rms_d):
+    return _flash_fwd_fake(q, k, v, causal, scale, q_per_kv)
+
+
 def _device_of(*tensors):
     devices = {t.device for t in tensors}
     if len(devices) != 1:
@@ -266,8 +311,10 @@ def _flash_fwd_bhsd(q, k, v, causal, scale, q_per_kv=1, residual=None,
     dim, in f32 inside the flush, the mean taken over `rms_d` columns (the
     true head dim when D is zero-padded; default D). Forward only.
 
-    CPU tensors take `_flash_fwd_bhsd_plain`; CUDA tensors launch the kernel
-    (bf16/fp16, D in {64, 128}) or raise. Query head b reads kv head
+    Both go through the registered operators (`flash_fwd_op`,
+    `flash_fwd_rms_epilogue_op`): CPU tensors take
+    `_flash_fwd_bhsd_plain`; CUDA tensors launch the kernel (bf16/fp16, D
+    in {64, 128}) or raise. Query head b reads kv head
     b // q_per_kv (batch-major b). The causal mask is aligned bottom-right.
     A row with no admissible key (causal, sq > sk) has no defined result:
     the kernel and the plain version both give it finite values (a uniform
@@ -287,15 +334,13 @@ def _flash_fwd_bhsd(q, k, v, causal, scale, q_per_kv=1, residual=None,
             raise ValueError(f"rms_weight {tuple(rms_weight.shape)} must be "
                              f"({q.shape[2]},)")
         tensors += (residual, rms_weight)
-    if _device_of(*tensors).type == "cpu":
-        return _flash_fwd_bhsd_plain(q, k, v, causal, scale, q_per_kv,
-                                     residual, rms_weight, rms_eps, rms_d)
+    _device_of(*tensors)
     if residual is None:
-        return _flash_fwd_cuda(q, k, v, causal, scale, q_per_kv)
-    return _flash_fwd_rms_epilogue_cuda(
-        q, k, v, residual, rms_weight.float().contiguous(), causal, scale,
-        q_per_kv, rms_eps,
-        rms_d or q.shape[2])
+        return flash_fwd_op(q, k, v, bool(causal), float(scale),
+                            int(q_per_kv))
+    return flash_fwd_rms_epilogue_op(
+        q, k, v, residual, rms_weight.float().contiguous(), bool(causal),
+        float(scale), int(q_per_kv), float(rms_eps), int(rms_d or q.shape[2]))
 
 
 def _flash_bwd_bhsd(q, k, v, o, lse, g, causal, scale, q_per_kv=1):

@@ -6,10 +6,10 @@ The engines serve the same requests in float32 with the reference's model
 weights (convert.py) and the reference's adapter factors copied into the
 port's store: greedy streams on base and adapter lanes must equal the
 reference engine's token for token. A hot swap fills a slot of the
-store's pools in place and adds no program. The mesh and load-generator
-cases (TestMeshAdapters, TestLoadgenScenario, TestAdapterSweeps) wait for
-the port of the serving mesh and inference/loadgen.py (ROADMAP.md slice 4,
-steps 5 and 6).
+store's pools in place and adds no program. TestLoadgenScenario and
+TestAdapterSweeps drive the port's loadgen; the mesh cases
+(TestMeshAdapters, TestAdapterSweeps' replica kill) wait for the port of
+the serving mesh (ROADMAP.md slice 4, step 6).
 """
 
 import numpy as np
@@ -429,3 +429,88 @@ class TestPerAdapterSLO:
         assert all(s["count"] >= 1 for s in verdict["slos"])
         fam = obs.get_registry().get("serving_adapter_ttft_seconds")
         assert {"lora0", "base"} <= {lbl[0][1] for lbl in fam._children}
+
+
+class TestLoadgenScenario:
+    def test_multi_adapter_scenario_registered(self):
+        from paddle_tpu_torch.inference.loadgen import SCENARIOS
+        sc = SCENARIOS["multi_adapter"]
+        assert sc.adapter_population > 0
+        assert sc.adapter_zipf > 1.0
+
+    def test_short_run_produces_adapter_evidence(self, enabled_obs):
+        """loadgen installs the demo store on a cold store-less engine,
+        warms every program before its window and reports the run's
+        adapter loads; nothing recompiles inside the window."""
+        from paddle_tpu_torch.inference.loadgen import (
+            Scenario, check_report, run_scenario)
+        sc = Scenario("mini_adapters", arrival="poisson", rate_rps=30.0,
+                      duration_s=0.4, prompt_len=(4, 10),
+                      output_tokens=(3, 6), adapter_population=3,
+                      deadline_s=15.0)
+        eng = _engine(_model(), max_batch=4, num_blocks=128)
+        report = run_scenario(eng, sc, seed=5)
+        ad = report["adapters"]
+        assert ad is not None
+        assert ad["population"] == 3
+        assert ad["loads"] >= 1
+        assert ad["load_failures"] == 0
+        assert ad["swap_recompiles"] == 0
+        assert ad["per_adapter"]        # per-adapter quantiles present
+        assert not [p for p in check_report(report, min_adapter_loads=1)
+                    if "adapter" in p]
+
+    def test_warm_engine_without_a_store_is_refused(self):
+        """An engine that already ran a program cannot take the store
+        loadgen would install (its programs were built without adapter
+        slots)."""
+        from paddle_tpu_torch.inference.loadgen import run_scenario
+        eng = _engine(_model())
+        eng.add_request(_prompt(6), max_new_tokens=2)
+        eng.run()
+        with pytest.raises(ValueError, match="already warm"):
+            run_scenario(eng, "multi_adapter", seed=0, duration_s=0.1)
+
+
+class TestAdapterSweeps:
+    def test_saturation_sweep_small_pool_many_adapters(self, enabled_obs):
+        # 12 adapters through a 4-slot pool under a saturating open
+        # mix: every request finishes with a valid reason, refcounts
+        # drain, and the whole sweep never recompiles
+        from paddle_tpu_torch.inference.loadgen import KNOWN_FINISH_REASONS
+        names = ["lora%d" % i for i in range(12)]
+        store = _store(names=names, n_slots=4)
+        eng = _engine(_model(), adapters=store, max_batch=4, num_blocks=128)
+        eng.add_request(_prompt(6), max_new_tokens=4)
+        eng.run()                               # compile outside the gate
+        r0 = _counter("jit_retrace_total")
+        rs = np.random.RandomState(22)
+        rids = []
+        for i in range(36):
+            rids.append(eng.add_request(
+                rs.randint(1, 128, (int(rs.randint(4, 12)),)),
+                max_new_tokens=int(rs.randint(3, 8)),
+                adapter=names[int(rs.randint(0, 12))]))
+            if i % 6 == 5:
+                eng.step()
+        eng.run()
+        for rid in rids:
+            assert eng.finished[rid].finish_reason in KNOWN_FINISH_REASONS
+        assert all(v == 0 for v in store._refs.values())
+        assert eng.pool.tables == {}
+        assert _counter("jit_retrace_total") == r0
+        assert store.stats()["evictions"] >= 8  # the pool really churned
+
+
+def test_store_attaches_before_the_first_capture_only():
+    """loadgen attaches a store to a cold engine; once a decode program
+    is captured (built without adapter slots) attaching one raises."""
+    eng = _engine(_model())
+    assert "adapter_ids" not in eng._dev
+    eng.adapters = _store()
+    assert "adapter_ids" in eng._dev
+    eng.adapters = None
+    assert "adapter_ids" not in eng._dev
+    eng._graphs[(False, 4, 0)] = object()      # a captured program
+    with pytest.raises(ValueError, match="before the first decode"):
+        eng.adapters = _store()

@@ -1,7 +1,9 @@
 """The port stands alone: importing paddle_tpu_torch, or chip_smoke.py,
-loads neither JAX nor any module of the JAX package, and no source of the
-port names them in an import. Without a GPU, building on the default
-device raises instead of running on the CPU.
+loads neither JAX, nor ml_dtypes (the card's machine has none), nor any
+module of the JAX package, and no source of the port names them in an
+import. Without a GPU, building on the default device, and each entry
+point's default (the engine's model, jit.load, Config/Predictor,
+Profiler), raises instead of running on the CPU.
 """
 
 import ast
@@ -23,7 +25,8 @@ PORT = ROOT / "paddle_tpu_torch"
 def _foreign(name):
     return (name == "jax" or name.startswith("jax.") or name == "jaxlib"
             or name.startswith("jaxlib.") or name == "paddle_tpu"
-            or name.startswith("paddle_tpu."))
+            or name.startswith("paddle_tpu.") or name == "ml_dtypes"
+            or name.startswith("ml_dtypes."))
 
 
 def _loaded_after(code):
@@ -32,8 +35,8 @@ def _loaded_after(code):
     probe = code + (
         "\nimport json, sys\n"
         "print(json.dumps(sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith(('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
-        "m.startswith('paddle_tpu.'))))\n")
+        "m.startswith(('jax.', 'jaxlib', 'ml_dtypes')) or m == 'paddle_tpu' "
+        "or m.startswith('paddle_tpu.'))))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -58,7 +61,8 @@ def test_import_loads_no_jax_and_no_reference(code):
     "observability", "resilience", "profiler", "inference",
     "inference.serving", "inference.drafting", "inference.adapters",
     "inference.scheduler", "inference.prefix_cache", "ops.paged_attention",
-    "nn.quant"])
+    "nn.quant", "inference.loadgen", "jit", "pir", "pir.analysis",
+    "tools.loadgen"])
 def test_serving_subpackages_load_no_jax_and_no_reference(sub):
     """The serving engine's subpackages, each imported alone: copies of
     jax-free reference modules must not reach back into the reference."""
@@ -99,3 +103,24 @@ def test_set_device_cpu_is_honoured():
     finally:
         pt.set_device(old)
     assert pt.get_device() == old
+
+
+def test_entry_points_default_to_cuda(tmp_path):
+    """jit.load and Config/Predictor run on CUDA unless asked for the
+    CPU, the Profiler traces CUDA unless its targets name only the CPU,
+    and the loadgen CLI builds its engine on CUDA unless --device cpu."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults work")
+    from paddle_tpu_torch import inference, jit, profiler
+    from paddle_tpu_torch.tools import loadgen as cli
+    model = pt.nn.Linear(4, 2, device="cpu")
+    prefix = str(tmp_path / "m")
+    jit.save(model, prefix, input_spec=[jit.InputSpec([1, 4], "float32")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        jit.load(prefix)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        inference.create_predictor(inference.Config(prefix))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        profiler.Profiler()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.build_engine()

@@ -419,7 +419,9 @@ def test_compat_step_loop_reproduces_prefused_engine(both_obs):
 
 def test_unported_methods_raise_and_no_cost_model():
     """Only the serving mesh's methods are refused, naming its ROADMAP
-    step; the engine has no cost model yet."""
+    step; before any dispatch the cost model holds no price and no
+    calibration, as the reference's (test_torch_loadgen.py holds it after
+    one)."""
     eng = _engine(ContinuousBatchingEngine, _pair()[1])
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 6"):
         eng.export_kv(None, 0)
@@ -430,7 +432,7 @@ def test_unported_methods_raise_and_no_cost_model():
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 6"):
         eng.prefill_sink = print
     assert eng.prefill_sink is None
-    assert eng.predicted_costs() is None
+    assert eng.predicted_costs() == {}
     assert eng.predicted_service_seconds() is None
 
 
