@@ -170,22 +170,16 @@ class Predictor:
     deserialized program and hands back host numpy."""
 
     def __init__(self, config: Config):
-        from ..framework.device import resolve_device
-        from ..jit import _load_params, _program, _read_meta
+        from ..jit import load
         self._config = config
-        prefix = config._prefix
-        self._device = resolve_device(config._device)
-        meta = _read_meta(prefix)
-        self._module = _program(meta, prefix)
-        if self._module is None:
+        self._layer = load(config._prefix, config._device,
+                           params_path=config._params_path)
+        if self._layer.program is None:
             raise ValueError(
-                f"{prefix}.pdmodel holds no serialized program; re-export "
-                "with paddle_tpu_torch.jit.save(layer, path, "
+                f"{config._prefix}.pdmodel holds no serialized program; "
+                "re-export with paddle_tpu_torch.jit.save(layer, path, "
                 "input_spec=[...])")
-        self._params = _load_params(
-            config._params_path or prefix + ".pdiparams", meta,
-            self._device)
-        self._input_spec = meta.get("input_spec", [])
+        self._input_spec = self._layer._input_spec
         self._input_names = [f"x{i}" for i in range(len(self._input_spec))]
         self._inputs = {n: Tensor(n, shape=tuple(s[0]), dtype=s[1])
                         for n, s in zip(self._input_names, self._input_spec)}
@@ -210,10 +204,7 @@ class Predictor:
                 missing = [n for n in self._input_names
                            if self._inputs[n]._value is None]
                 raise ValueError(f"inputs not set: {missing}")
-        args = [torch.from_numpy(np.ascontiguousarray(a)).to(self._device)
-                for a in arrs]
-        with torch.no_grad():
-            out = self._module(self._params, *args)
+        out = self._layer(*(np.ascontiguousarray(a) for a in arrs))
         self._outputs = []
         for i, o in enumerate(pytree.tree_leaves(out)):
             t = Tensor(f"out{i}")

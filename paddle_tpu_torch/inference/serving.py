@@ -58,11 +58,23 @@ The cost model (reference :1397-1443, :1765-1767, :1886-1942): each
 program is priced once by `pir.analysis.price` on its first run, which is
 never a timed one: a prefill width on its first chunk, whose time is not
 observed, and a decode program in the eager warm-up run of its capture
-(on the CPU, its first dispatch, not observed either). The first measured
-dispatch after that calibrates the scale; `predicted_service_seconds` then
-feeds the scheduler's headroom and loadgen's `slo_headroom`. On CUDA only
-a final prefill chunk, whose logits copy synchronises, is observed: an
-earlier chunk's wall time is only its enqueue.
+(on the CPU, its first dispatch, not observed either). The measured
+dispatches after that calibrate the scale; `predicted_service_seconds` then
+feeds the scheduler's headroom and loadgen's `slo_headroom`. On CUDA a
+dispatch is measured by CUDA events around it, not by the host's wall:
+around a decode graph's replay (device time; the wall from dispatch to
+readback also holds the tile ahead of it), and around a prefill chunk
+(the chunk's span on the stream, read once a later synchronisation has
+passed it). On the card the port runs two kinds of program where the
+reference runs one: a decode replays a captured graph, while a prefill
+chunk is launched op by op from the host, whose launches it waits on. A
+roofline scale fits one kind and not both, so each kind ("graph",
+"eager") is calibrated by its own measured dispatches; on the CPU every
+program is eager and one scale serves, as in the reference. A kind's
+first measured dispatch sets its scale, as the reference's does, and its
+next two refine it to the median of the three: an eager chunk's span
+moves with the host's launches, and one slow chunk would otherwise skew
+every later prediction.
 
 Where the reference rebinds arrays functionally, this engine fills the
 tensors that the captured graphs hold in place: adapter uploads, COW
@@ -108,6 +120,10 @@ __all__ = ["ContinuousBatchingEngine", "Request", "BackpressureError",
 # exception classes that mean "transient trouble, retry next step" when
 # they surface from an admission / prefill-chunk / host-sync seam
 _TRANSIENT_ERRORS = (TimeoutError, ConnectionError, OSError, FaultInjected)
+
+# measured dispatches of one kind of program whose median sets its
+# cost-model scale (_cost_observe)
+CALIBRATION_DISPATCHES = 3
 
 
 def _not_ported(what):
@@ -342,15 +358,17 @@ class _Inflight:
     speculative tile ([B, K, D + 2]: tokens and commit counts); it is per
     tile, so tiles dispatched before a switch drain under the program
     they ran. `key` is the compile_reports key of the dispatched program,
-    None for a cold dispatch (a capture or a priced run), whose wall time
-    the cost model does not read."""
+    None for a cold dispatch (a capture or a priced run), whose time the
+    cost model does not read; `span` the CUDA events around a replay (None
+    on the CPU, where the wall is read)."""
 
     __slots__ = ("tile", "event", "t_dispatch", "reqs", "epochs", "k",
-                 "covers_all", "tile_id", "spec", "key")
+                 "covers_all", "tile_id", "spec", "key", "span")
 
     def __init__(self, tile, event, t_dispatch, reqs, epochs, k, covers_all,
-                 tile_id=0, spec=False, key=None):
+                 tile_id=0, spec=False, key=None, span=None):
         self.key = key
+        self.span = span
         self.tile = tile
         self.event = event
         self.t_dispatch = t_dispatch
@@ -541,10 +559,14 @@ class ContinuousBatchingEngine:
         self.graph_captures = 0
         self.program_keys_used: set[tuple] = set()
         # cost-model key ("prefill.b{width}", "decode[.sampled][.spec]")
-        # -> the program's ProgramCost; the first measured dispatch sets
-        # _cost_scale
+        # -> the program's ProgramCost; the first measured dispatches of
+        # each kind of program (_cost_kind) set that kind's _cost_scale
+        # entry (None: uncalibrated; _cost_samples holds the dispatches)
         self.compile_reports: dict = {}
         self._cost_scale = None
+        self._cost_samples: dict = {}
+        # (key, start, end) CUDA events of prefill chunks not yet read
+        self._prefill_spans = deque()
         self._m_cost_err = _metric("pir_cost_model_error")
         # observability handles bound once (catalog names; no-ops while
         # the layer is disabled)
@@ -731,40 +753,67 @@ class ContinuousBatchingEngine:
             raise _not_ported("prefill_sink")
 
     # --- static cost model (pir/analysis.py) ------------------------------
+    def _cost_kind(self, key):
+        """The kind of program compile_reports[key] is, each calibrated
+        on its own: on the card a decode replays a captured graph and a
+        prefill chunk runs eagerly; on the CPU every program is eager."""
+        if self.device.type == "cuda" and key.startswith("decode"):
+            return "graph"
+        return "eager"
+
     def _cost_observe(self, key, dt):
         """Predicted-vs-measured cost of one dispatch of the program
-        compile_reports[key]. The FIRST measured dispatch calibrates the
-        platform scale (its ratio is 1.0 by construction); every later
-        one updates the per-program ratio gauge and the pooled error
-        histogram whose exemplar carries the worst-predicted program."""
+        compile_reports[key]. The first CALIBRATION_DISPATCHES measured
+        dispatches of a kind of program set that kind's scale to the
+        median of their measured over raw costs (the first alone sets it,
+        so its ratio is 1.0); every dispatch updates the per-program
+        ratio gauge and the pooled error histogram whose exemplar carries
+        the worst-predicted program."""
         cost = self.compile_reports.get(key)
         if cost is None or cost.raw_seconds <= 0 or dt <= 0:
             return
         if self._cost_scale is None:
-            self._cost_scale = dt / cost.raw_seconds
-        ratio = dt / (cost.raw_seconds * self._cost_scale)
+            # (re)calibration starts: loadgen clears the scale after its
+            # warm-up
+            self._cost_scale, self._cost_samples = {}, {}
+        kind = self._cost_kind(key)
+        samples = self._cost_samples.setdefault(kind, [])
+        if len(samples) < CALIBRATION_DISPATCHES:
+            samples.append(dt / cost.raw_seconds)
+            self._cost_scale[kind] = float(np.median(samples))
+        ratio = dt / (cost.raw_seconds * self._cost_scale[kind])
         _metric("pir_cost_ratio", program=key).set(ratio)
         self._m_cost_err.observe(ratio, exemplar=key)
+
+    def _observe_prefill_spans(self):
+        """Observe the prefill chunks whose end event the stream has
+        passed (each span's events are read once, in order)."""
+        spans = self._prefill_spans
+        while spans and spans[0][2].query():
+            key, start, end = spans.popleft()
+            self._cost_observe(key, start.elapsed_time(end) / 1e3)
 
     def predicted_costs(self):
         """{program key: {flops, bytes, raw_seconds, seconds}} for every
         priced program; `seconds` is the calibrated prediction (None until
-        a dispatch calibrated the scale). The loadgen harness derives its
-        slo_headroom capacity signal from this."""
+        a dispatch calibrated its kind's scale). The loadgen harness
+        derives its slo_headroom capacity signal from this."""
+        scales = self._cost_scale or {}
         out = {}
         for key, cost in self.compile_reports.items():
+            scale = scales.get(self._cost_kind(key))
             out[key] = {"flops": cost.flops, "bytes": cost.bytes,
                         "raw_seconds": cost.raw_seconds,
-                        "seconds": (cost.raw_seconds * self._cost_scale
-                                    if self._cost_scale else None)}
+                        "seconds": (cost.raw_seconds * scale
+                                    if scale else None)}
         return out
 
     def predicted_service_seconds(self, output_tokens=32):
         """Calibrated engine seconds one request of `output_tokens`
         consumes: its share of the fused decode dispatches (a tile
         advances all max_batch lanes together) plus one prefill chunk.
-        None until the cost model is calibrated — callers fall back to
-        measured throughput."""
+        None until the cost model is calibrated for both — callers fall
+        back to measured throughput."""
         if self._cost_scale is None:
             return None
         costs = self.predicted_costs()
@@ -780,7 +829,9 @@ class ContinuousBatchingEngine:
             * decode["seconds"] / self.max_batch
         prefill = next((c for k, c in sorted(costs.items())
                         if k.startswith("prefill")), None)
-        if prefill is not None and prefill["seconds"] is not None:
+        if prefill is not None:
+            if prefill["seconds"] is None:
+                return None
             t += prefill["seconds"]
         return t
 
@@ -1271,13 +1322,21 @@ class ContinuousBatchingEngine:
         args = (torch.from_numpy(ids).to(self.device), int(start),
                 int(last_idx), torch.from_numpy(table).to(self.device),
                 req.adapter_id)
+        timed = not cold and self.device.type == "cuda"
         t0 = time.perf_counter()
         if cold:
             # the width's first chunk is priced, and its time not read
             logits, self.compile_reports[key] = price(
                 self._prefill_chunk, *args, name=f"serving.{key}")
         else:
+            if timed:
+                span = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+                span[0].record()
             logits = self._prefill_chunk(*args)
+            if timed:
+                span[1].record()
+                self._prefill_spans.append((key, *span))
         host_logits = logits.cpu().numpy() if is_final else None
         dt = time.perf_counter() - t0
         self._m_prefill.observe(dt)
@@ -1285,8 +1344,9 @@ class ContinuousBatchingEngine:
         if self._phases.enabled:
             self._phases.mark("compile" if cold else "prefill.chunk",
                               tenant=req.tenant)
-        if not cold and (is_final or self.device.type != "cuda"):
+        if not cold and self.device.type != "cuda":
             self._cost_observe(key, dt)
+        self._observe_prefill_spans()
         if self._tracer.enabled:
             self._tracer.add_span(
                 "request.prefill.chunk", int(t0 * 1e9), int(dt * 1e9),
@@ -1386,7 +1446,7 @@ class ContinuousBatchingEngine:
             fault_point("serve.decode_oom", active=len(active))
             with _span("serving.decode_step", active=len(active),
                        k=self.decode_steps):
-                tile, event, spec, cost_key, t0 = self._dispatch()
+                tile, event, spec, cost_key, t0, span = self._dispatch()
         except MemoryError:
             # device OOM (or the serve.decode_oom fault site): shed one
             # lane and requeue it rather than killing every request
@@ -1415,7 +1475,7 @@ class ContinuousBatchingEngine:
         self._tile_seq += 1
         self._inflight.append(_Inflight(
             tile, event, t0, snap, self._lane_epoch.copy(), K, covers_all,
-            tile_id, spec=spec, key=cost_key))
+            tile_id, spec=spec, key=cost_key, span=span))
         if self._rec.enabled:
             self._rec.record("dispatch", tile=tile_id, lanes=list(active),
                              epochs=[int(self._lane_epoch[i])
@@ -1532,9 +1592,9 @@ class ContinuousBatchingEngine:
         an event; on the CPU an eager run. Returns (tile, event or None,
         whether the tile is speculative, the compile_reports key to
         observe or None for a cold dispatch, and the host time the
-        dispatch began: on the CPU after the run that priced it). Every K
-        and draft depth of one family shares a compile_reports key,
-        priced once."""
+        dispatch began: on the CPU after the run that priced it, and the
+        CUDA events around the replay or None). Every K and draft depth of
+        one family shares a compile_reports key, priced once."""
         t0 = time.perf_counter()
         spec = self._variant.endswith(".spec")
         sampled = self._variant.startswith("sampled")
@@ -1553,7 +1613,7 @@ class ContinuousBatchingEngine:
                 t0 = time.perf_counter()
             tile = self._program(*key)()
             self._phases.mark("decode.dispatch")
-            return tile, None, spec, cost_key, t0
+            return tile, None, spec, cost_key, t0, None
         prog = self._graphs.get(key)
         cold = prog is None
         if cold:
@@ -1562,14 +1622,18 @@ class ContinuousBatchingEngine:
             self._graphs[key] = prog
             self.graph_captures += 1
             _metric("jit_retrace_total").inc()
+        span = (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+        span[0].record()
         prog.graph.replay()
+        span[1].record()
         host = torch.empty(prog.tile.shape, dtype=prog.tile.dtype,
                            pin_memory=True)
         host.copy_(prog.tile, non_blocking=True)
         event = torch.cuda.Event()
         event.record()
         self._phases.mark("compile" if cold else "decode.dispatch")
-        return host, event, spec, None if cold else cost_key, t0
+        return host, event, spec, None if cold else cost_key, t0, span
 
     def _dead_run(self, fn, cost_key=None):
         """Run a decode program once with every lane dead: it writes only
@@ -1830,7 +1894,10 @@ class ContinuousBatchingEngine:
         self._m_hostsync.observe(t1 - t0)
         self._phases.mark("hostsync")
         if infl.key is not None:
-            self._cost_observe(infl.key, t1 - infl.t_dispatch)
+            self._cost_observe(infl.key, t1 - infl.t_dispatch
+                               if infl.span is None else
+                               infl.span[0].elapsed_time(infl.span[1]) / 1e3)
+        self._observe_prefill_spans()
         # one dispatch advances every active lane K tokens, so the
         # dispatch->readback wall over K is the per-token latency; the
         # first live lane's trace id stands for the tile

@@ -58,9 +58,10 @@ class InputSpec:
 class TranslatedLayer:
     """Loaded inference artifact."""
 
-    def __init__(self, fn, state):
+    def __init__(self, fn, state, program=None):
         self._fn = fn
         self._state = state
+        self.program = program      # the exported module; None: params only
 
     def __call__(self, *args):
         return self._fn(*args)
@@ -205,15 +206,16 @@ def save(layer, path, input_spec=None, **configs):
     os.replace(tmp, path + ".pdmodel")
 
 
-def load(path, device=None, **configs):
+def load(path, device=None, params_path=None, **configs):
     """Load a jit.save artifact as a callable TranslatedLayer that runs
-    the exported program on `device` (default: the package's, CUDA).
+    the exported program on `device` (default: the package's, CUDA); its
+    params come from `params_path` (default: path + ".pdiparams").
     Rejects artifacts from a newer format, and the JAX package's
     StableHLO programs, with a ValueError."""
     device = resolve_device(device)
     meta = _read_meta(path)
     module = _program(meta, path)
-    state = _load_params(path + ".pdiparams", meta, device)
+    state = _load_params(params_path or path + ".pdiparams", meta, device)
     if module is not None:
         def fn(*args):
             arrs = [torch.as_tensor(a).to(device) for a in args]
@@ -224,7 +226,7 @@ def load(path, device=None, **configs):
             raise RuntimeError(
                 "this artifact was saved without input_spec (params only); "
                 "re-instantiate the model class and call load_state_dict")
-    tl = TranslatedLayer(fn, state)
+    tl = TranslatedLayer(fn, state, program=module)
     tl.state_dict = lambda: state
     tl._input_spec = meta.get("input_spec", [])
     return tl

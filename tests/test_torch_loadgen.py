@@ -41,7 +41,8 @@ from paddle_tpu_torch.inference.loadgen import (SCENARIOS, Scenario,
                                                 run_scenario, schedule_digest)
 from paddle_tpu_torch.inference.scheduler import SLOScheduler
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
-from paddle_tpu_torch.pir.analysis import DEFAULT_ROOFLINE, price
+from paddle_tpu_torch.pir.analysis import (DEFAULT_ROOFLINE, ProgramCost,
+                                             price)
 from paddle_tpu_torch.profiler.phases import PHASES, get_phase_accountant
 
 WIDTHS = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
@@ -437,7 +438,51 @@ def test_calibrated_after_warm_up():
     assert set(costs) == {"prefill.b16", "prefill.b32", "decode"}
     assert all(c["seconds"] > 0 and c["flops"] > 0 and c["bytes"] > 0
                for c in costs.values())
-    assert eng._cost_scale > 0
+    # on the CPU every program is eager: one scale, as the reference's
+    assert set(eng._cost_scale) == {"eager"}
+    assert eng._cost_scale["eager"] > 0
+
+
+def test_each_kind_of_program_has_its_own_scale_on_the_card():
+    """On the card a decode replays a captured graph and a prefill chunk
+    runs eagerly: each kind is calibrated by its own measured dispatches
+    (the first sets the scale, the median of the first three holds it),
+    and the service time waits for both. Driven through the engine's
+    bookkeeping with its device set to CUDA (nothing runs)."""
+    eng = _engine(_model())
+    eng.device = torch.device("cuda")
+    eng.compile_reports = {
+        "decode": ProgramCost("decode", 1.0, 1.0, 1e-3, []),
+        "decode.sampled": ProgramCost("decode.sampled", 1.0, 1.0, 2e-3, []),
+        "prefill.b16": ProgramCost("prefill.b16", 1.0, 1.0, 1e-4, []),
+        "prefill.b32": ProgramCost("prefill.b32", 1.0, 1.0, 2e-4, [])}
+    eng._cost_observe("decode", 3e-3)              # graph: 3
+    assert eng._cost_scale == {"graph": pytest.approx(3.0)}
+    assert eng.predicted_costs()["prefill.b16"]["seconds"] is None
+    assert eng.predicted_service_seconds(8) is None
+    eng._cost_observe("prefill.b16", 5e-3)         # eager: 50
+    assert eng._cost_scale == {"graph": pytest.approx(3.0),
+                               "eager": pytest.approx(50.0)}
+    costs = eng.predicted_costs()
+    assert costs["decode.sampled"]["seconds"] == pytest.approx(6e-3)
+    assert costs["prefill.b32"]["seconds"] == pytest.approx(1e-2)
+    # 8 tokens are 2 dispatches of decode_steps 4, shared by max_batch 4
+    # lanes, plus the first prefill width's chunk
+    assert eng.predicted_service_seconds(8) == pytest.approx(
+        2 * 3e-3 / 4 + 5e-3)
+    # the next two dispatches of a kind refine its scale to the median,
+    # and later ones move nothing
+    eng._cost_observe("prefill.b32", 4e-2)         # eager: 50, 200
+    assert eng._cost_scale["eager"] == pytest.approx(125.0)
+    eng._cost_observe("prefill.b16", 7e-3)         # eager: 50, 200, 70
+    assert eng._cost_scale["eager"] == pytest.approx(70.0)
+    eng._cost_observe("prefill.b16", 1e-3)
+    assert eng._cost_scale == {"graph": pytest.approx(3.0),
+                               "eager": pytest.approx(70.0)}
+    # loadgen's reset after its warm-up starts the calibration again
+    eng._cost_scale = None
+    eng._cost_observe("decode.sampled", 1e-2)      # graph: 5
+    assert eng._cost_scale == {"graph": pytest.approx(5.0)}
 
 
 def test_scheduler_sees_headroom_after_warm_up():

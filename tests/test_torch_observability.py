@@ -205,9 +205,14 @@ def test_autoscale_advice_matches():
     assert out[0] == out[1]
 
 
-def test_stepwatch_rows_match(both_enabled, tmp_path):
+def test_stepwatch_rows_match(both_enabled, tmp_path, monkeypatch):
     rows = []
     for o in BOTH:
+        # a default registry of the test's own: a reset keeps the metric
+        # families earlier tests defined (the reference's supervisor
+        # defines train_nonfinite_skips_total), and those would be listed
+        monkeypatch.setattr(o.metrics, "_default_registry",
+                            o.MetricRegistry(enabled=True))
         path = tmp_path / f"{o.__name__}.jsonl"
         sw = o.StepWatch(tokens_per_step=1024, flops_per_token=6e9,
                          peak_flops=1e15, jsonl_path=str(path),
