@@ -14,8 +14,9 @@ Phases, each of which makes the script exit non-zero if it fails:
      edges of the kernel's 128-row block and 128-key ring tiles (sq = sk
      64, 127, 129; sq 1 over sk 300; sq 130 over sk 1000; causal sq 300
      over sk 100, whose first 200 rows admit no key: finite everywhere,
-     compared where a row has keys; GQA 8:1 at d64), the serving slice's prefill shape and the training slice's
-     attention shape (also in fp16), with times (kernel, plain version,
+     compared where a row has keys; GQA 8:1 at d64), the serving slice's
+     prefill shape, the training slice's attention shape (also in fp16)
+     and BERT-base's (b32, 12 heads of 64, s512, not causal), with times (kernel, plain version,
      and torch's scaled_dot_product_attention as a yardstick only) and the
      least time the card could take. Kernel and SDPA times are given
      twice: the median single call, host work included, and the device
@@ -31,15 +32,17 @@ Phases, each of which makes the script exit non-zero if it fails:
      torch epilogue.
   5. K3/K4: the flash-attention backward kernels against the plain
      backward in bf16 at K1's cases, the edge cases included (and in fp16
-     at the training shape and two more), dQ, dK and dV repeated bit for bit, and back-to-back
-     times at the training shape with their rate and share of the bound
+     at the training shape and two more), dQ, dK and dV repeated bit for
+     bit, and back-to-back times at the training shape and BERT-base's
+     with their rate and share of the bound
      (torch's own flash-attention backward as a yardstick only), beside the
      wrapper's delta = rowsum(dO * O) pass. In the causal sq 300 over sk
      100 case the rows of dO that admit no key are zero: such rows are
      undefined in the forward, and with dO zero they add nothing in either
      version.
   6. router: the shipped H100 ledger's decision, with its provenance, at
-     the serving prefill shape and the training attention shape, and
+     the serving prefill shape, the training attention shape and
+     BERT-base's (which must each have a ledger row), and
      whether it marks the fused epilogue a winner there. The launch counts
      the later phases expect follow from these decisions.
   7. tiny models on the card against the same weights in float32 on the
@@ -137,8 +140,27 @@ Phases, each of which makes the script exit non-zero if it fails:
      paddle_tpu_torch.tools.train_llama.run_one. Every loss must be finite,
      the last below the first, and with the router's choice of the
      kernels each step must launch K1 twice per layer (forward and remat
-     recompute) and K3 and K4 once per layer. It runs last, after 12 and
-     13, once llama_7b is freed.
+     recompute) and K3 and K4 once per layer. It runs after 12 and 13,
+     once llama_7b is freed.
+  14. BERT: bert_base(dropout=0.0) pretraining as bench.py measures it
+     (parameters cast to bf16, batch 32, sequence 512, AdamW at lr 1e-4,
+     15% MLM labels) through paddle_tpu_torch.tools.train_bert.run_one:
+     one warm-up step and 8 timed steps. Every loss finite, the last below
+     the first, and with the router's choice of the kernels each step
+     launches K1, K3 and K4 once per layer (attention without a mask and
+     without the causal flag). One more step traced gives kernel time by
+     class. Then the same steps under FLAGS_flash_attention_backend=xla:
+     no kernel launch, and the first loss within BERT_LOSS_RTOL of the
+     routed run's.
+  15. GPT: gpt3_1p3b in bf16 (random weights from seed(0)) generating 32
+     greedy tokens for 4 prompts of 128 from RandomState(0) through
+     model.generate, the recompute path: one whole forward a token. The
+     first call is the warm-up, in which the router measures each new
+     causal length on a ledger miss; the second is timed and must give
+     the same ids and launch K1 once per layer for each length routed to
+     it (768 if all are). The last forward's logits under the routed
+     backend must agree with the dense backend's within GPT_LOGITS_RTOL of
+     the largest |logit|; its kernel time by class is printed.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -178,7 +200,8 @@ from paddle_tpu_torch.observability.quantiles import quantile_from_cumulative
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import attention_router as ar
 from paddle_tpu_torch.ops import flash_attention as fa
-from paddle_tpu_torch.tools import profile_serving, train_llama
+from paddle_tpu_torch.tools import (profile_serving, profile_train,
+                                    train_bert, train_llama)
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s
 # and bf16 tensor-core FLOP/s
@@ -222,6 +245,9 @@ TINY_LR = 1e-3
 PREFILL = dict(b=4, h=32, kvh=32, sq=512, sk=512, d=128, causal=True)
 # the training slice's attention: llama_1.3b at batch 8, sequence 2048
 TRAIN_ATTN = dict(b=8, h=16, kvh=16, sq=2048, sk=2048, d=128, causal=True)
+# BERT-base pretraining's attention (bench.py:299): batch 32, sequence 512,
+# 12 heads of 64, no mask and no causal flag
+BERT_ATTN = dict(b=32, h=12, kvh=12, sq=512, sk=512, d=64, causal=False)
 # the edges of the forward kernel's 128-row block and 128-key ring tiles
 # (two slots at d128, three at d64): one tile, one row short of and one
 # past a block, a single query row over three key tiles, two query blocks
@@ -244,7 +270,7 @@ BASE_CASES = (
                        (100, 260, False)]]
     + [dict(b=2, h=32, kvh=8, sq=512, sk=512, d=128, causal=True),   # GQA
        dict(b=2, h=8, kvh=8, sq=256, sk=256, d=96, causal=True),     # pad
-       PREFILL, TRAIN_ATTN])
+       PREFILL, TRAIN_ATTN, BERT_ATTN])
 K1_CASES = BASE_CASES + FWD_EDGE_CASES
 K2_CASES = (
     [dict(b=2, h=4, kvh=4, sq=sq, sk=sk, d=d, causal=c)
@@ -343,6 +369,19 @@ MIN_PREFIX_HIT_RATE, MIN_ADAPTER_LOADS = 0.5, 1
 # order
 PREDICTOR_SPEC = ([4, 512], "int64")
 PREDICTOR_LOGITS_RTOL = ENGINE_LOGITS_RTOL
+
+# the BERT phase: BERT-base's first training step under the routed
+# attention (K1, K3/K4) against the same step under the dense backend, the
+# same weights and data. Only attention differs, by a bf16 rounding here
+# and there: at this initialisation the loss is about ln(30522) = 10.3 and
+# such roundings move it by about 1e-5 of that
+BERT_LOSS_RTOL = 1e-3
+# the GPT phase: gpt3_1p3b greedy through the recompute path, GPT_BATCH
+# prompts of GPT_PROMPT tokens from RandomState(0), GPT_NEW new tokens; the
+# last forward's logits under the routed backend against the dense one, by
+# the engine's bf16 bound relative to the largest |logit|
+GPT_BATCH, GPT_PROMPT, GPT_NEW = 4, 128, 32
+GPT_LOGITS_RTOL = ENGINE_LOGITS_RTOL
 
 
 # the card's name and power limit as nvidia-smi gives them (phase 1)
@@ -564,7 +603,7 @@ def case_name(case):
 
 def phase_k1():
     """K1 vs its plain version at every case; returns the records of the
-    prefill and training shapes."""
+    prefill, training and BERT shapes."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     records = {}
@@ -611,7 +650,8 @@ def phase_k1():
         if not ok:
             sys.exit(f"chip_smoke: K1 disagrees with its plain version at "
                      f"{case}")
-        for name, shape in (("prefill", PREFILL), ("train", TRAIN_ATTN)):
+        for name, shape in (("prefill", PREFILL), ("train", TRAIN_ATTN),
+                            ("bert", BERT_ATTN)):
             if case is shape:
                 records[name] = dict(
                     max_abs_err=max(err_out, err_lse), ms=ms,
@@ -713,7 +753,8 @@ def phase_k2():
 def phase_k34():
     """K3 and K4 vs the plain backward at every case, on the kernel
     forward's out and lse; dQ, dK and dV repeated bit for bit; times at the
-    training shape. Returns the records of K3 and K4 there."""
+    Llama training shape and BERT's. Returns the records of K3 and K4
+    there: {"train" | "bert": {"dq" | "dkv": record}}."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     records = {}
@@ -753,8 +794,10 @@ def phase_k34():
         if not ok:
             sys.exit(f"chip_smoke: K3/K4 disagree with the plain backward "
                      f"or do not repeat at {case}")
-        if case is not TRAIN_ATTN:
+        if case is not TRAIN_ATTN and case is not BERT_ATTN:
             continue
+        shape = records.setdefault(
+            "train" if case is TRAIN_ATTN else "bert", {})
         with torch.inference_mode():
             # the wrapper's delta pass, as _flash_bwd_bhsd takes it
             delta_fn = lambda: (gk.float() * out.float()).sum(-1)
@@ -772,9 +815,9 @@ def phase_k34():
         for name, ms, err in (("dq", dq_ms, abs_errs[0]),
                               ("dkv", dkv_ms, max(abs_errs[1:]))):
             bound, bound_by = bwd_bound_ms(name, **case)
-            records[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                 bound_ms=bound, bound_by=bound_by,
-                                 library_ms=library_ms)
+            shape[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                               bound_ms=bound, bound_by=bound_by,
+                               library_ms=library_ms)
             tflops = bwd_flops(name, **case) / (ms * 1e-3) / 1e12
             log(f"  K{3 if name == 'dq' else 4} ({name}): kernel {ms:.4f} ms "
                 f"back to back, {tflops:.1f} TFLOP/s, bound {bound:.4f} ms "
@@ -788,9 +831,9 @@ def phase_k34():
 
 
 def phase_router():
-    """The ledger's decisions at the two main-path attention shapes, with
-    their provenance. Returns {"prefill" | "train": (Decision, whether the
-    fused epilogue wins)}."""
+    """The ledger's decisions at the main-path attention shapes, with their
+    provenance. Returns {"prefill" | "train" | "bert": (Decision, whether
+    the fused epilogue wins)}."""
     led = ar.load_ledger()
     if led is None:
         sys.exit("chip_smoke: the shipped attention ledger does not load")
@@ -799,14 +842,15 @@ def phase_router():
         f"{len(led.get('entries', []))} entries, "
         f"{len(led.get('end_to_end', []))} end-to-end")
     decisions = {}
-    for name, case in (("prefill", PREFILL), ("train", TRAIN_ATTN)):
+    for name, case in (("prefill", PREFILL), ("train", TRAIN_ATTN),
+                       ("bert", BERT_ATTN)):
         bh = case["b"] * case["h"]
         key = (bh, case["sq"], case["sk"], case["d"], torch.bfloat16,
                case["causal"])
         dec = ar.route(*key)
         wins = ar.epilogue_fusion_wins(*key)
         log(f"router {name} (bh {bh}, s{case['sq']}, d{case['d']}, bf16, "
-            f"causal): {dec}; fused epilogue wins: {wins}")
+            f"causal={case['causal']}): {dec}; fused epilogue wins: {wins}")
         if dec.source not in ("ledger", "ledger-e2e"):
             sys.exit(f"chip_smoke: the ledger has no row for the {name} "
                      f"shape on {torch.cuda.get_device_name(0)}")
@@ -922,14 +966,33 @@ def kernel_ms_traced(fn):
     """Summed kernel time (ms) of fn() under torch.profiler, None if the
     profiler saw no kernel. Kernels only: the host ops that launched them
     carry the same device time."""
+    return sum(kernel_ms_by_class(fn).values()) or None
+
+
+def kernel_ms_by_class(fn):
+    """{kernel class: summed device ms} of fn() under torch.profiler, the
+    classes of tools/profile_train.py (the flash kernels, matrix products,
+    copies, elementwise, reductions, other)."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    us = [getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
-          for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    total = sum(u for u in us if u > 0)
-    return total / 1e3 if total else None
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            cls = profile_train._classify(e.key)
+            out[cls] = out.get(cls, 0.0) + getattr(
+                e, "device_time_total", getattr(e, "cuda_time_total", 0)) / 1e3
+    return out
+
+
+def class_line(by_class):
+    """The total of kernel_ms_by_class's result, then each class's ms and
+    share, largest first."""
+    total = sum(by_class.values())
+    return f"{total:.3f} ms of kernels: " + "; ".join(
+        f"{cls} {ms:.3f} ms ({ms / total:.1%})"
+        for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]))
 
 
 def engine_traffic(vocab):
@@ -2079,6 +2142,159 @@ def phase_train(decision):
     return launches
 
 
+def phase_bert(decision):
+    """BERT-base pretraining (bench.py's configuration) through
+    train_bert.run_one; returns each kernel's launches over the run.
+    `decision` is the router's at BERT's attention shape: each step
+    launches K1 once per layer if its forward is the kernel, and K3 and K4
+    once per layer if its backward is too. Then the same steps under
+    FLAGS_flash_attention_backend=xla, the dense A/B: no kernel launch, and
+    the first step's loss within BERT_LOSS_RTOL of the routed run's."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, batch, seq, steps, dtype = train_bert.bench_config("cuda")
+    n_layers = cfg.num_hidden_layers
+    zero_flash_launches()                      # the BERT path starts here
+    r = train_bert.run_one(cfg, batch, seq, steps, dtype, device="cuda")
+    launches = train_llama.launch_counts()     # the BERT path ends here
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = train_bert.TrainStep(cfg, batch, seq, dtype, "cuda")
+    train.step(1)
+    by_class = kernel_ms_by_class(lambda: train.step(2))
+    log(f"bert_base routed, one traced step: {class_line(by_class)}; busy "
+        f"{sum(by_class.values()) / r['step_ms']:.1%} of the "
+        f"timed steps' mean")
+    del train
+    gc.collect()
+    torch.cuda.empty_cache()
+    pt.set_flags({"FLAGS_flash_attention_backend": "xla"})
+    try:
+        zero_flash_launches()
+        dense = train_bert.run_one(cfg, batch, seq, steps, dtype,
+                                   device="cuda")
+        dense_launches = flash_launches()
+    finally:
+        pt.set_flags({"FLAGS_flash_attention_backend": "auto"})
+    for name, run in (("routed", r), ("dense", dense)):
+        secs = run["seconds"]
+        log(f"bert_base {name}: {run['bert_params']} params, {n_layers} "
+            f"layers, b{batch} s{seq} {dtype}; set-up {secs['setup']:.2f} "
+            f"s, warm-up step {secs['warmup']:.2f} s; step "
+            f"{run['step_ms']:.2f} ms, "
+            f"{run['bert_tokens_per_s']:.1f} tokens/s, MFU "
+            f"{run['bert_base_mfu']:.4f}, peak memory "
+            f"{run['peak_memory_bytes'] / 2**30:.2f} GiB, launches per "
+            f"step {run['launches_per_step'][-1]}")
+        log(f"bert_base {name}: losses {run['losses']}")
+    loss_err = abs(r["losses"][0] - dense["losses"][0]) / abs(
+        dense["losses"][0])
+    log(f"bert_base: routed/dense step-1 loss rel err {loss_err:.3e} (tol "
+        f"{BERT_LOSS_RTOL}); step time routed/dense "
+        f"{r['step_ms'] / dense['step_ms']:.3f}; router at the shape: "
+        f"fwd={decision.fwd} bwd={decision.bwd} source={decision.source}; "
+        f"launches over the routed run {launches}")
+    fwd = decision.fwd == "pallas"
+    bwd = fwd and decision.bwd == "pallas"
+    want = {"flash_fwd": n_layers if fwd else 0,
+            "flash_bwd_dq": n_layers if bwd else 0,
+            "flash_bwd_dkv": n_layers if bwd else 0}
+    if not all(np.isfinite(r["losses"] + dense["losses"])):
+        sys.exit("chip_smoke: a BERT training loss is not finite")
+    if not r["losses"][-1] < r["losses"][0]:
+        sys.exit("chip_smoke: the BERT training loss did not fall")
+    for i, per_step in enumerate(r["launches_per_step"]):
+        if per_step != want:
+            sys.exit(f"chip_smoke: BERT step {i + 2} launched {per_step}, "
+                     f"expected {want}")
+    if dense_launches:
+        sys.exit("chip_smoke: the dense BERT run launched a flash kernel")
+    if not loss_err <= BERT_LOSS_RTOL:
+        sys.exit("chip_smoke: BERT's first loss under the routed attention "
+                 "disagrees with the dense backend's")
+    return launches
+
+
+def phase_gpt():
+    """gpt3_1p3b (bf16, random weights from seed(0)) generating greedily
+    through the recompute path; returns K1's launches over the timed call.
+    The first call is the warm-up: on a ledger miss the router measures
+    each new causal length live (the reference keys on the exact length).
+    The timed second call must launch K1 once per layer for every length
+    routed to the kernel and give the warm-up's ids; the last forward's
+    logits must agree with the dense backend's within GPT_LOGITS_RTOL of
+    the largest |logit|."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    pt.seed(0)
+    t0 = time.perf_counter()
+    model = pt.models.gpt3_1p3b(dtype="bfloat16", device="cuda")
+    model.eval()
+    torch.cuda.synchronize()
+    cfg = model.config
+    heads, n_layers = cfg.num_attention_heads, cfg.num_hidden_layers
+    log(f"gpt3_1p3b: {model.num_params()} params, {n_layers} layers, "
+        f"hidden {cfg.hidden_size}, {heads} heads, vocab {cfg.vocab_size}, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    b, s, new = GPT_BATCH, GPT_PROMPT, GPT_NEW
+    ids = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (b, s)), device="cuda")
+    t0 = time.perf_counter()
+    warm = model.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_fwd_launches = 0                  # the GPT path starts here
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = fa.flash_fwd_launches           # the GPT path ends here
+    peak = torch.cuda.max_memory_allocated()
+    hd = cfg.hidden_size // heads
+    decisions = {n: ar.route(b * heads, n, n, hd, torch.bfloat16, True)
+                 for n in range(s, s + new)}
+    sources = {}
+    for n, dec in decisions.items():
+        sources.setdefault((dec.source, dec.fwd), []).append(n)
+    want = n_layers * sum(dec.fwd == "pallas" for dec in decisions.values())
+    log(f"gpt3_1p3b generate b{b} prompt {s} new {new}: warm-up "
+        f"{warm_s * 1e3:.1f} ms, timed {secs * 1e3:.1f} ms, "
+        f"{b * new / secs:.1f} tokens/s, K1 launches {launches} (expected "
+        f"{want}), peak memory {peak / 2**30:.2f} GiB")
+    for (source, fwd), lengths in sorted(sources.items()):
+        log(f"  router: lengths {lengths[0]}-{lengths[-1]} "
+            f"({len(lengths)}) fwd={fwd} source={source}")
+    log(f"  e.g. length {s}: {decisions[s].provenance}")
+    last = out[:, :-1]
+    with torch.inference_mode():
+        by_class = kernel_ms_by_class(lambda: model(last))
+        got = model(last).float()
+        pt.set_flags({"FLAGS_flash_attention_backend": "xla"})
+        try:
+            ref = model(last).float()
+        finally:
+            pt.set_flags({"FLAGS_flash_attention_backend": "auto"})
+    log(f"  last forward (b{b} s{last.shape[1]}) traced: "
+        f"{class_line(by_class)}")
+    err = (got - ref).abs().max().item() / ref.abs().max().item()
+    log(f"  last forward's logits routed vs dense: max|err|/max|logit| "
+        f"{err:.3e} (tol {GPT_LOGITS_RTOL})")
+    if out.shape != (b, s + new) or not torch.equal(out[:, :s], ids):
+        sys.exit("chip_smoke: GPT generate returned a wrong shape or prompt")
+    if out.min().item() < 0 or out.max().item() >= cfg.vocab_size:
+        sys.exit("chip_smoke: a GPT token id is out of the vocabulary")
+    if not torch.equal(out, warm):
+        sys.exit("chip_smoke: two greedy GPT runs disagree")
+    if launches != want:
+        sys.exit(f"chip_smoke: {launches} K1 launches in one GPT generate, "
+                 f"expected {want}")
+    if not (torch.isfinite(got).all() and err <= GPT_LOGITS_RTOL):
+        sys.exit("chip_smoke: GPT logits under the routed attention "
+                 "disagree with the dense backend's")
+    return launches
+
+
 def main():
     phase_device()
     phase_build()
@@ -2097,28 +2313,34 @@ def main():
     del model
     epilogue = phase_epilogue(decisions)
     train = phase_train(decisions["train"][0])
+    bert = phase_bert(decisions["bert"][0])
+    gpt = phase_gpt()
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    # K1 runs on the serving, predictor and training paths; its times are
-    # the training shape's. K2's are
+    # K1 runs on the serving, predictor, training, BERT and GPT paths, K3
+    # and K4 on the training and BERT paths; their times are the Llama
+    # training shape's (phases 3 and 5 print BERT's too). K2's are
     # the serving prefill shape's (no single library call computes it).
     # "ms" and "library_ms" are device times from back-to-back calls
     kernels = [dict(name="flash_fwd", route="cuda", source=src + "fwd.cu",
                     replaces=ref + "116",
-                    launches=serve + predictor + train["flash_fwd"],
+                    launches=(serve + predictor + train["flash_fwd"]
+                              + bert["flash_fwd"] + gpt),
                     **{key: k1["train"][key] for key in keys}),
                dict(name="flash_fwd_rms_epilogue", route="cuda",
                     source=src + "fwd.cu", replaces=ref + "116",
                     launches=epilogue,
                     **{key: k2["prefill"][key] for key in keys}),
                dict(name="flash_bwd_dq", route="cuda", source=src + "bwd.cu",
-                    replaces=ref + "198", launches=train["flash_bwd_dq"],
-                    **k34["dq"]),
+                    replaces=ref + "198",
+                    launches=train["flash_bwd_dq"] + bert["flash_bwd_dq"],
+                    **k34["train"]["dq"]),
                dict(name="flash_bwd_dkv", route="cuda", source=src + "bwd.cu",
-                    replaces=ref + "249", launches=train["flash_bwd_dkv"],
-                    **k34["dkv"])]
+                    replaces=ref + "249",
+                    launches=train["flash_bwd_dkv"] + bert["flash_bwd_dkv"],
+                    **k34["train"]["dkv"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

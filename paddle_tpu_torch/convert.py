@@ -1,4 +1,5 @@
-"""Carry weights from the JAX package's Llama to the port's.
+"""Carry weights from the JAX package's Llama, BERT and GPT models to the
+port's.
 
 Parameter names and layouts are the same in both packages, so a reference
 state dict, as numpy arrays, maps onto the port key for key:
@@ -25,20 +26,31 @@ from .framework.dtypes import convert_dtype
 __all__ = ["state_from_reference", "load_reference_state",
            "tree_from_reference", "tensor_from_bytes"]
 
-_LAYER = re.compile(r"^llama\.layers\.(\d+)\.(.+)$")
+def _shape(np_state, key):
+    try:
+        return tuple(np.shape(np_state[key]))
+    except KeyError:
+        raise KeyError(f"reference state lacks {key!r}") from None
+
+
+def _depth(np_state, layers: str) -> int:
+    """1 + the largest index i of a key `{layers}.{i}.*`."""
+    rx = re.compile(re.escape(layers) + r"\.(\d+)\.")
+    return 1 + max((int(m.group(1)) for m in map(rx.match, np_state) if m),
+                   default=-1)
+
+
+def _stacked(prefix: str, depth: int, layer: dict) -> dict:
+    return {f"{prefix}.{i}.{k}": s for i in range(depth)
+            for k, s in layer.items()}
 
 
 def _llama_shapes(np_state) -> dict:
     """The key -> shape map of a complete Llama state with the vocabulary,
     widths and depth that `np_state` itself shows."""
-    try:
-        vocab, hidden = np_state["llama.embed_tokens.weight"].shape
-        ffn = np_state["llama.layers.0.mlp.gate_proj.weight"].shape[1]
-        kv = np_state["llama.layers.0.self_attn.k_proj.weight"].shape[1]
-    except KeyError as e:
-        raise KeyError(f"reference state lacks {e.args[0]!r}") from None
-    depth = 1 + max(int(m.group(1)) for m in map(_LAYER.match, np_state)
-                    if m)
+    vocab, hidden = _shape(np_state, "llama.embed_tokens.weight")
+    ffn = _shape(np_state, "llama.layers.0.mlp.gate_proj.weight")[1]
+    kv = _shape(np_state, "llama.layers.0.self_attn.k_proj.weight")[1]
     layer = {"self_attn.q_proj.weight": (hidden, hidden),
              "self_attn.k_proj.weight": (hidden, kv),
              "self_attn.v_proj.weight": (hidden, kv),
@@ -50,11 +62,79 @@ def _llama_shapes(np_state) -> dict:
              "post_attention_layernorm.weight": (hidden,)}
     shapes = {"llama.embed_tokens.weight": (vocab, hidden),
               "llama.norm.weight": (hidden,)}
-    for i in range(depth):
-        shapes.update({f"llama.layers.{i}.{k}": s for k, s in layer.items()})
+    shapes.update(_stacked("llama.layers", _depth(np_state, "llama.layers"),
+                           layer))
     if "lm_head.weight" in np_state:   # absent when embeddings are tied
         shapes["lm_head.weight"] = (hidden, vocab)
     return shapes
+
+
+def _linear(name, n_in, n_out):
+    return {f"{name}.weight": (n_in, n_out), f"{name}.bias": (n_out,)}
+
+
+def _norm(name, n):
+    return {f"{name}.weight": (n,), f"{name}.bias": (n,)}
+
+
+def _bert_shapes(np_state) -> dict:
+    """A complete BertForPretraining or BertForSequenceClassification
+    state (models/bert.py); which one, and its widths, depth and class
+    count, as `np_state` shows them."""
+    vocab, h = _shape(np_state, "bert.embeddings.word_embeddings.weight")
+    ffn = _shape(np_state, "bert.encoder.0.ffn1.weight")[1]
+    e = "bert.embeddings."
+    shapes = {e + "word_embeddings.weight": (vocab, h),
+              e + "position_embeddings.weight":
+                  (_shape(np_state, e + "position_embeddings.weight")[0], h),
+              e + "token_type_embeddings.weight":
+                  (_shape(np_state, e + "token_type_embeddings.weight")[0],
+                   h),
+              **_norm(e + "layer_norm", h), **_linear("bert.pooler", h, h)}
+    layer = {**_linear("q", h, h), **_linear("k", h, h),
+             **_linear("v", h, h), **_linear("attn_out", h, h),
+             **_norm("attn_norm", h), **_linear("ffn1", h, ffn),
+             **_linear("ffn2", ffn, h), **_norm("ffn_norm", h)}
+    shapes.update(_stacked("bert.encoder", _depth(np_state, "bert.encoder"),
+                           layer))
+    if "classifier.weight" in np_state:
+        n = _shape(np_state, "classifier.weight")[1]
+        shapes.update(_linear("classifier", h, n))
+    else:
+        shapes.update({**_linear("mlm_transform", h, h),
+                       **_norm("mlm_norm", h), **_linear("nsp_head", h, 2)})
+    return shapes
+
+
+def _gpt_shapes(np_state) -> dict:
+    """A complete GPTForCausalLM state (models/gpt.py), tied or not, with
+    the widths and depth `np_state` shows."""
+    vocab, h = _shape(np_state, "gpt.wte.weight")
+    ffn = _shape(np_state, "gpt.h.0.fc1.weight")[1]
+    shapes = {"gpt.wte.weight": (vocab, h),
+              "gpt.wpe.weight": (_shape(np_state, "gpt.wpe.weight")[0], h),
+              **_norm("gpt.ln_f", h)}
+    layer = {**_norm("ln_1", h), **_linear("attn.qkv_proj", h, 3 * h),
+             **_linear("attn.out_proj", h, h), **_norm("ln_2", h),
+             **_linear("fc1", h, ffn), **_linear("fc2", ffn, h)}
+    shapes.update(_stacked("gpt.h", _depth(np_state, "gpt.h"), layer))
+    if "lm_head.weight" in np_state:   # absent when embeddings are tied
+        shapes["lm_head.weight"] = (h, vocab)
+    return shapes
+
+
+# each family by the key prefix of its models' states
+_FAMILIES = {"llama.": _llama_shapes, "bert.": _bert_shapes,
+             "gpt.": _gpt_shapes}
+
+
+def _reference_shapes(np_state) -> dict:
+    """The key -> shape map of the model family `np_state` belongs to."""
+    for prefix, shapes in _FAMILIES.items():
+        if any(k.startswith(prefix) for k in np_state):
+            return shapes(np_state)
+    raise KeyError(f"reference state of no known family (keys starting "
+                   f"{sorted(_FAMILIES)})")
 
 
 def _check(np_state, shapes: dict) -> None:
@@ -89,9 +169,10 @@ def _tensor(a) -> torch.Tensor:
 
 
 def state_from_reference(np_state: dict, device, dtype=None) -> dict:
-    """The port's Llama state dict (torch tensors on `device`, in `dtype` or
-    the arrays' own dtype) from a reference state of numpy arrays."""
-    _check(np_state, _llama_shapes(np_state))
+    """The port's state dict of a Llama, BERT or GPT model (torch tensors on
+    `device`, in `dtype` or the arrays' own dtype) from a reference state
+    of numpy arrays."""
+    _check(np_state, _reference_shapes(np_state))
     device = resolve_device(device)
     dt = None if dtype is None else convert_dtype(dtype)
     return {k: _tensor(v).to(device=device, dtype=dt)

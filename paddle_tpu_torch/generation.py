@@ -1,7 +1,8 @@
-"""Autoregressive generation with a dense KV cache.
+"""Autoregressive generation: Llama with a dense KV cache, every other
+causal LM by recompute.
 
 reference: paddle_tpu/generation.py:39-425 (`GenerationConfig`, the llama
-layer math, `_sample`, `generate`).
+layer math, `_sample`, `_generic_generate`, `generate`).
 
 The JAX version is one jit: prefill as a `lax.scan` over the stacked layer
 weights, then a `lax.scan` of decode steps. Here both are eager Python
@@ -221,57 +222,87 @@ def _sample(logits, generator, gc: GenerationConfig):
     return torch.multinomial(probs, 1, generator=generator)[:, 0]
 
 
+def _generic_generate(model, ids, gc, generator):
+    """The recompute path for a causal LM without a cache path (reference
+    :332-348): the whole prefix runs through the model again for each new
+    token. After an EOS every later token is EOS."""
+    done = torch.zeros(ids.shape[0], dtype=torch.bool, device=ids.device)
+    vocab = getattr(getattr(model, "config", None), "vocab_size", None)
+    for _ in range(gc.max_new_tokens):
+        with _span("generation.decode_step"):
+            out = model(ids)
+        logits = out[0] if isinstance(out, tuple) else out
+        if vocab is not None and logits.shape[-1] != vocab:
+            raise TypeError(
+                f"generate needs a causal LM that returns (batch, seq, "
+                f"vocab) logits; {type(model).__name__} returned "
+                f"{tuple(logits.shape)} for vocab {vocab}")
+        nxt = _sample(logits[:, -1].float(), generator, gc)
+        if gc.eos_token_id is not None:
+            nxt = torch.where(done, gc.eos_token_id, nxt)
+            done = done | (nxt == gc.eos_token_id)
+        ids = torch.cat([ids, nxt[:, None]], dim=1)
+    return ids
+
+
 @torch.inference_mode()
 def generate(model, input_ids, max_new_tokens=32, do_sample=False,
              temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
              seed=None):
-    """Generate continuations with a KV cache. Returns (batch,
-    prompt + max_new_tokens) int64 ids on the model's device; after an
-    `eos_token_id` every later token is `eos_token_id`.
+    """Generate continuations. Returns (batch, prompt + max_new_tokens)
+    int64 ids on the model's device; after an `eos_token_id` every later
+    token is `eos_token_id`; with max_new_tokens <= 0, the prompt.
+
+    LlamaForCausalLM takes the KV-cache path; every other causal LM (GPT)
+    the recompute path, one whole forward per new token (reference
+    :351-425). Greedy decoding draws nothing; sampling draws from a
+    generator seeded from `seed`, else from the device's generator of
+    `framework.random`.
 
     Observability as the reference's (:378-420): each call counts on
-    `generation_requests_total{path="llama_compiled"}` (the reference's
-    name for its Llama path) and runs under a `generation.generate` span
-    with its own trace id, around a `generation.prefill_decode` span that
-    covers the device work (synchronized only while tracing is on). The
-    reference's `generation.build` span times its jit build, which the
-    eager port does not have."""
+    `generation_requests_total{path=...}`, "llama_compiled" (the
+    reference's name for its Llama path) or "generic_recompute", and runs
+    under a `generation.generate` span with its own trace id. The Llama
+    path's device work runs under a `generation.prefill_decode` span
+    (synchronized only while tracing is on), the recompute path's steps
+    under `generation.decode_step` spans. The reference's
+    `generation.build` span times its jit build, which the eager port does
+    not have."""
     from .models.llama import LlamaForCausalLM
-    if not isinstance(model, LlamaForCausalLM):
-        raise TypeError("generate supports LlamaForCausalLM")
     gc = GenerationConfig(max_new_tokens, do_sample, temperature, top_k,
                           top_p, eos_token_id)
-    embed_w = model.llama.embed_tokens.weight
-    device = embed_w.device
+    device = next(model.parameters()).device
     ids = torch.as_tensor(input_ids, device=device).long()
     if max_new_tokens <= 0:
         return ids
+    if not do_sample:
+        generator = None
+    elif seed is not None:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(int(seed))
+    else:
+        generator = get_generator(device)
     tid = _new_trace_id("gen-") if _tracer().enabled else None
-    _metric("generation_requests_total", path="llama_compiled").inc()
-    with _span("generation.generate", path="llama_compiled",
+    path = ("llama_compiled" if isinstance(model, LlamaForCausalLM)
+            else "generic_recompute")
+    _metric("generation_requests_total", path=path).inc()
+    with _span("generation.generate", path=path,
                batch=int(ids.shape[0]), prompt=int(ids.shape[1]),
                new_tokens=int(max_new_tokens), trace_id=tid):
+        if path == "generic_recompute":
+            return _generic_generate(model, ids, gc, generator)
         with _span("generation.prefill_decode"):
-            out = _generate_llama(model, ids, gc, seed)
+            out = _generate_llama(model, ids, gc, generator)
             if _tracer().enabled and device.type == "cuda":
                 torch.cuda.synchronize(device)
     return out
 
 
-def _generate_llama(model, ids, gc, seed):
-    """generate's body: prefill, then the decode loop."""
+def _generate_llama(model, ids, gc, generator):
+    """generate's Llama body: prefill, then the decode loop."""
     embed_w = model.llama.embed_tokens.weight
     device = embed_w.device
     max_new_tokens, eos_token_id = gc.max_new_tokens, gc.eos_token_id
-    do_sample = gc.do_sample
-    if do_sample:
-        if seed is not None:
-            generator = torch.Generator(device=device)
-            generator.manual_seed(int(seed))
-        else:
-            generator = get_generator(device)
-    else:
-        generator = None
     c = model.config
     cfg = dict(eps=c.rms_norm_eps, theta=c.rope_theta,
                heads=c.num_attention_heads, kv_heads=c.num_key_value_heads,

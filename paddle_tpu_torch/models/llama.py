@@ -51,7 +51,7 @@ class LlamaAttention(nn.Module):
         self.num_heads = config.num_attention_heads
         self.num_kv_heads = config.num_key_value_heads
         self.head_dim = h // self.num_heads
-        kw = dict(bias=False, dtype=config.dtype, device=device)
+        kw = dict(bias_attr=False, dtype=config.dtype, device=device)
         self.q_proj = Linear(h, self.num_heads * self.head_dim, **kw)
         self.k_proj = Linear(h, self.num_kv_heads * self.head_dim, **kw)
         self.v_proj = Linear(h, self.num_kv_heads * self.head_dim, **kw)
@@ -76,7 +76,7 @@ class LlamaMLP(nn.Module):
     def __init__(self, config: LlamaConfig, device=None):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
-        kw = dict(bias=False, dtype=config.dtype, device=device)
+        kw = dict(bias_attr=False, dtype=config.dtype, device=device)
         self.gate_proj = Linear(h, i, **kw)
         self.up_proj = Linear(h, i, **kw)
         self.down_proj = Linear(i, h, **kw)
@@ -130,7 +130,7 @@ class LlamaForCausalLM(nn.Module):
             self.lm_head = None
         else:
             self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                                  bias=False, dtype=config.dtype,
+                                  bias_attr=False, dtype=config.dtype,
                                   device=device)
 
     def forward(self, input_ids, position_ids=None, labels=None):

@@ -1,4 +1,5 @@
 from . import functional, initializer
-from .layer import Embedding, Linear, RMSNorm
+from .layer import Dropout, Embedding, LayerList, LayerNorm, Linear, RMSNorm
 
-__all__ = ["functional", "initializer", "Embedding", "Linear", "RMSNorm"]
+__all__ = ["functional", "initializer", "Dropout", "Embedding", "LayerList",
+           "LayerNorm", "Linear", "RMSNorm"]

@@ -1,14 +1,16 @@
 """Attention functionals. reference: paddle_tpu/nn/functional/attention.py
 (`_xla_attention` :27-45, `_expand_kv` :48, `_use_pallas` :65-91,
-`scaled_dot_product_attention` :94, `sdp_kernel` :205-218).
+`scaled_dot_product_attention` :94-132, `flash_attention` :135,
+`sdp_kernel` :205-218).
 
 Layout (batch, seq, heads, head_dim). On a CUDA device without a mask the
 backend comes from `FLAGS_flash_attention_backend`: 'pallas' takes the
 flash kernels (`flash_attention_bshd`), 'xla' the dense torch math, and
 'auto' asks ops/attention_router for this shape. A mask, a dtype or head
 dim the kernels do not take (under any backend), or a tensor off CUDA
-takes the dense math, as the reference takes it off a TPU. Attention
-dropout is not ported: the serving and training paths never use it.
+takes the dense math, as the reference takes it off a TPU. So does
+attention dropout (`dropout_p > 0` in training): the mask falls on the
+probabilities, drawn from the port's generator of the tensors' device.
 """
 
 from __future__ import annotations
@@ -16,9 +18,10 @@ from __future__ import annotations
 import torch
 
 from ...framework import flags as _flags
+from ...framework.random import get_generator
 from ...ops.flash_attention import NEG_INF, flash_attention_bshd, kernel_takes
 
-__all__ = ["scaled_dot_product_attention", "sdp_kernel"]
+__all__ = ["scaled_dot_product_attention", "flash_attention", "sdp_kernel"]
 
 
 def _expand_kv(k, v, num_heads):
@@ -29,7 +32,10 @@ def _expand_kv(k, v, num_heads):
     return (k.repeat_interleave(rep, dim=2), v.repeat_interleave(rep, dim=2))
 
 
-def _dense_attention(q, k, v, bias=None, causal=False):
+def _dense_attention(q, k, v, bias=None, causal=False, dropout_p=0.0):
+    """Scores and softmax in f32; with dropout_p > 0 each probability is
+    kept with probability 1 - dropout_p and scaled by 1 / (1 - dropout_p)
+    (reference :39-42) before the cast to v's dtype."""
     scale = 1.0 / (q.shape[-1] ** 0.5)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if bias is not None:
@@ -39,8 +45,12 @@ def _dense_attention(q, k, v, bias=None, causal=False):
         keep = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(
             sk - sq)
         logits = logits.masked_fill(~keep, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    probs = torch.softmax(logits, dim=-1)
+    if dropout_p > 0.0:
+        keep = torch.empty_like(probs).bernoulli_(
+            1.0 - dropout_p, generator=get_generator(probs.device)) > 0
+        probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
 
 
 def _use_pallas(q_shape, head_dim, has_bias, dtype=None, causal=True,
@@ -72,15 +82,29 @@ def _use_pallas(q_shape, head_dim, has_bias, dtype=None, causal=True,
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 is_causal=False):
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True):
     """query (b, sq, h, d); key/value (b, sk, kvh, d) with kvh dividing h;
-    attn_mask an additive bias broadcastable to (b, h, sq, sk)."""
-    if _use_pallas(tuple(query.shape), query.shape[-1],
-                   attn_mask is not None, dtype=query.dtype,
-                   causal=is_causal, device=query.device):
+    attn_mask an additive bias broadcastable to (b, h, sq, sk). Dropout on
+    the probabilities only when `training` and dropout_p > 0, and then on
+    the dense path, as the reference's."""
+    dropout_p = dropout_p if training else 0.0
+    if dropout_p == 0.0 and _use_pallas(
+            tuple(query.shape), query.shape[-1], attn_mask is not None,
+            dtype=query.dtype, causal=is_causal, device=query.device):
         return flash_attention_bshd(query, key, value, causal=is_causal)
     k, v = _expand_kv(key, value, query.shape[2])
-    return _dense_attention(query, k, v, bias=attn_mask, causal=is_causal)
+    return _dense_attention(query, k, v, bias=attn_mask, causal=is_causal,
+                            dropout_p=dropout_p)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    training=True):
+    """Paddle's flash_attention: (scaled_dot_product_attention's output,
+    None, where Paddle may return the softmax)."""
+    out = scaled_dot_product_attention(query, key, value, dropout_p=dropout,
+                                       is_causal=causal, training=training)
+    return out, None
 
 
 class sdp_kernel:

@@ -1,5 +1,5 @@
 """Parameter initializers. reference: paddle_tpu/nn/initializer/__init__.py
-(`Constant`, `Normal`, `XavierUniform`), the defaults of `create_parameter`
+(`Constant`, `Normal`, `TruncatedNormal` :63, `XavierUniform`), the defaults of `create_parameter`
 (nn/layer/layers.py:48-77) and of `Embedding` (nn/layer/common.py:60).
 
 Each initializer builds a new tensor from an explicit `torch.Generator`.
@@ -11,7 +11,7 @@ import math
 
 import torch
 
-__all__ = ["Constant", "Normal", "XavierUniform"]
+__all__ = ["Constant", "Normal", "TruncatedNormal", "XavierUniform"]
 
 
 def _fans(shape):
@@ -41,6 +41,20 @@ class Normal:
     def __call__(self, shape, dtype, device, generator=None):
         out = torch.empty(shape, dtype=dtype, device=device)
         return out.normal_(self.mean, self.std, generator=generator)
+
+
+class TruncatedNormal:
+    """mean + std * z, z a standard normal truncated to [a, b] (bounds in
+    units of std, as the reference's). Drawn in float32 and cast."""
+
+    def __init__(self, mean=0.0, std=1.0, a=-2.0, b=2.0):
+        self.mean, self.std, self.a, self.b = mean, std, a, b
+
+    def __call__(self, shape, dtype, device, generator=None):
+        z = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(z, 0.0, 1.0, self.a, self.b,
+                                    generator=generator)
+        return (self.mean + self.std * z).to(dtype)
 
 
 class XavierUniform:

@@ -1,4 +1,7 @@
-from .common import Embedding, Linear
-from .norm import RMSNorm
+from torch.nn import ModuleList as LayerList
 
-__all__ = ["Embedding", "Linear", "RMSNorm"]
+from .common import Dropout, Embedding, Linear
+from .norm import LayerNorm, RMSNorm
+
+__all__ = ["Dropout", "Embedding", "LayerList", "LayerNorm", "Linear",
+           "RMSNorm"]

@@ -1,7 +1,12 @@
-"""Common layers. reference: paddle_tpu/nn/layer/common.py.
+"""Common layers. reference: paddle_tpu/nn/layer/common.py (`Linear` :26,
+`Embedding` :48, `Dropout` :69) and `create_parameter`'s defaults
+(nn/layer/layers.py:48-77).
 
 Parameter names and shapes follow the reference so that `state_dict()` keys
-and shapes equal the JAX model's: `Linear.weight` is (in, out).
+and shapes equal the JAX model's: `Linear.weight` is (in, out). The port
+has no `ParamAttr`: `weight_attr` and `bias_attr` take an initializer
+(nn/initializer.py) or None for the reference's default; `bias_attr=False`
+leaves the bias out.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from ...framework.random import get_generator
 from .. import functional as F
 from ..initializer import Constant, Normal, XavierUniform
 
-__all__ = ["Linear", "Embedding"]
+__all__ = ["Linear", "Embedding", "Dropout"]
 
 
 def _param(init, shape, dtype, device):
@@ -27,17 +32,19 @@ def _param(init, shape, dtype, device):
 
 class Linear(nn.Module):
     """y = x @ W + b with W (in_features, out_features); XavierUniform
-    weight and zero bias, the defaults of the reference's create_parameter."""
+    weight and zero bias unless `weight_attr` / `bias_attr` name an
+    initializer."""
 
-    def __init__(self, in_features, out_features, bias=True,
-                 dtype="float32", device=None):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, dtype="float32", device=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = _param(XavierUniform(), (in_features, out_features),
-                             dtype, device)
-        self.bias = (_param(Constant(0.0), (out_features,), dtype, device)
-                     if bias else None)
+        self.weight = _param(weight_attr or XavierUniform(),
+                             (in_features, out_features), dtype, device)
+        self.bias = (None if bias_attr is False else
+                     _param(bias_attr or Constant(0.0), (out_features,),
+                            dtype, device))
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -47,13 +54,33 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    """Lookup table (num_embeddings, embedding_dim), Normal(0, 1) init."""
+    """Lookup table (num_embeddings, embedding_dim), Normal(0, 1) unless
+    `weight_attr` names an initializer. The row at `padding_idx` (negative:
+    counted from the end) starts at zero and its lookups give zeros."""
 
-    def __init__(self, num_embeddings, embedding_dim, dtype="float32",
-                 device=None):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 weight_attr=None, dtype="float32", device=None):
         super().__init__()
-        self.weight = _param(Normal(0.0, 1.0),
+        self.padding_idx = (padding_idx if padding_idx is None
+                            or padding_idx >= 0
+                            else num_embeddings + padding_idx)
+        self.weight = _param(weight_attr or Normal(0.0, 1.0),
                              (num_embeddings, embedding_dim), dtype, device)
+        if self.padding_idx is not None:
+            with torch.no_grad():
+                self.weight[self.padding_idx] = 0.0
 
     def forward(self, ids: torch.Tensor):
-        return F.embedding(ids, self.weight)
+        return F.embedding(ids, self.weight, self.padding_idx)
+
+
+class Dropout(nn.Module):
+    """F.dropout with the module's training flag."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train"):
+        super().__init__()
+        self.p, self.axis, self.mode = p, axis, mode
+
+    def forward(self, x):
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)

@@ -1,4 +1,5 @@
-"""Normalization layers. reference: paddle_tpu/nn/layer/norm.py:99 RMSNorm."""
+"""Normalization layers. reference: paddle_tpu/nn/layer/norm.py (`LayerNorm`
+:80, `RMSNorm` :99)."""
 
 from __future__ import annotations
 
@@ -8,7 +9,31 @@ from .. import functional as F
 from ..initializer import Constant
 from .common import _param
 
-__all__ = ["RMSNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the trailing `normalized_shape` axes; weight ones and
+    bias zeros unless `weight_attr` / `bias_attr` name an initializer, and
+    left out when False."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, dtype="float32", device=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = (normalized_shape,)
+        self.normalized_shape = tuple(normalized_shape)
+        self.epsilon = epsilon
+        self.weight = (None if weight_attr is False else
+                       _param(weight_attr or Constant(1.0),
+                              self.normalized_shape, dtype, device))
+        self.bias = (None if bias_attr is False else
+                     _param(bias_attr or Constant(0.0),
+                            self.normalized_shape, dtype, device))
+
+    def forward(self, x):
+        return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
+                            self.epsilon)
 
 
 class RMSNorm(nn.Module):

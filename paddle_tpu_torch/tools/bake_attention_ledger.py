@@ -36,7 +36,6 @@ def bake_ledger(doc, source="flash_vs_xla.json", round_num=1):
     """-> the ledger dict for attention_router.py from a flash_vs_xla
     document (the caller writes it)."""
     dtype = doc.get("dtype", "bfloat16")
-    causal = bool(doc.get("causal", True))
     entries = []
     for row in doc.get("rows", []):
         fwd_ms = {"pallas": row["flash_fwd_ms"], "xla": row["dense_fwd_ms"]}
@@ -46,7 +45,8 @@ def bake_ledger(doc, source="flash_vs_xla.json", round_num=1):
                   "unfused": row["unfused_epilogue_ms"]}
         entries.append({
             "seq": row["seq"], "head_dim": row["head_dim"],
-            "bh": row["batch"] * row["heads"], "causal": causal,
+            "bh": row["batch"] * row["heads"],
+            "causal": bool(row.get("causal", True)),
             "dtype": dtype,
             "fwd": min(fwd_ms, key=fwd_ms.get),
             "bwd": min(bwd_ms, key=bwd_ms.get),

@@ -5,8 +5,9 @@ tools/flash_vs_xla.py.
     python3 -m paddle_tpu_torch.tools.flash_vs_xla [--out PATH] [--reps 20]
         [--e2e-steps 3] [--no-e2e]
 
-At each shape (causal, bf16; the reference's four A/B shapes and the
-port's two main-path shapes) it times, as medians of `reps` single calls on
+At each shape (bf16; the reference's four causal A/B shapes, the port's
+two causal Llama main-path shapes and BERT-base's non-causal training
+attention) it times, as medians of `reps` single calls on
 CUDA events after two warm-up calls:
 - the forward: `flash_attention_bshd` (K1) against the dense
   `scaled_dot_product_attention` math;
@@ -46,22 +47,23 @@ from ..ops.flash_attention import (flash_attention_bshd,
                                    flash_attention_rms_epilogue_bshd)
 from . import train_llama
 
-# (seq, batch, heads, head_dim)
+# (seq, batch, heads, head_dim, causal)
 SHAPES = [
     # the reference's A/B shapes (tools/flash_vs_xla.py:93)
-    (1024, 8, 16, 128), (2048, 4, 8, 128), (4096, 1, 8, 128),
-    (2048, 4, 8, 96),
-    (512, 4, 32, 128),     # llama_7b serving prefill (chip_smoke.py)
-    (2048, 8, 16, 128),    # llama_1.3b training attention
+    (1024, 8, 16, 128, True), (2048, 4, 8, 128, True),
+    (4096, 1, 8, 128, True), (2048, 4, 8, 96, True),
+    (512, 4, 32, 128, True),     # llama_7b serving prefill (chip_smoke.py)
+    (2048, 8, 16, 128, True),    # llama_1.3b training attention
+    (512, 32, 12, 64, False),    # BERT-base pretraining (bench.py:299)
 ]
 EPS = 1e-6
 # the end-to-end A/B: bench.py's top rung
 E2E_CONFIG = "llama_1.3b"
 
 
-def dense(q, k, v):
+def dense(q, k, v, causal=True):
     kx, vx = _expand_kv(k, v, q.shape[2])
-    return _dense_attention(q, kx, vx, causal=True)
+    return _dense_attention(q, kx, vx, causal=causal)
 
 
 def torch_epilogue(att, res, w):
@@ -75,7 +77,7 @@ def fwd_bwd(attn, q, k, v, g):
     return torch.autograd.grad(out, leaves, g)
 
 
-def measure_shape(seq, b, h, d, reps):
+def measure_shape(seq, b, h, d, causal, reps):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
 
@@ -85,22 +87,24 @@ def measure_shape(seq, b, h, d, reps):
     q, k, v, g, res = (rand(b, seq, h, d) for _ in range(5))
     w = torch.randn(d, generator=gen, device="cuda")
     flash = lambda q_, k_, v_: flash_attention_bshd(q_, k_, v_,  # noqa: E731
-                                                    causal=True)
+                                                    causal=causal)
+    plain = lambda q_, k_, v_: dense(q_, k_, v_, causal)  # noqa: E731
     with torch.no_grad():
-        err = (flash(q, k, v).float() - dense(q, k, v).float()).abs().max()
-        fused = flash_attention_rms_epilogue_bshd(q, k, v, res, w, eps=EPS)
+        err = (flash(q, k, v).float() - plain(q, k, v).float()).abs().max()
+        fused = flash_attention_rms_epilogue_bshd(q, k, v, res, w,
+                                                  causal=causal, eps=EPS)
         unfused = torch_epilogue(flash(q, k, v), res, w)
         epi_err = (fused.float() - unfused.float()).abs().max()
         flash_fwd = median_ms(lambda: flash(q, k, v), reps, 2)
-        dense_fwd = median_ms(lambda: dense(q, k, v), reps, 2)
+        dense_fwd = median_ms(lambda: plain(q, k, v), reps, 2)
         fused_ms = median_ms(lambda: flash_attention_rms_epilogue_bshd(
-            q, k, v, res, w, eps=EPS), reps, 2)
+            q, k, v, res, w, causal=causal, eps=EPS), reps, 2)
         unfused_ms = median_ms(lambda: torch_epilogue(flash(q, k, v), res,
                                                       w), reps, 2)
     fb = {}
     for name, attn, mode in (("pallas", flash, "pallas"),
                              ("hybrid", flash, "xla"),
-                             ("dense", dense, "pallas")):
+                             ("dense", plain, "pallas")):
         _flags.set_flags({"FLAGS_flash_attention_bwd": mode})
         try:
             fb[name] = median_ms(lambda: fwd_bwd(attn, q, k, v, g),
@@ -108,7 +112,8 @@ def measure_shape(seq, b, h, d, reps):
         finally:
             _flags.set_flags({"FLAGS_flash_attention_bwd": "auto"})
     return {"seq": seq, "batch": b, "heads": h, "head_dim": d,
-            "max_abs_err": err.item(), "epilogue_max_abs_err": epi_err.item(),
+            "causal": causal, "max_abs_err": err.item(),
+            "epilogue_max_abs_err": epi_err.item(),
             "flash_fwd_ms": flash_fwd, "dense_fwd_ms": dense_fwd,
             "fwdbwd_ms_pallas": fb["pallas"],
             "fwdbwd_ms_hybrid": fb["hybrid"],
@@ -172,7 +177,7 @@ def main():
         torch.cuda.empty_cache()
     doc = {"device_kind": torch.cuda.get_device_name(0),
            "nvidia_smi": smi, "torch": torch.__version__,
-           "cuda": torch.version.cuda, "causal": True, "dtype": "bfloat16",
+           "cuda": torch.version.cuda, "dtype": "bfloat16",
            "reps": args.reps, "rows": rows,
            "end_to_end": [] if args.no_e2e else end_to_end(args.e2e_steps)}
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)

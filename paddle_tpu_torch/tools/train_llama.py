@@ -27,7 +27,8 @@ from ..models.scanned import build_scanned_llama
 from ..ops import flash_attention as fa
 
 __all__ = ["llama_ladder", "loss_chunk_mb_for", "TrainStep", "run_one",
-           "peak_flops", "launch_counts"]
+           "peak_flops", "mfu", "launch_counts", "time_steps",
+           "device_report"]
 
 LR = 3e-4
 
@@ -73,6 +74,17 @@ def peak_flops(device):
         return None
     name = torch.cuda.get_device_name(device).lower()
     return next((v for k, v in _PEAK_BF16 if k in name), None)
+
+
+def mfu(n_params, cfg, seq, tokens_per_s, device):
+    """bench.py's MFU: 6N + 12 L h s FLOPs a token at `tokens_per_s` over
+    the card's peak; None without one."""
+    peak = peak_flops(device)
+    if peak is None:
+        return None
+    fpt = 6.0 * n_params + 12.0 * cfg.num_hidden_layers * cfg.hidden_size \
+        * seq
+    return tokens_per_s * fpt / peak
 
 
 def launch_counts():
@@ -132,6 +144,36 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def time_steps(step, steps, device):
+    """bench.py's `_time_train` (:241): step(1) as the warm-up, then steps
+    2 .. steps + 1 timed, each `step(n)` returning its loss as a device
+    tensor. Returns (the losses as floats, warm-up first; each timed
+    step's kernel launches; the warm-up's seconds; the timed steps'
+    seconds)."""
+    t0 = time.perf_counter()
+    losses = [step(1)]
+    _sync(device)
+    t1 = time.perf_counter()
+    launches = []
+    for i in range(steps):
+        before = launch_counts()
+        losses.append(step(2 + i))
+        launches.append({k: v - before[k]
+                         for k, v in launch_counts().items()})
+    _sync(device)
+    return ([float(x) for x in losses], launches, t1 - t0,
+            time.perf_counter() - t1)
+
+
+def device_report(device):
+    """The peak device memory since the last reset (None off CUDA) and the
+    device's name."""
+    if device.type != "cuda":
+        return {"peak_memory_bytes": None, "device": "cpu"}
+    return {"peak_memory_bytes": torch.cuda.max_memory_allocated(device),
+            "device": torch.cuda.get_device_name(device)}
+
+
 def run_one(cfg, batch, seq, steps, remat, remat_policy=None,
             loss_chunk_mb=256, device=None):
     """One config: one warm-up step, then `steps` timed steps. Returns
@@ -147,34 +189,17 @@ def run_one(cfg, batch, seq, steps, remat, remat_policy=None,
     train = TrainStep(cfg, batch, seq, remat, remat_policy, loss_chunk_mb,
                       device)
     _sync(device)
-    t1 = time.perf_counter()
-    losses = [train.step(1)]
-    _sync(device)
-    t2 = time.perf_counter()
-    launches = []
-    for i in range(steps):
-        before = launch_counts()
-        losses.append(train.step(2 + i))
-        launches.append({k: v - before[k]
-                         for k, v in launch_counts().items()})
-    _sync(device)
-    dt = time.perf_counter() - t2
-    losses = [float(x) for x in losses]
+    setup = time.perf_counter() - t0
+    losses, launches, warmup, dt = time_steps(train.step, steps, device)
     tokens_per_s = batch * seq * steps / dt
-    fpt = 6.0 * train.n_params + 12.0 * cfg.num_hidden_layers \
-        * cfg.hidden_size * seq
-    peak = peak_flops(device)
     return {"tokens_per_s": tokens_per_s, "n_params": train.n_params,
             "loss": losses[-1], "losses": losses,
             "step_time_s": dt / steps,
             "lm_loss_path": train.loss_fn.lm_loss_path,
-            "mfu": None if peak is None else tokens_per_s * fpt / peak,
-            "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
-                                  if device.type == "cuda" else None),
+            "mfu": mfu(train.n_params, cfg, seq, tokens_per_s, device),
             "launches_per_step": launches,
-            "seconds": {"setup": t1 - t0, "warmup": t2 - t1, "steps": dt},
-            "device": (torch.cuda.get_device_name(device)
-                       if device.type == "cuda" else "cpu")}
+            "seconds": {"setup": setup, "warmup": warmup, "steps": dt},
+            **device_report(device)}
 
 
 def main():

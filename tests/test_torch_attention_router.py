@@ -206,10 +206,14 @@ def test_shipped_ledger():
     assert led["ledger_format"] == ar.LEDGER_FORMAT
     assert led["device_kind"].startswith("NVIDIA")
     assert "W" in led["nvidia_smi"]                 # the power limit
-    shapes = {(e["bh"], e["seq"], e["head_dim"]) for e in led["entries"]}
-    # the reference's four A/B shapes and the port's two main-path shapes
-    assert shapes == {(128, 1024, 128), (32, 2048, 128), (8, 4096, 128),
-                      (32, 2048, 96), (128, 512, 128), (128, 2048, 128)}
+    shapes = {(e["bh"], e["seq"], e["head_dim"], e["causal"])
+              for e in led["entries"]}
+    # the reference's four A/B shapes, the port's two causal Llama
+    # main-path shapes and BERT-base's non-causal training attention
+    assert shapes == {(128, 1024, 128, True), (32, 2048, 128, True),
+                      (8, 4096, 128, True), (32, 2048, 96, True),
+                      (128, 512, 128, True), (128, 2048, 128, True),
+                      (384, 512, 64, False)}
     for e in led["entries"]:
         for kind in ("fwd_ms", "bwd_ms"):
             assert set(e[kind]) == {"pallas", "xla"}
@@ -366,6 +370,35 @@ def test_use_pallas_follows_router(monkeypatch):
                         lambda *a, **kw: ar.Decision(fwd="xla", bwd="xla"))
     assert attn._use_pallas((2, 512, 4, 64), 64, False, dtype=torch.bfloat16,
                             causal=True, device=CUDA) is False
+
+
+def test_bert_shape_routes_from_the_shipped_ledger():
+    """BERT-base's training attention (b32, 12 heads of 64, s512, no mask,
+    not causal) routes from its own isolated ledger row, on the card's
+    device kind, through _use_pallas as the causal shapes do; the same
+    shape made causal has no row."""
+    kind = ar.load_ledger()["device_kind"]
+    dec = ar.route(384, 512, 512, 64, torch.bfloat16, False,
+                   platform="cpu", device_kind=kind)
+    assert (dec.fwd, dec.bwd, dec.source) == ("pallas", "pallas", "ledger")
+    assert "bh=384" in dec.provenance
+    assert ar.route(384, 512, 512, 64, torch.bfloat16, True, platform="cpu",
+                    device_kind=kind).source == "proxy"
+
+
+def test_use_pallas_routes_the_non_causal_shape(monkeypatch):
+    """BERT's call (no mask, not causal) asks the router for its key with
+    causal=False, as the causal call asks with True."""
+    calls = []
+
+    def fake_route(*key, **kw):
+        calls.append(key)
+        return ar.Decision(fwd="pallas", bwd="pallas")
+    monkeypatch.setattr(ar, "route", fake_route)
+    assert attn._use_pallas((32, 512, 12, 64), 64, False,
+                            dtype=torch.bfloat16, causal=False,
+                            device=CUDA) is True
+    assert calls == [(384, 512, 512, 64, torch.bfloat16, False)]
 
 
 def test_use_pallas_dense_cases(monkeypatch):

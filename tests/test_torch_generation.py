@@ -125,3 +125,20 @@ def test_model_generate_method_and_type_check():
                        generation.generate(port, ids, max_new_tokens=3))
     with pytest.raises(TypeError):
         generation.generate(port.llama, ids)
+
+
+def test_generic_fallback_gpt_matches_reference():
+    """The reference's test_generic_fallback_gpt (tests/test_generation.py
+    :101-106) through the port: a model other than Llama takes the
+    recompute path and returns the reference's ids (it raised TypeError
+    before the path was ported)."""
+    paddle.seed(2)
+    ref = paddle.models.gpt_tiny()
+    port = pt.models.gpt_tiny(device="cpu")
+    load_reference_state(port, {k: np.asarray(v._data)
+                                for k, v in ref.state_dict().items()})
+    ids = np.ones((1, 4), np.int64)
+    want = _ref_generate(ref, ids, max_new_tokens=3)
+    got = _port_generate(port, ids, max_new_tokens=3)
+    assert got.shape == (1, 7)
+    np.testing.assert_array_equal(got, want)

@@ -288,6 +288,30 @@ def test_generate_counts_and_traces_as_the_reference(both_enabled):
     assert g_port == g_ref
 
 
+def test_generic_generate_counts_and_traces_as_the_reference(both_enabled):
+    """GPT takes the recompute path in both packages: one
+    generation_requests_total{path="generic_recompute"} and a
+    generation.generate span over one generation.decode_step a token."""
+    paddle.seed(0)
+    ref = paddle.models.gpt_tiny(num_hidden_layers=1)
+    port = pt.models.gpt_tiny(num_hidden_layers=1, device="cpu")
+    load_reference_state(port, {k: np.asarray(v._data)
+                                for k, v in ref.state_dict().items()})
+    ids = np.ones((2, 4), np.int64)
+    jgen.generate(ref, paddle.to_tensor(ids.astype(np.int32)),
+                  max_new_tokens=2)
+    generation.generate(port, torch.as_tensor(ids), max_new_tokens=2)
+    counts = [{k: c.value for k, c in o.get_registry().get(
+        "generation_requests_total").children().items()} for o in BOTH]
+    assert counts[1] == counts[0] and sum(counts[1].values()) == 1
+    spans = [[(s.name, s.args) for s in o.get_tracer().spans_since()]
+             for o in BOTH]
+    assert sorted(n for n, _ in spans[1]) == sorted(n for n, _ in spans[0])
+    assert [n for n, _ in spans[1]].count("generation.decode_step") == 2
+    assert dict(spans[1])["generation.generate"] == \
+        dict(spans[0])["generation.generate"]
+
+
 def test_router_counts_fresh_decisions_by_source(both_enabled):
     from paddle_tpu.ops.pallas import attention_router as jar
     from paddle_tpu_torch.ops import attention_router as ar
