@@ -161,6 +161,26 @@ Phases, each of which makes the script exit non-zero if it fails:
      it (768 if all are). The last forward's logits under the routed
      backend must agree with the dense backend's within GPT_LOGITS_RTOL of
      the largest |logit|; its kernel time by class is printed.
+  16. ResNet-50: bench.py's `_bench_resnet` on the card through
+     paddle_tpu_torch.tools.train_resnet.run_one: resnet50 (1000 classes,
+     random weights from seed(0)) with its parameters and batch-norm
+     buffers cast to bf16, batch 64 of 224 x 224 images from
+     RandomState(0), Momentum(0.1, 0.9), one warm-up step and 8 timed
+     steps with cuDNN's autotuner off (torch's default), then the same in
+     float32 (TF32 off); prints images/s, step ms, resnet_mfu (FLOPs from
+     the model's own convolutions and head), peak memory and losses of
+     each. One more bf16 step traced gives kernel time by class
+     (convolutions, pooling, layout transposes apart) and the busy
+     share; another, in a fresh process with cuDNN's autotuner on, the
+     same with its algorithms. Both runs: losses finite, the first update lowering
+     the loss (the last need not: at lr 0.1 with momentum 0.9 on one
+     batch the loss rises again from the third step, PERF.md), no K1-K4
+     launch, every batch norm's running statistics finite after the steps
+     and the stem's running mean moved from zero. A float32 copy of the
+     model at b4 224 x 224 must give the CPU's training-mode logits within
+     RESNET_F32_RTOL of the largest |logit|, and the bf16 first loss must
+     lie within RESNET_BF16_LOSS_RTOL of the float32 model's on the same
+     batch.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -201,7 +221,7 @@ from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import attention_router as ar
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.tools import (profile_serving, profile_train,
-                                    train_bert, train_llama)
+                                    train_bert, train_llama, train_resnet)
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s
 # and bf16 tensor-core FLOP/s
@@ -383,6 +403,24 @@ BERT_LOSS_RTOL = 1e-3
 GPT_BATCH, GPT_PROMPT, GPT_NEW = 4, 128, 32
 GPT_LOGITS_RTOL = ENGINE_LOGITS_RTOL
 
+
+# the ResNet phase: a float32 ResNet-50 forward at b4 224x224 on the card
+# (cuDNN, TF32 off) against the same weights and images on the CPU, the
+# same math summed in other orders, relative to the largest |logit|; and
+# the bf16 step's first loss against the float32 model's on the same
+# batch: bf16 roundings through 53 batch norms move the logits by 2-3% of
+# the largest |logit| (tests/test_torch_vision.py, resnet18), and a loss
+# of about ln(1000) by at most twice that
+RESNET_F32_RTOL = 1e-4
+RESNET_BF16_LOSS_RTOL = 5e-2
+RESNET_CHECK_BATCH = 4
+# the ResNet trace's kernel classes ahead of profile_train's: cuDNN's
+# convolutions, the pools, and the layout transposes cuDNN adds around
+# NCHW bf16 convolutions
+RESNET_CLASSES = (("convolutions (cuDNN)", ("conv", "fprop", "dgrad",
+                                            "wgrad", "implicit", "cudnn")),
+                  ("pooling", ("pool",)),
+                  ("layout transposes", ("nchwtonhwc", "nhwctonchw")))
 
 # the card's name and power limit as nvidia-smi gives them (phase 1)
 CARD = "not read"
@@ -969,10 +1007,19 @@ def kernel_ms_traced(fn):
     return sum(kernel_ms_by_class(fn).values()) or None
 
 
-def kernel_ms_by_class(fn):
-    """{kernel class: summed device ms} of fn() under torch.profiler, the
-    classes of tools/profile_train.py (the flash kernels, matrix products,
-    copies, elementwise, reductions, other)."""
+def resnet_class(name):
+    low = name.lower()
+    return next((cls for cls, keys in RESNET_CLASSES
+                 if any(k in low for k in keys)),
+                None) or profile_train._classify(name)
+
+
+def kernel_ms_by_class(fn, classify=profile_train._classify, kernels=None):
+    """{kernel class: summed device ms} of fn() under torch.profiler, by
+    default the classes of tools/profile_train.py (the flash kernels,
+    matrix products, copies, elementwise, reductions, other). With a list
+    as `kernels`, (device ms, launches, name) of every kernel is appended
+    to it."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
@@ -980,9 +1027,12 @@ def kernel_ms_by_class(fn):
     out = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
-            cls = profile_train._classify(e.key)
-            out[cls] = out.get(cls, 0.0) + getattr(
-                e, "device_time_total", getattr(e, "cuda_time_total", 0)) / 1e3
+            cls = classify(e.key)
+            ms = getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0)) / 1e3
+            out[cls] = out.get(cls, 0.0) + ms
+            if kernels is not None:
+                kernels.append((ms, e.count, e.key))
     return out
 
 
@@ -2295,6 +2345,129 @@ def phase_gpt():
     return launches
 
 
+def resnet_check_f32(cfg):
+    """max |logit difference| / max |logit| of a float32 ResNet-50's
+    training-mode forward of RESNET_CHECK_BATCH images on the card against
+    the same weights and images on the CPU."""
+    pt.seed(0)
+    cpu = cfg.ctor(device="cpu")
+    card = cfg.ctor(device="cpu").to("cuda")
+    card.load_state_dict(cpu.state_dict())
+    x = torch.as_tensor(np.random.RandomState(1).randn(
+        RESNET_CHECK_BATCH, 3, cfg.hw, cfg.hw), dtype=torch.float32)
+    with torch.no_grad():
+        want = cpu(x)
+        got = card(x.cuda()).cpu()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def resnet_tuned():
+    """{"first_s": the first step's seconds, "by_class": kernel_ms_by_class
+    of the third} of the bf16 ResNet step with cuDNN's autotuner on, in a
+    fresh process: a process's cached convolution plans outlive the
+    flag, so this one's would keep the untuned algorithms."""
+    code = ("import json, time, torch, chip_smoke as c\n"
+            "from paddle_tpu_torch.tools import train_resnet as t\n"
+            "torch.backends.cudnn.benchmark = True\n"
+            "s = t.TrainStep(t.bench_config('cuda'), 'cuda')\n"
+            "t0 = time.perf_counter(); s.step(1); torch.cuda.synchronize()\n"
+            "first = time.perf_counter() - t0; s.step(2)\n"
+            "print(json.dumps({'first_s': first, 'by_class': "
+            "c.kernel_ms_by_class(lambda: s.step(3), c.resnet_class)}))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode:
+        sys.exit(f"chip_smoke: the autotuned ResNet step failed:\n"
+                 f"{out.stderr[-2000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def resnet_line(name, r):
+    secs = r["seconds"]
+    log(f"resnet50 {name}: {r['resnet_params']} params, b"
+        f"{r['resnet_batch']} 224x224; set-up {secs['setup']:.2f} s, "
+        f"warm-up step {secs['warmup']:.2f} s; step {r['step_ms']:.2f} ms, "
+        f"{r['resnet_images_per_s']:.1f} images/s, resnet_mfu "
+        f"{r['resnet_mfu']:.4f} ({r['flops_per_step'] / 1e12:.4f} TFLOP a "
+        f"step), peak memory {r['peak_memory_bytes'] / 2**30:.2f} GiB")
+    log(f"resnet50 {name}: losses {r['losses']}")
+
+
+def phase_resnet():
+    """ResNet-50 training as bench.py's `_bench_resnet` measures it, through
+    train_resnet.run_one (cuDNN's autotuner off, torch's default); returns
+    the flash kernels' launches over the run (none is on this path). Then
+    the float32 model's steps, one bf16 step traced with the autotuner off
+    and one with it on, and the float32 forward against the CPU's."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = train_resnet.bench_config("cuda")
+    zero_flash_launches()                      # the ResNet path starts here
+    r = train_resnet.run_one(cfg, device="cuda")
+    launches = train_llama.launch_counts()     # the ResNet path ends here
+    k2 = fa.flash_fwd_rms_epilogue_launches
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = train_resnet.run_one(cfg._replace(dtype="float32"), device="cuda")
+    train = train_resnet.TrainStep(cfg, "cuda")
+    train.step(1)
+    kernels = []
+    by_class = kernel_ms_by_class(lambda: train.step(2), resnet_class,
+                                  kernels)
+    del train
+    gc.collect()
+    torch.cuda.empty_cache()
+    tuned = resnet_tuned()
+    resnet_line("bf16", r)
+    resnet_line("float32 (TF32 off)", f32)
+    conv = "convolutions (cuDNN)"
+    log(f"resnet50 bf16, one traced step: {class_line(by_class)}; busy "
+        f"{sum(by_class.values()) / r['step_ms']:.1%} of the timed steps' "
+        f"mean; the largest kernels: " + "; ".join(
+            f"{name[:60]} x{n} {ms:.3f} ms ({resnet_class(name)})"
+            for ms, n, name in sorted(kernels, reverse=True)[:8]))
+    log(f"resnet50 bf16 with cudnn.benchmark on, in a fresh process (its "
+        f"first step {tuned['first_s']:.2f} s), one traced step: "
+        f"{class_line(tuned['by_class'])}; convolutions "
+        f"{tuned['by_class'].get(conv, 0.0):.3f} ms against "
+        f"{by_class.get(conv, 0.0):.3f} ms with it off")
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32_err = resnet_check_f32(cfg)
+    loss_err = abs(r["losses"][0] - f32["losses"][0]) / abs(f32["losses"][0])
+    log(f"resnet50: float32 logits card vs CPU (b{RESNET_CHECK_BATCH}, TF32 "
+        f"off) max|err|/max|logit| {f32_err:.3e} (tol {RESNET_F32_RTOL}); "
+        f"bf16 first loss {r['losses'][0]:.6f} vs float32 "
+        f"{f32['losses'][0]:.6f}, rel err {loss_err:.3e} (tol "
+        f"{RESNET_BF16_LOSS_RTOL}); running stats finite "
+        f"{r['running_stats_finite']}, stem mean max|.| "
+        f"{r['stem_mean_absmax']:.4g}; launches over the run {launches}, K2 "
+        f"{k2}")
+    zero = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    for run in (r, f32):
+        if not all(np.isfinite(run["losses"])):
+            sys.exit("chip_smoke: a ResNet training loss is not finite")
+        if not run["losses"][1] < run["losses"][0]:
+            sys.exit("chip_smoke: the first ResNet update did not lower "
+                     "the loss")
+        if any(step != zero for step in run["launches_per_step"]):
+            sys.exit("chip_smoke: a ResNet step launched a flash kernel")
+        if not (run["running_stats_finite"]
+                and run["stem_mean_absmax"] > 0):
+            sys.exit("chip_smoke: ResNet's running statistics are not "
+                     "finite or did not move")
+    if k2 or launches != zero:
+        sys.exit("chip_smoke: the ResNet run launched a flash kernel")
+    if not f32_err <= RESNET_F32_RTOL:
+        sys.exit("chip_smoke: ResNet-50's float32 logits on the card "
+                 "disagree with the CPU's")
+    if not loss_err <= RESNET_BF16_LOSS_RTOL:
+        sys.exit("chip_smoke: ResNet-50's bf16 first loss disagrees with "
+                 "the float32 model's")
+    return launches
+
+
 def main():
     phase_device()
     phase_build()
@@ -2315,19 +2488,22 @@ def main():
     train = phase_train(decisions["train"][0])
     bert = phase_bert(decisions["bert"][0])
     gpt = phase_gpt()
+    resnet = phase_resnet()
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # K1 runs on the serving, predictor, training, BERT and GPT paths, K3
-    # and K4 on the training and BERT paths; their times are the Llama
+    # and K4 on the training and BERT paths (the ResNet path adds none,
+    # counted all the same); their times are the Llama
     # training shape's (phases 3 and 5 print BERT's too). K2's are
     # the serving prefill shape's (no single library call computes it).
     # "ms" and "library_ms" are device times from back-to-back calls
     kernels = [dict(name="flash_fwd", route="cuda", source=src + "fwd.cu",
                     replaces=ref + "116",
                     launches=(serve + predictor + train["flash_fwd"]
-                              + bert["flash_fwd"] + gpt),
+                              + bert["flash_fwd"] + gpt
+                              + resnet["flash_fwd"]),
                     **{key: k1["train"][key] for key in keys}),
                dict(name="flash_fwd_rms_epilogue", route="cuda",
                     source=src + "fwd.cu", replaces=ref + "116",
@@ -2335,11 +2511,13 @@ def main():
                     **{key: k2["prefill"][key] for key in keys}),
                dict(name="flash_bwd_dq", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "198",
-                    launches=train["flash_bwd_dq"] + bert["flash_bwd_dq"],
+                    launches=(train["flash_bwd_dq"] + bert["flash_bwd_dq"]
+                              + resnet["flash_bwd_dq"]),
                     **k34["train"]["dq"]),
                dict(name="flash_bwd_dkv", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "249",
-                    launches=train["flash_bwd_dkv"] + bert["flash_bwd_dkv"],
+                    launches=(train["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
+                              + resnet["flash_bwd_dkv"]),
                     **k34["train"]["dkv"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

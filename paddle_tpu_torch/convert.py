@@ -1,5 +1,5 @@
-"""Carry weights from the JAX package's Llama, BERT and GPT models to the
-port's.
+"""Carry weights from the JAX package's Llama, BERT, GPT, ResNet, VGG and
+LeNet models to the port's.
 
 Parameter names and layouts are the same in both packages, so a reference
 state dict, as numpy arrays, maps onto the port key for key:
@@ -7,8 +7,9 @@ state dict, as numpy arrays, maps onto the port key for key:
     np_state = {k: np.asarray(v._data) for k, v in jax_model.state_dict().items()}
     load_reference_state(port_model, np_state)
 
-Both functions raise on a missing or an unexpected key and on a shape
-mismatch. `tree_from_reference` carries a nested dict of arrays across as
+The vision models' states hold their batch norms' running statistics
+(`_mean`, `_variance`) beside the parameters. Both functions raise on a
+missing or an unexpected key and on a shape mismatch. `tree_from_reference` carries a nested dict of arrays across as
 it is: the scanned params tree of `build_scanned_llama`, its grads, or an
 optimizer-state tree of `Optimizer.tree_init`.
 """
@@ -22,6 +23,7 @@ import torch
 
 from .framework.device import resolve_device
 from .framework.dtypes import convert_dtype
+from .vision.models.vgg import _CFGS as _VGG_CFGS
 
 __all__ = ["state_from_reference", "load_reference_state",
            "tree_from_reference", "tensor_from_bytes"]
@@ -123,9 +125,112 @@ def _gpt_shapes(np_state) -> dict:
     return shapes
 
 
-# each family by the key prefix of its models' states
+def _bn(name, n):
+    return {f"{name}.{k}": (n,) for k in ("weight", "bias", "_mean",
+                                           "_variance")}
+
+
+def _conv(name, c_out, c_in, k, bias=False):
+    out = {f"{name}.weight": (c_out, c_in, k, k)}
+    if bias:
+        out[f"{name}.bias"] = (c_out,)
+    return out
+
+
+def _resnet_shapes(np_state) -> dict:
+    """A complete ResNet state (vision/models/resnet.py): basic or
+    bottleneck blocks, the blocks per stage, groups, width and class count
+    as `np_state` shows them."""
+    bottleneck = "layer1.0.conv3.weight" in np_state
+    expansion = 4 if bottleneck else 1
+    if bottleneck:
+        width, per_group = _shape(np_state, "layer1.0.conv2.weight")[:2]
+        groups = width // per_group
+        base_width = per_group       # stage 1's planes are 64
+    shapes = {**_conv("conv1", 64, 3, 7), **_bn("bn1", 64)}
+    inplanes = 64
+    for i, planes in enumerate((64, 128, 256, 512), 1):
+        out = planes * expansion
+        for j in range(_depth(np_state, f"layer{i}")):
+            p = f"layer{i}.{j}."
+            if bottleneck:
+                w = int(planes * (base_width / 64.0)) * groups
+                block = {**_conv("conv1", w, inplanes, 1), **_bn("bn1", w),
+                         **_conv("conv2", w, w // groups, 3),
+                         **_bn("bn2", w), **_conv("conv3", out, w, 1),
+                         **_bn("bn3", out)}
+            else:
+                block = {**_conv("conv1", planes, inplanes, 3),
+                         **_bn("bn1", planes),
+                         **_conv("conv2", planes, planes, 3),
+                         **_bn("bn2", planes)}
+            if j == 0 and (i > 1 or inplanes != out):
+                block.update({**_conv("downsample.0", out, inplanes, 1),
+                              **_bn("downsample.1", out)})
+            shapes.update({p + k: v for k, v in block.items()})
+            inplanes = out
+    if "fc.weight" in np_state:
+        shapes.update(_linear("fc", inplanes,
+                              _shape(np_state, "fc.weight")[1]))
+    return shapes
+
+
+def _vgg_shapes(np_state) -> dict:
+    """A complete VGG state (vision/models/vgg.py): the configuration by its
+    number of convolutions, with or without batch norm, and the class
+    count, as `np_state` shows them."""
+    n_conv = sum(1 for k in np_state
+                 if re.fullmatch(r"features\.\d+\.weight", k)
+                 and len(np.shape(np_state[k])) == 4)
+    cfg = next((c for c in _VGG_CFGS.values()
+                if sum(v != "M" for v in c) == n_conv), None)
+    if cfg is None:
+        raise KeyError(f"a VGG state with {n_conv} convolutions is of no "
+                       f"known configuration")
+    bn = any(k.endswith("._mean") for k in np_state)
+    shapes, i, in_c = {}, 0, 3
+    for v in cfg:
+        if v != "M":
+            shapes.update(_conv(f"features.{i}", v, in_c, 3, bias=True))
+            if bn:
+                i += 1
+                shapes.update(_bn(f"features.{i}", v))
+            i += 1              # the ReLU
+            in_c = v
+        i += 1
+    if "classifier.6.weight" in np_state:
+        shapes.update({**_linear("classifier.0", 512 * 7 * 7, 4096),
+                       **_linear("classifier.3", 4096, 4096),
+                       **_linear("classifier.6", 4096, _shape(
+                           np_state, "classifier.6.weight")[1])})
+    return shapes
+
+
+def _lenet_shapes(np_state) -> dict:
+    """A complete LeNet state (vision/models/lenet.py) with the class count
+    `np_state` shows."""
+    shapes = {**_conv("features.0", 6, 1, 3, bias=True),
+              **_conv("features.3", 16, 6, 5, bias=True)}
+    if "fc.2.weight" in np_state:
+        shapes.update({**_linear("fc.0", 400, 120),
+                       **_linear("fc.1", 120, 84),
+                       **_linear("fc.2", 84,
+                                 _shape(np_state, "fc.2.weight")[1])})
+    return shapes
+
+
+def _features_shapes(np_state) -> dict:
+    """LeNet (one input channel) or VGG (three)."""
+    lenet = _shape(np_state, "features.0.weight")[1] == 1
+    return (_lenet_shapes if lenet else _vgg_shapes)(np_state)
+
+
+# each family by the key prefix of its models' states; the vision models'
+# keys have no prefix, so each of those by a key only its states hold
 _FAMILIES = {"llama.": _llama_shapes, "bert.": _bert_shapes,
              "gpt.": _gpt_shapes}
+_KEYED = {"layer1.0.conv1.weight": _resnet_shapes,
+          "features.0.weight": _features_shapes}
 
 
 def _reference_shapes(np_state) -> dict:
@@ -133,8 +238,11 @@ def _reference_shapes(np_state) -> dict:
     for prefix, shapes in _FAMILIES.items():
         if any(k.startswith(prefix) for k in np_state):
             return shapes(np_state)
+    for key, shapes in _KEYED.items():
+        if key in np_state:
+            return shapes(np_state)
     raise KeyError(f"reference state of no known family (keys starting "
-                   f"{sorted(_FAMILIES)})")
+                   f"{sorted(_FAMILIES)}, or holding {sorted(_KEYED)})")
 
 
 def _check(np_state, shapes: dict) -> None:
@@ -169,9 +277,9 @@ def _tensor(a) -> torch.Tensor:
 
 
 def state_from_reference(np_state: dict, device, dtype=None) -> dict:
-    """The port's state dict of a Llama, BERT or GPT model (torch tensors on
-    `device`, in `dtype` or the arrays' own dtype) from a reference state
-    of numpy arrays."""
+    """The port's state dict of a Llama, BERT, GPT or vision model (torch
+    tensors on `device`, in `dtype` or the arrays' own dtype) from a
+    reference state of numpy arrays."""
     _check(np_state, _reference_shapes(np_state))
     device = resolve_device(device)
     dt = None if dtype is None else convert_dtype(dtype)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["NAME2DTYPE", "convert_dtype"]
+__all__ = ["NAME2DTYPE", "convert_dtype", "rounded"]
 
 NAME2DTYPE = {
     "float16": torch.float16,
@@ -37,3 +37,11 @@ def convert_dtype(dtype) -> torch.dtype:
         return NAME2DTYPE[dtype]
     except KeyError:
         raise ValueError(f"unknown dtype {dtype!r}") from None
+
+
+def rounded(x: float, dtype) -> float:
+    """A Python scalar as `dtype` holds it. The reference's arithmetic of
+    a bf16 array with a Python float rounds the float to bf16 first
+    (JAX's weak typing); torch computes with it in float32, so the port
+    rounds it here where that differs."""
+    return torch.tensor(x, dtype=convert_dtype(dtype)).item()

@@ -1,11 +1,57 @@
 """Normalization functionals. reference: paddle_tpu/nn/functional/norm.py
-(`layer_norm` :78-98, `rms_norm` :101-112)."""
+(`batch_norm` :19-76, `layer_norm` :78-98, `rms_norm` :101-112)."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["layer_norm", "rms_norm"]
+from ...framework.dtypes import rounded
+
+__all__ = ["batch_norm", "layer_norm", "rms_norm"]
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training=False, momentum=0.9, epsilon=1e-5,
+               data_format="NCHW", use_global_stats=None):
+    """Batch normalization over every axis but the channel's, in the
+    reference's rounding order.
+
+    With running statistics (eval, or `use_global_stats`):
+    (x - rm) * rsqrt(rv + eps), then the weight and the bias, then a cast
+    to x's dtype. In training: the batch mean and population variance in
+    float32, each cast to x's dtype before (x - m) * rsqrt(v + eps), then
+    the weight and the bias in x's dtype (torch's batch_norm applies them
+    in float32 and rounds bf16 once, differently). Training also updates
+    the running statistics in place, Paddle's way round:
+    r = momentum * r + (1 - momentum) * batch, the variance unbiased by
+    n / (n - 1), in the buffers' own dtype."""
+    ch = 1 if data_format.startswith("NC") else x.dim() - 1
+    shape = [1] * x.dim()
+    shape[ch] = x.shape[ch]
+    use_stats = (not training) if use_global_stats is None \
+        else use_global_stats
+    if use_stats:
+        rv = running_var.reshape(shape)
+        out = (x - running_mean.reshape(shape)) * torch.rsqrt(
+            rv + rounded(epsilon, rv.dtype))
+    else:
+        axes = tuple(i for i in range(x.dim()) if i != ch)
+        v, m = torch.var_mean(x.float(), dim=axes, correction=0)
+        out = (x - m.reshape(shape).to(x.dtype)) * torch.rsqrt(
+            v.reshape(shape).to(x.dtype) + rounded(epsilon, x.dtype))
+        with torch.no_grad():
+            n = x.numel() // x.shape[ch]
+            unbiased = v * rounded(n / max(n - 1, 1), v.dtype)
+            for r, batch in ((running_mean, m), (running_var, unbiased)):
+                if r is not None:
+                    r.copy_(rounded(momentum, r.dtype) * r
+                            + rounded(1.0 - momentum, r.dtype)
+                            * batch.to(r.dtype))
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out.to(x.dtype)
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):

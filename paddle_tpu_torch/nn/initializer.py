@@ -1,5 +1,6 @@
 """Parameter initializers. reference: paddle_tpu/nn/initializer/__init__.py
-(`Constant`, `Normal`, `TruncatedNormal` :63, `XavierUniform`), the defaults of `create_parameter`
+(`Constant`, `Normal`, `TruncatedNormal` :63, `Uniform`, `XavierUniform`),
+the defaults of `create_parameter`
 (nn/layer/layers.py:48-77) and of `Embedding` (nn/layer/common.py:60).
 
 Each initializer builds a new tensor from an explicit `torch.Generator`.
@@ -11,7 +12,8 @@ import math
 
 import torch
 
-__all__ = ["Constant", "Normal", "TruncatedNormal", "XavierUniform"]
+__all__ = ["Constant", "Normal", "TruncatedNormal", "Uniform",
+           "XavierUniform"]
 
 
 def _fans(shape):
@@ -55,6 +57,15 @@ class TruncatedNormal:
         torch.nn.init.trunc_normal_(z, 0.0, 1.0, self.a, self.b,
                                     generator=generator)
         return (self.mean + self.std * z).to(dtype)
+
+
+class Uniform:
+    def __init__(self, low=-1.0, high=1.0):
+        self.low, self.high = low, high
+
+    def __call__(self, shape, dtype, device, generator=None):
+        out = torch.empty(shape, dtype=dtype, device=device)
+        return out.uniform_(self.low, self.high, generator=generator)
 
 
 class XavierUniform:

@@ -1,15 +1,73 @@
-"""Normalization layers. reference: paddle_tpu/nn/layer/norm.py (`LayerNorm`
-:80, `RMSNorm` :99)."""
+"""Normalization layers. reference: paddle_tpu/nn/layer/norm.py
+(`_BatchNormBase` :18-40, `BatchNorm`/`BatchNorm1D/2D/3D` :43-57,
+`LayerNorm` :80, `RMSNorm` :99). `SyncBatchNorm` is not ported."""
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 
+from ...framework.device import resolve_device
 from .. import functional as F
 from ..initializer import Constant
 from .common import _param
 
-__all__ = ["LayerNorm", "RMSNorm"]
+__all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
+           "LayerNorm", "RMSNorm"]
+
+
+class _BatchNormBase(nn.Module):
+    """Batch norm over `num_features` channels: weight ones and bias zeros
+    unless `weight_attr` / `bias_attr` name an initializer (left out when
+    False), and the running statistics as the float32 buffers `_mean`
+    (zeros) and `_variance` (ones), the reference's names, so state-dict
+    keys match its. Training updates them in place (F.batch_norm);
+    `momentum` is Paddle's, the share of the old value kept."""
+
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None, dtype="float32", device=None):
+        super().__init__()
+        self._num_features = num_features
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._data_format = ("NCHW" if data_format in
+                             ("NC", "NCL", "NCHW", "NCDHW") else "NHWC")
+        self._use_global_stats = use_global_stats
+        self.weight = (None if weight_attr is False else
+                       _param(weight_attr or Constant(1.0), (num_features,),
+                              dtype, device))
+        self.bias = (None if bias_attr is False else
+                     _param(bias_attr or Constant(0.0), (num_features,),
+                            dtype, device))
+        device = resolve_device(device)
+        self.register_buffer("_mean", torch.zeros(
+            num_features, dtype=torch.float32, device=device))
+        self.register_buffer("_variance", torch.ones(
+            num_features, dtype=torch.float32, device=device))
+
+    def forward(self, x):
+        return F.batch_norm(x, self._mean, self._variance, self.weight,
+                            self.bias, training=self.training,
+                            momentum=self._momentum, epsilon=self._epsilon,
+                            data_format=self._data_format,
+                            use_global_stats=self._use_global_stats)
+
+
+class BatchNorm(_BatchNormBase):
+    pass
+
+
+class BatchNorm1D(_BatchNormBase):
+    pass
+
+
+class BatchNorm2D(_BatchNormBase):
+    pass
+
+
+class BatchNorm3D(_BatchNormBase):
+    pass
 
 
 class LayerNorm(nn.Module):

@@ -1,6 +1,6 @@
 """Optimizers with a functional core. reference:
-paddle_tpu/optimizer/__init__.py (`Optimizer` :33, `Adam` :225, `AdamW`
-:264).
+paddle_tpu/optimizer/__init__.py (`Optimizer` :33, `SGD` :160, `Momentum`
+:204, `Adam` :225, `AdamW` :264).
 
 Every optimizer defines
     init_state(param) -> dict of state tensors
@@ -10,18 +10,23 @@ parameter and state into the tensors it is given, under
 `torch.no_grad()`: at training scale that saves a copy of the parameters
 and of every moment. `step()` applies it to the parameters that have a
 `.grad`; `tree_init`/`tree_update` apply it over a nested dict of tensors
-(the params tree of models.scanned). Only `Adam` and `AdamW` are ported;
-grad clipping is not.
+(the params tree of models.scanned). `SGD`, `Momentum`, `Adam` and
+`AdamW` are ported; grad clipping is not. As in the reference's compiled
+step, where the learning rate is a float32 array, the step lr * update is
+taken in float32 and the parameter rounded once to its own dtype; state
+and weight decay stay in the parameter's dtype, a Python scalar rounded to
+it first (framework.dtypes.rounded).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..framework.dtypes import rounded
 from . import lr
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Adam", "AdamW", "lr"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "lr"]
 
 
 def _leaves(tree, *others):
@@ -130,6 +135,43 @@ class Optimizer:
         return params_tree, states_tree
 
 
+class SGD(Optimizer):
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+
+    def update(self, p, g, state, lr, step):
+        """p -= lr * (g + weight_decay * p)."""
+        if self._weight_decay:
+            g = g + rounded(self._weight_decay, g.dtype) * p
+        p.sub_(g.float() * lr)
+
+
+class Momentum(Optimizer):
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def init_state(self, p):
+        return {"velocity": torch.zeros_like(p)}
+
+    def update(self, p, g, state, lr, step):
+        """v = momentum * v + g (g with weight decay added), then
+        p -= lr * v, or with Nesterov p -= lr * (g + momentum * v)."""
+        if self._weight_decay:
+            g = g + rounded(self._weight_decay, g.dtype) * p
+        mu = rounded(self._momentum, g.dtype)
+        v = state["velocity"]
+        v.mul_(mu).add_(g)
+        upd = g + mu * v if self._nesterov else v
+        p.sub_(upd.float() * lr)
+
+
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
@@ -155,15 +197,14 @@ class Adam(Optimizer):
         arrays computes in the reference. The bias-corrected step then runs
         in float32 whatever that dtype: there `beta ** step` of a traced
         step is float32. The parameter is written back in its own dtype."""
-        def rounded(x):   # a Python scalar as the moments' dtype holds it
-            return torch.tensor(x, dtype=g.dtype).item()
         b1, b2, eps, wd = self._beta1, self._beta2, self._eps, \
             self._weight_decay
         if wd and not self._decoupled_wd:
-            g = g + rounded(wd) * p
+            g = g + rounded(wd, g.dtype) * p
         m, v = state["moment1"], state["moment2"]
-        m.mul_(rounded(b1)).add_(g * rounded(1 - b1))
-        v.mul_(rounded(b2)).add_((g * g).mul_(rounded(1 - b2)))
+        m.mul_(rounded(b1, g.dtype)).add_(g * rounded(1 - b1, g.dtype))
+        v.mul_(rounded(b2, g.dtype)).add_(
+            (g * g).mul_(rounded(1 - b2, g.dtype)))
         if self._amsgrad:
             vmax = state["moment2_max"]
             torch.maximum(vmax, v, out=vmax)

@@ -1,0 +1,202 @@
+"""ResNet family. reference: paddle_tpu/vision/models/resnet.py
+(`BasicBlock` :15, `BottleneckBlock` :40, `ResNet` :68, the constructors
+:127-182).
+
+NCHW throughout; the bottleneck strides its 3x3 convolution (the v1.5
+layout). Parameter and buffer names are the reference's (e.g.
+`layer1.0.downsample.1._mean`), so `convert.load_reference_state` carries
+a reference state across key for key. Every layer is built on `device`.
+`pretrained` is accepted for the reference's signature; there are no
+weights to load.
+"""
+
+from __future__ import annotations
+
+from torch import nn
+
+from ... import nn as pnn
+from ...tensor import flatten
+
+__all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "resnet18",
+           "resnet34", "resnet50", "resnet101", "resnet152",
+           "resnext50_32x4d", "resnext101_32x4d", "resnext50_64x4d",
+           "resnext101_64x4d", "resnext152_32x4d", "resnext152_64x4d",
+           "wide_resnet50_2", "wide_resnet101_2"]
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None, device=None):
+        super().__init__()
+        norm_layer = norm_layer or pnn.BatchNorm2D
+        self.conv1 = pnn.Conv2D(inplanes, planes, 3, stride=stride,
+                                padding=1, bias_attr=False, device=device)
+        self.bn1 = norm_layer(planes, device=device)
+        self.relu = pnn.ReLU()
+        self.conv2 = pnn.Conv2D(planes, planes, 3, padding=1,
+                                bias_attr=False, device=device)
+        self.bn2 = norm_layer(planes, device=device)
+        self.downsample = downsample
+        self.stride = stride
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class BottleneckBlock(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
+                 base_width=64, dilation=1, norm_layer=None, device=None):
+        super().__init__()
+        norm_layer = norm_layer or pnn.BatchNorm2D
+        width = int(planes * (base_width / 64.0)) * groups
+        self.conv1 = pnn.Conv2D(inplanes, width, 1, bias_attr=False,
+                                device=device)
+        self.bn1 = norm_layer(width, device=device)
+        self.conv2 = pnn.Conv2D(width, width, 3, stride=stride,
+                                padding=dilation, groups=groups,
+                                dilation=dilation, bias_attr=False,
+                                device=device)
+        self.bn2 = norm_layer(width, device=device)
+        self.conv3 = pnn.Conv2D(width, planes * self.expansion, 1,
+                                bias_attr=False, device=device)
+        self.bn3 = norm_layer(planes * self.expansion, device=device)
+        self.relu = pnn.ReLU()
+        self.downsample = downsample
+
+    def forward(self, x):
+        identity = x
+        out = self.relu(self.bn1(self.conv1(x)))
+        out = self.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        if self.downsample is not None:
+            identity = self.downsample(x)
+        return self.relu(out + identity)
+
+
+class ResNet(nn.Module):
+    def __init__(self, block, depth=50, width=64, num_classes=1000,
+                 with_pool=True, groups=1, device=None):
+        super().__init__()
+        layer_cfg = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
+                     101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
+        layers = layer_cfg[depth]
+        self.groups = groups
+        self.base_width = width
+        self.num_classes = num_classes
+        self.with_pool = with_pool
+        self.inplanes = 64
+        self.dilation = 1
+        self.conv1 = pnn.Conv2D(3, self.inplanes, 7, stride=2, padding=3,
+                                bias_attr=False, device=device)
+        self.bn1 = pnn.BatchNorm2D(self.inplanes, device=device)
+        self.relu = pnn.ReLU()
+        self.maxpool = pnn.MaxPool2D(3, stride=2, padding=1)
+        self.layer1 = self._make_layer(block, 64, layers[0], device=device)
+        self.layer2 = self._make_layer(block, 128, layers[1], 2, device)
+        self.layer3 = self._make_layer(block, 256, layers[2], 2, device)
+        self.layer4 = self._make_layer(block, 512, layers[3], 2, device)
+        if with_pool:
+            self.avgpool = pnn.AdaptiveAvgPool2D((1, 1))
+        if num_classes > 0:
+            self.fc = pnn.Linear(512 * block.expansion, num_classes,
+                                 device=device)
+
+    def _make_layer(self, block, planes, blocks, stride=1, device=None):
+        downsample = None
+        if stride != 1 or self.inplanes != planes * block.expansion:
+            downsample = pnn.Sequential(
+                pnn.Conv2D(self.inplanes, planes * block.expansion, 1,
+                           stride=stride, bias_attr=False, device=device),
+                pnn.BatchNorm2D(planes * block.expansion, device=device))
+        layers = [block(self.inplanes, planes, stride, downsample,
+                        self.groups, self.base_width,
+                        norm_layer=pnn.BatchNorm2D, device=device)]
+        self.inplanes = planes * block.expansion
+        for _ in range(1, blocks):
+            layers.append(block(self.inplanes, planes, groups=self.groups,
+                                base_width=self.base_width, device=device))
+        return pnn.Sequential(*layers)
+
+    def forward(self, x):
+        x = self.relu(self.bn1(self.conv1(x)))
+        x = self.maxpool(x)
+        x = self.layer1(x)
+        x = self.layer2(x)
+        x = self.layer3(x)
+        x = self.layer4(x)
+        if self.with_pool:
+            x = self.avgpool(x)
+        if self.num_classes > 0:
+            x = self.fc(flatten(x, 1))
+        return x
+
+
+def _resnet(block, depth, pretrained=False, **kwargs):
+    return ResNet(block, depth, **kwargs)
+
+
+def resnet18(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 18, pretrained, **kwargs)
+
+
+def resnet34(pretrained=False, **kwargs):
+    return _resnet(BasicBlock, 34, pretrained, **kwargs)
+
+
+def resnet50(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, **kwargs)
+
+
+def resnet101(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, **kwargs)
+
+
+def resnet152(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, **kwargs)
+
+
+def resnext50_32x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, groups=32, width=4,
+                   **kwargs)
+
+
+def resnext101_32x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, groups=32, width=4,
+                   **kwargs)
+
+
+def resnext50_64x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, groups=64, width=4,
+                   **kwargs)
+
+
+def resnext101_64x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, groups=64, width=4,
+                   **kwargs)
+
+
+def resnext152_32x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, groups=32, width=4,
+                   **kwargs)
+
+
+def resnext152_64x4d(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 152, pretrained, groups=64, width=4,
+                   **kwargs)
+
+
+def wide_resnet50_2(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 50, pretrained, width=128, **kwargs)
+
+
+def wide_resnet101_2(pretrained=False, **kwargs):
+    return _resnet(BottleneckBlock, 101, pretrained, width=128, **kwargs)
