@@ -15,10 +15,11 @@ Phases, each of which makes the script exit non-zero if it fails:
      64, 127, 129; sq 1 over sk 300; sq 130 over sk 1000; causal sq 300
      over sk 100, whose first 200 rows admit no key: finite everywhere,
      compared where a row has keys; GQA 8:1 at d64), the serving slice's
-     prefill shape, the training slice's attention shape (also in fp16)
-     and BERT-base's (b32, 12 heads of 64, s512, not causal), with times (kernel, plain version,
-     and torch's scaled_dot_product_attention as a yardstick only) and the
-     least time the card could take. Kernel and SDPA times are given
+     prefill shape, the training slice's attention shape (also in fp16),
+     BERT-base's (b32, 12 heads of 64, s512, not causal) and the decode
+     leg's prefill (b8, 16 heads of 128, s128), with times (kernel,
+     plain version, and torch's scaled_dot_product_attention as a
+     yardstick only) and the least time the card could take. Kernel and SDPA times are given
      twice: the median single call, host work included, and the device
      time per call of 20 back-to-back calls replayed from one CUDA graph
      (no host work between them); the record keeps the latter.
@@ -52,7 +53,14 @@ Phases, each of which makes the script exit non-zero if it fails:
      weights from seed(0), serving 4 prompts of 512 tokens for 32 new
      tokens, greedy twice and sampled twice (each pair must agree), plus a
      prefill-only run for timing. The K1 launch count must rise by the
-     number of layers per generate call where the router picks K1.
+     number of layers per generate call where the router picks K1. Then,
+     on the same loaded model, generation.WeightOnlyGenerator (int8
+     weights, per-output-channel scales, dequantized once per call):
+     greedy twice (the runs must agree, every id in the vocabulary) and
+     prefill-only, each launching K1 as generate does; prints prefill ms,
+     decode ms a step, tokens/s, quantized_bytes against the bf16 weights'
+     bytes, peak memory, and, for information only, the share of greedy
+     tokens equal to the bf16 stream.
   9. serving engine: the same llama_7b served through
      ContinuousBatchingEngine (8 lanes, blocks of 16, 128 blocks a
      sequence, 1,040 blocks, prefill buckets 64-512 and chunks of 512,
@@ -181,6 +189,20 @@ Phases, each of which makes the script exit non-zero if it fails:
      RESNET_F32_RTOL of the largest |logit|, and the bf16 first loss must
      lie within RESNET_BF16_LOSS_RTOL of the float32 model's on the same
      batch.
+  17. decode: bench.py's `_bench_decode` bf16 and int8 legs on the card
+     through paddle_tpu_torch.tools.bench_decode.run_one (vocab 32000,
+     hidden 2048, FFN 5504, 8 layers, 16 heads, bf16, b8, prompt 128, 128
+     new tokens, greedy): bench.py's decode_prefill_ms,
+     decode_per_token_ms, decode_tokens_per_s, decode_int8_per_token_ms,
+     decode_int8_tokens_per_s and decode_int8_weight_mb, peak memory of
+     each leg and K1 launches per call (one per layer where the router,
+     asked first, picks K1 at the b8 s128 prefill). decode_int8_weight_mb
+     must be 574.3, and the int8 greedy stream must equal bit for bit
+     generate's on a fresh build of the model whose matmul weights are the
+     generator's own dequantized bf16 tensors. Then weight_quantize and
+     llm_int8_linear on the card must equal their CPU results bit for bit
+     at 8 tokens of k2048 n5504 (one outlier column) and at 39 tokens of
+     k1001 n515 (k and n no multiples of 8).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -220,8 +242,10 @@ from paddle_tpu_torch.observability.quantiles import quantile_from_cumulative
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import attention_router as ar
 from paddle_tpu_torch.ops import flash_attention as fa
-from paddle_tpu_torch.tools import (profile_serving, profile_train,
-                                    train_bert, train_llama, train_resnet)
+from paddle_tpu_torch.nn import quant
+from paddle_tpu_torch.tools import (bench_decode, profile_serving,
+                                    profile_train, train_bert, train_llama,
+                                    train_resnet)
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s
 # and bf16 tensor-core FLOP/s
@@ -268,6 +292,9 @@ TRAIN_ATTN = dict(b=8, h=16, kvh=16, sq=2048, sk=2048, d=128, causal=True)
 # BERT-base pretraining's attention (bench.py:299): batch 32, sequence 512,
 # 12 heads of 64, no mask and no causal flag
 BERT_ATTN = dict(b=32, h=12, kvh=12, sq=512, sk=512, d=64, causal=False)
+# bench.py's decode leg's prefill attention (phase 17): batch 8, prompt 128,
+# 16 heads of 128
+DECODE_PREFILL = dict(b=8, h=16, kvh=16, sq=128, sk=128, d=128, causal=True)
 # the edges of the forward kernel's 128-row block and 128-key ring tiles
 # (two slots at d128, three at d64): one tile, one row short of and one
 # past a block, a single query row over three key tiles, two query blocks
@@ -291,7 +318,7 @@ BASE_CASES = (
     + [dict(b=2, h=32, kvh=8, sq=512, sk=512, d=128, causal=True),   # GQA
        dict(b=2, h=8, kvh=8, sq=256, sk=256, d=96, causal=True),     # pad
        PREFILL, TRAIN_ATTN, BERT_ATTN])
-K1_CASES = BASE_CASES + FWD_EDGE_CASES
+K1_CASES = BASE_CASES + FWD_EDGE_CASES + [DECODE_PREFILL]
 K2_CASES = (
     [dict(b=2, h=4, kvh=4, sq=sq, sk=sk, d=d, causal=c)
      for d in (64, 128)
@@ -641,7 +668,7 @@ def case_name(case):
 
 def phase_k1():
     """K1 vs its plain version at every case; returns the records of the
-    prefill, training and BERT shapes."""
+    prefill, training, BERT and decode-prefill shapes."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     records = {}
@@ -689,7 +716,7 @@ def phase_k1():
             sys.exit(f"chip_smoke: K1 disagrees with its plain version at "
                      f"{case}")
         for name, shape in (("prefill", PREFILL), ("train", TRAIN_ATTN),
-                            ("bert", BERT_ATTN)):
+                            ("bert", BERT_ATTN), ("decode", DECODE_PREFILL)):
             if case is shape:
                 records[name] = dict(
                     max_abs_err=max(err_out, err_lse), ms=ms,
@@ -966,8 +993,9 @@ def phase_slice(decision, model):
             sys.exit("chip_smoke: generate returned a wrong shape or prompt")
         if out.min().item() < 0 or out.max().item() >= cfg.vocab_size:
             sys.exit("chip_smoke: a token id is out of the vocabulary")
-    launches = fa.flash_fwd_launches           # the main path ends here
     peak = torch.cuda.max_memory_allocated()
+    slice_int8(model, ids, new, decision, outs[0])
+    launches = fa.flash_fwd_launches           # the main path ends here
     if not torch.equal(outs[0], outs[1]):
         sys.exit("chip_smoke: two greedy runs disagree")
     if not torch.equal(outs[2], outs[3]):
@@ -987,6 +1015,67 @@ def phase_slice(decision, model):
         f"{peak / 2**30:.2f} GiB, greedy tokens differ from sampled in "
         f"{(outs[0][:, s:] != outs[2][:, s:]).float().mean().item():.2%}")
     return launches
+
+
+def slice_int8(model, ids, new, decision, bf16_greedy):
+    """Phase 8's int8 step: WeightOnlyGenerator over the loaded llama_7b,
+    greedy twice (the runs must agree, every id in the vocabulary) and a
+    prefill-only call for timing, each launching K1 once per layer where
+    the router picks it. Prints the times, the snapshot's bytes against
+    the bf16 weights', peak memory, and the share of greedy tokens equal to
+    the bf16 stream (for information only)."""
+    cfg = model.config
+    b, s = ids.shape
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    wog = generation.WeightOnlyGenerator(model, max_new_tokens=new)
+    wog1 = generation.WeightOnlyGenerator(model, max_new_tokens=1,
+                                          share_weights_from=wog)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    want = cfg.num_hidden_layers if decision.fwd == "pallas" else 0
+    outs, secs = [], []
+    for name, gen in (("greedy", wog), ("greedy", wog),
+                      ("prefill-only", wog1)):
+        before = fa.flash_fwd_launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = gen.generate(ids)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        outs.append(out)
+        launched = fa.flash_fwd_launches - before
+        log(f"int8 generate {name}: {tuple(out.shape)} in {secs[-1]:.3f} s, "
+            f"K1 launches {launched}")
+        if launched != want:
+            sys.exit(f"chip_smoke: {launched} K1 launches in one int8 "
+                     f"generate, expected {want} (router: fwd={decision.fwd})")
+        if not torch.equal(out[:, :s], ids):
+            sys.exit("chip_smoke: int8 generate returned a wrong prompt")
+        if out.min().item() < 0 or out.max().item() >= cfg.vocab_size:
+            sys.exit("chip_smoke: an int8 token id is out of the vocabulary")
+    if not torch.equal(outs[0], outs[1]):
+        sys.exit("chip_smoke: two int8 greedy runs disagree")
+    if not torch.equal(outs[2][:, s], outs[0][:, s]):
+        sys.exit("chip_smoke: int8 prefill-only first token differs")
+    peak = torch.cuda.max_memory_allocated()
+    qbytes = wog.quantized_bytes()
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    same = (outs[0][:, s:] == bf16_greedy[:, s:]).float().mean().item()
+    prefill_ms = secs[2] * 1e3
+    decode_ms = (secs[1] - secs[2]) / (new - 1) * 1e3
+    log(f"slice int8 ({CARD}): snapshot in {quantize_s:.2f} s, prefill "
+        f"{prefill_ms:.1f} ms (b{b} s{s}), decode {decode_ms:.2f} ms/token "
+        f"step, greedy {b * new / secs[1]:.1f} tokens/s ({b}x{new} in "
+        f"{secs[1]:.3f} s; the first greedy run {secs[0]:.3f} s), "
+        f"quantized_bytes {qbytes} ({qbytes / 2**20:.1f} "
+        f"MiB) against bf16 weights {wbytes} ({wbytes / 2**20:.1f} MiB), "
+        f"peak memory {peak / 2**30:.2f} GiB (the bf16 model, the int8 "
+        f"snapshot and one call's dequantized copy), greedy tokens equal to "
+        f"the bf16 stream: {same:.2%} (information only)")
+    del wog, wog1, outs
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def flash_launches():
@@ -2468,6 +2557,106 @@ def phase_resnet():
     return launches
 
 
+# bench.py's decode configuration's int8 snapshot by the reference's
+# formula (int8 layers and head, float32 scales, bf16 norms and embedding)
+DECODE_INT8_WEIGHT_MB = 574.3
+# llm_int8_linear on the card against the CPU, exactly: (tokens, k, n,
+# outlier columns); the first has at most 16 rows, the second k and n that
+# are no multiples of 8 (cuBLASLt's int8 GEMM wants both padded)
+LLM_INT8_CASES = ((8, 2048, 5504, 1), (39, 1001, 515, 0))
+
+
+def llm_int8_on_card():
+    """weight_quantize and llm_int8_linear on the card equal their CPU
+    results bit for bit (one outlier column at most, so the float32 outlier
+    product sums one nonzero term)."""
+    rs = np.random.RandomState(17)
+    for m, k, n, outliers in LLM_INT8_CASES:
+        x = rs.randn(1, m, k).astype(np.float32)
+        x[0, 0, :outliers] = 40.0
+        w = rs.randn(k, n).astype(np.float32)
+        bias = rs.randn(n).astype(np.float32)
+        q, sc = quant.weight_quantize(torch.as_tensor(w, device="cuda"),
+                                      algo="llm.int8")
+        qc, sc_c = quant.weight_quantize(torch.as_tensor(w), algo="llm.int8")
+        got = quant.llm_int8_linear(torch.as_tensor(x, device="cuda"), q,
+                                    torch.as_tensor(bias, device="cuda"), sc)
+        want = quant.llm_int8_linear(torch.as_tensor(x), qc,
+                                     torch.as_tensor(bias), sc_c)
+        exact = (torch.equal(q.cpu(), qc) and torch.equal(sc.cpu(), sc_c)
+                 and torch.equal(got.cpu(), want))
+        log(f"llm_int8_linear m{m} k{k} n{n}, {outliers} outlier column(s): "
+            f"card == CPU bit for bit: {exact}, max|diff| "
+            f"{(got.cpu() - want).abs().max().item():.3e}")
+        if not exact:
+            sys.exit(f"chip_smoke: llm_int8_linear on the card differs from "
+                     f"the CPU at m{m} k{k} n{n}")
+
+
+def phase_decode():
+    """bench.py's decode legs through bench_decode.run_one: bench.py's six
+    keys, peak memory per leg and K1 launches per call (one per layer
+    where the router picks K1 at the prefill shape); the int8 snapshot
+    must be DECODE_INT8_WEIGHT_MB, and the int8 greedy stream must equal
+    generate's on a fresh build of the model whose matmul weights are the
+    generator's own dequantized bf16 tensors. Then llm_int8_linear on the
+    card against the CPU. Returns K1's launches over the decode path."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = DECODE_PREFILL
+    dec = ar.route(c["b"] * c["h"], c["sq"], c["sk"], c["d"],
+                   torch.bfloat16, c["causal"])
+    log(f"router decode prefill (bh {c['b'] * c['h']}, s{c['sq']}, "
+        f"d{c['d']}, bf16, causal): {dec}")
+    zero_flash_launches()                      # the decode path starts here
+    r = bench_decode.run_one("cuda")
+    launches = fa.flash_fwd_launches           # the decode path ends here
+    cfg, batch, prompt, new = bench_decode.bench_config("cuda")
+    want = cfg.num_hidden_layers if dec.fwd == "pallas" else 0
+    keys = ("decode_prefill_ms", "decode_per_token_ms",
+            "decode_tokens_per_s", "decode_int8_per_token_ms",
+            "decode_int8_tokens_per_s", "decode_int8_weight_mb")
+    log(f"decode ({CARD}): " + json.dumps({k: r[k] for k in keys}))
+    log(f"decode ({CARD}): seconds {json.dumps(r['seconds'])}, K1 launches "
+        f"per call {json.dumps(r['k1_launches_per_call'])}, peak memory "
+        f"bf16 leg {r['peak_memory_bytes']['bf16'] / 2**30:.3f} GiB, int8 "
+        f"leg {r['peak_memory_bytes']['int8'] / 2**30:.3f} GiB, weights "
+        f"{r['weight_bytes']} B bf16 against {r['quantized_bytes']} B int8")
+    if any(v != want for v in r["k1_launches_per_call"].values()):
+        sys.exit(f"chip_smoke: K1 launches per decode call "
+                 f"{r['k1_launches_per_call']}, expected {want}")
+    if r["decode_int8_weight_mb"] != DECODE_INT8_WEIGHT_MB:
+        sys.exit(f"chip_smoke: decode_int8_weight_mb "
+                 f"{r['decode_int8_weight_mb']} != {DECODE_INT8_WEIGHT_MB}")
+    for name in ("ids", "int8_ids"):
+        ids = r[name]
+        if ids.shape != (batch, prompt + new) or ids.min().item() < 0 or \
+                ids.max().item() >= cfg.vocab_size:
+            sys.exit(f"chip_smoke: decode {name} of a wrong shape or out of "
+                     f"the vocabulary")
+    model, ids, _ = bench_decode.build("cuda")
+    wog = generation.WeightOnlyGenerator(model, max_new_tokens=new)
+    layers, head = wog.dequantized_weights()
+    with torch.no_grad():
+        for layer, lp in zip(model.llama.layers, layers):
+            for k, p in layer.named_parameters():
+                p.copy_(lp[k])
+        model.lm_head.weight.copy_(head)
+    same = torch.equal(generation.generate(model, ids, max_new_tokens=new),
+                       r["int8_ids"])
+    again = torch.equal(wog.generate(ids), r["int8_ids"])
+    agree = (r["int8_ids"][:, prompt:] == r["ids"][:, prompt:]).float()
+    log(f"decode: int8 stream == generate on the dequantized weights bit "
+        f"for bit: {same}; == a fresh snapshot's: {again}; int8 tokens equal "
+        f"to bf16's: {agree.mean().item():.2%} (information only)")
+    if not (same and again):
+        sys.exit("chip_smoke: the int8 stream is not generate's on the "
+                 "dequantized weights")
+    del model, wog, layers, head
+    llm_int8_on_card()
+    return launches
+
+
 def main():
     phase_device()
     phase_build()
@@ -2489,11 +2678,13 @@ def main():
     bert = phase_bert(decisions["bert"][0])
     gpt = phase_gpt()
     resnet = phase_resnet()
+    decode = phase_decode()
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    # K1 runs on the serving, predictor, training, BERT and GPT paths, K3
+    # K1 runs on the serving (bf16 and int8), predictor, training, BERT,
+    # GPT and decode paths, K3
     # and K4 on the training and BERT paths (the ResNet path adds none,
     # counted all the same); their times are the Llama
     # training shape's (phases 3 and 5 print BERT's too). K2's are
@@ -2503,7 +2694,7 @@ def main():
                     replaces=ref + "116",
                     launches=(serve + predictor + train["flash_fwd"]
                               + bert["flash_fwd"] + gpt
-                              + resnet["flash_fwd"]),
+                              + resnet["flash_fwd"] + decode),
                     **{key: k1["train"][key] for key in keys}),
                dict(name="flash_fwd_rms_epilogue", route="cuda",
                     source=src + "fwd.cu", replaces=ref + "116",

@@ -1,5 +1,5 @@
 """Carry weights from the JAX package's Llama, BERT, GPT, ResNet, VGG and
-LeNet models to the port's.
+LeNet models, its fused layers and its quantized models, to the port's.
 
 Parameter names and layouts are the same in both packages, so a reference
 state dict, as numpy arrays, maps onto the port key for key:
@@ -8,7 +8,14 @@ state dict, as numpy arrays, maps onto the port key for key:
     load_reference_state(port_model, np_state)
 
 The vision models' states hold their batch norms' running statistics
-(`_mean`, `_variance`) beside the parameters. Both functions raise on a
+(`_mean`, `_variance`) beside the parameters. `load_reference_state` takes
+any model whose keys are the reference's: also incubate.nn's fused layers
+(their parameters by the reference's names) and models that
+quantization.QAT or PTQ wrapped, whose states hold each observer's and
+quanter's float32 `_scale` buffer (`fc1.weight_quanter._observer._scale`,
+`fc1.act_observer._scale`, ...) beside the wrapped layers' parameters
+(`fc1._inner.weight`), so that a calibrated reference model and its port
+quantize at the same scales. Both functions raise on a
 missing or an unexpected key and on a shape mismatch. `tree_from_reference` carries a nested dict of arrays across as
 it is: the scanned params tree of `build_scanned_llama`, its grads, or an
 optimizer-state tree of `Optimizer.tree_init`.

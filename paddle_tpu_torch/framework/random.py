@@ -23,9 +23,9 @@ def _key(device) -> torch.device:
     return dev
 
 
-def seed(n: int) -> None:
-    """Restart every device's generator from `n`."""
-    _SEED[0] = int(n)
+def seed(s: int) -> None:
+    """Restart every device's generator from `s`."""
+    _SEED[0] = int(s)
     _GENERATORS.clear()
 
 

@@ -1,8 +1,9 @@
 """Autoregressive generation: Llama with a dense KV cache, every other
 causal LM by recompute.
 
-reference: paddle_tpu/generation.py:39-425 (`GenerationConfig`, the llama
-layer math, `_sample`, `_generic_generate`, `generate`).
+reference: paddle_tpu/generation.py:39-536 (`GenerationConfig`, the llama
+layer math, `_sample`, `_generic_generate`, `generate`,
+`WeightOnlyGenerator`).
 
 The JAX version is one jit: prefill as a `lax.scan` over the stacked layer
 weights, then a `lax.scan` of decode steps. Here both are eager Python
@@ -24,13 +25,14 @@ from __future__ import annotations
 import torch
 
 from .framework.random import get_generator
+from .nn.quant.format import div
 from .observability import span as _span
 from .observability.catalog import metric as _metric
 from .observability.tracing import get_tracer as _tracer
 from .observability.tracing import new_trace_id as _new_trace_id
 from .ops.flash_attention import NEG_INF, flash_attention_bshd, kernel_takes
 
-__all__ = ["generate", "GenerationConfig"]
+__all__ = ["generate", "GenerationConfig", "WeightOnlyGenerator"]
 
 
 class GenerationConfig:
@@ -245,6 +247,18 @@ def _generic_generate(model, ids, gc, generator):
     return ids
 
 
+def _generator(device, do_sample, seed):
+    """None when greedy; else a generator seeded from `seed`, or the
+    device's generator of `framework.random`."""
+    if not do_sample:
+        return None
+    if seed is None:
+        return get_generator(device)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(int(seed))
+    return generator
+
+
 @torch.inference_mode()
 def generate(model, input_ids, max_new_tokens=32, do_sample=False,
              temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
@@ -275,13 +289,7 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
     ids = torch.as_tensor(input_ids, device=device).long()
     if max_new_tokens <= 0:
         return ids
-    if not do_sample:
-        generator = None
-    elif seed is not None:
-        generator = torch.Generator(device=device)
-        generator.manual_seed(int(seed))
-    else:
-        generator = get_generator(device)
+    generator = _generator(device, do_sample, seed)
     tid = _new_trace_id("gen-") if _tracer().enabled else None
     path = ("llama_compiled" if isinstance(model, LlamaForCausalLM)
             else "generic_recompute")
@@ -298,18 +306,31 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
     return out
 
 
+def _llama_cfg(c):
+    return dict(eps=c.rms_norm_eps, theta=c.rope_theta,
+                heads=c.num_attention_heads, kv_heads=c.num_key_value_heads,
+                head_dim=c.hidden_size // c.num_attention_heads)
+
+
 def _generate_llama(model, ids, gc, generator):
-    """generate's Llama body: prefill, then the decode loop."""
-    embed_w = model.llama.embed_tokens.weight
+    """generate's Llama body over the model's own weights."""
+    head_w = None if model.lm_head is None else model.lm_head.weight
+    layers = [dict(layer.named_parameters()) for layer in model.llama.layers]
+    return _generate_llama_weights(
+        layers, model.llama.embed_tokens.weight, model.llama.norm.weight,
+        head_w, _llama_cfg(model.config), ids, gc, generator)
+
+
+def _generate_llama_weights(layers, embed_w, norm_w, head_w, cfg, ids, gc,
+                            generator):
+    """Prefill, then the decode loop, over explicit weights: `layers`, one
+    dict of parameters a layer, keyed as a LlamaDecoderLayer's; the
+    embedding, the final norm, and the (hidden, vocab) head, None when tied
+    to the embedding."""
     device = embed_w.device
     max_new_tokens, eos_token_id = gc.max_new_tokens, gc.eos_token_id
-    c = model.config
-    cfg = dict(eps=c.rms_norm_eps, theta=c.rope_theta,
-               heads=c.num_attention_heads, kv_heads=c.num_key_value_heads,
-               head_dim=c.hidden_size // c.num_attention_heads)
-    norm_w = model.llama.norm.weight
-    head_w = embed_w.T if model.lm_head is None else model.lm_head.weight
-    layers = [dict(layer.named_parameters()) for layer in model.llama.layers]
+    if head_w is None:
+        head_w = embed_w.T
 
     def logits_of(h_last):
         return (_rms(h_last, norm_w, cfg["eps"]) @ head_w).float()
@@ -345,3 +366,106 @@ def _generate_llama(model, ids, gc, generator):
         out.append(nxt)
         tok = nxt
     return torch.cat([ids, torch.stack(out, dim=1)], dim=1)
+
+
+def _quantize_int8(w):
+    """Per-output-channel absmax int8 of a (..., in, out) weight: the scale
+    (..., 1, out) is max |w| over `in` / 127, floored at 1e-8; the levels
+    are w / scale in float32, rounded half to even, clipped to +-127."""
+    w32 = w.float()
+    scale = div(w32.abs().amax(dim=-2, keepdim=True), 127.0).clamp(min=1e-8)
+    return torch.round(w32 / scale).clamp(-127, 127).to(torch.int8), scale
+
+
+class WeightOnlyGenerator:
+    """Weight-only int8 serving of a LlamaForCausalLM. reference:
+    generation.py:428-536.
+
+    The model's weights are snapshotted once: each layer's matmul weights
+    and an untied head as int8 with float32 scales per output channel
+    (`_quantize_int8`); the norms and the embedding stay in the compute
+    dtype. Each `generate` call dequantizes them in float32, then casts to
+    the compute dtype, once, ahead of prefill and decode, as the reference
+    does ahead of its scans; the dequantized copy lives for that call only,
+    so between calls the card holds the int8 snapshot. The prefill goes
+    through `_prefill_flash_routed`, and so through K1 where the router
+    picks it, as `generate` does."""
+
+    def __init__(self, model, max_new_tokens=32, do_sample=False,
+                 temperature=1.0, top_k=0, top_p=1.0, eos_token_id=None,
+                 algo="weight_only_int8", share_weights_from=None):
+        from .models.llama import LlamaForCausalLM
+        if not isinstance(model, LlamaForCausalLM):
+            raise TypeError(
+                "WeightOnlyGenerator supports LlamaForCausalLM; for other "
+                "models use generate() with externally quantized weights")
+        if algo != "weight_only_int8":
+            raise NotImplementedError(
+                f"algo={algo!r}: only weight_only_int8 is supported")
+        self._gc = GenerationConfig(max_new_tokens, do_sample, temperature,
+                                    top_k, top_p, eos_token_id)
+        self._cfg = _llama_cfg(model.config)
+        if share_weights_from is not None:
+            # the same snapshot at another generation length: no requantize
+            src = share_weights_from
+            self._q, self._s, self._fp = src._q, src._s, src._fp
+            self._embed, self._norm = src._embed, src._norm
+            self._qh, self._sh = src._qh, src._sh
+            self._tied = src._tied
+            return
+        with torch.no_grad():
+            self._q, self._s, self._fp = [], [], []
+            for layer in model.llama.layers:
+                q, sc, fp = {}, {}, {}
+                for k, v in layer.named_parameters():
+                    if v.dim() >= 2:             # (in, out) matmul weights
+                        q[k], sc[k] = _quantize_int8(v)
+                    else:                        # norm vectors
+                        fp[k] = v.detach().clone()
+                self._q.append(q)
+                self._s.append(sc)
+                self._fp.append(fp)
+            self._embed = model.llama.embed_tokens.weight.detach().clone()
+            self._norm = model.llama.norm.weight.detach().clone()
+            self._tied = model.lm_head is None
+            dev = self._embed.device
+            if self._tied:
+                self._qh = torch.zeros((0, 0), dtype=torch.int8, device=dev)
+                self._sh = torch.zeros((0, 0), device=dev)
+            else:
+                self._qh, self._sh = _quantize_int8(model.lm_head.weight)
+
+    def quantized_bytes(self):
+        """Bytes the snapshot holds: int8 levels, float32 scales, and the
+        norms and embedding in the compute dtype (the reference's sum)."""
+        def nbytes(ts):
+            return sum(t.numel() * t.element_size() for t in ts)
+        total = sum(nbytes(d.values()) for d in self._q + self._s + self._fp)
+        return total + nbytes([self._embed, self._norm, self._qh, self._sh])
+
+    def dequantized_weights(self):
+        """(layers, head) as a generate call sees them: each int8 weight
+        times its scale in float32, cast to the compute dtype; head None
+        when tied."""
+        cdt = self._embed.dtype
+        layers = []
+        for q, sc, fp in zip(self._q, self._s, self._fp):
+            lp = dict(fp)
+            for k in q:
+                lp[k] = (q[k].float() * sc[k]).to(cdt)
+            layers.append(lp)
+        head = (None if self._tied
+                else (self._qh.float() * self._sh).to(cdt))
+        return layers, head
+
+    @torch.inference_mode()
+    def generate(self, input_ids, seed=None):
+        """(batch, prompt + max_new_tokens) int64 ids, as `generate`."""
+        device = self._embed.device
+        ids = torch.as_tensor(input_ids, device=device).long()
+        if self._gc.max_new_tokens <= 0:
+            return ids
+        generator = _generator(device, self._gc.do_sample, seed)
+        layers, head = self.dequantized_weights()
+        return _generate_llama_weights(layers, self._embed, self._norm, head,
+                                       self._cfg, ids, self._gc, generator)

@@ -172,7 +172,7 @@ class Predictor:
     def __init__(self, config: Config):
         from ..jit import load
         self._config = config
-        self._layer = load(config._prefix, config._device,
+        self._layer = load(config._prefix, device=config._device,
                            params_path=config._params_path)
         if self._layer.program is None:
             raise ValueError(

@@ -96,7 +96,7 @@ class AdapterStore:
     """
 
     def __init__(self, num_layers, hidden, q_out, v_out, rank,
-                 n_slots=8, max_adapters=256, device=None):
+                 n_slots=8, max_adapters=256, *, device=None):
         if n_slots < 2:
             raise ValueError("n_slots must be >= 2 (slot 0 is the base)")
         self.num_layers = int(num_layers)

@@ -206,7 +206,7 @@ def save(layer, path, input_spec=None, **configs):
     os.replace(tmp, path + ".pdmodel")
 
 
-def load(path, device=None, params_path=None, **configs):
+def load(path, *, device=None, params_path=None, **configs):
     """Load a jit.save artifact as a callable TranslatedLayer that runs
     the exported program on `device` (default: the package's, CUDA); its
     params come from `params_path` (default: path + ".pdiparams").

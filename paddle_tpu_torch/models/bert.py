@@ -33,7 +33,7 @@ class BertConfig:
                  num_attention_heads=12, intermediate_size=3072,
                  max_position_embeddings=512, type_vocab_size=2,
                  layer_norm_eps=1e-12, dropout=0.1, initializer_range=0.02,
-                 dtype="float32"):
+                 *, dtype="float32"):
         self.initializer_range = initializer_range
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
@@ -52,7 +52,7 @@ def _kw(config, device):
 
 
 class BertEmbeddings(nn.Module):
-    def __init__(self, config, device=None):
+    def __init__(self, config, *, device=None):
         super().__init__()
         kw = dict(weight_attr=_init_attr(config), **_kw(config, device))
         h = config.hidden_size
@@ -77,7 +77,7 @@ class BertEmbeddings(nn.Module):
 
 
 class BertLayer(nn.Module):
-    def __init__(self, config, device=None):
+    def __init__(self, config, *, device=None):
         super().__init__()
         h = config.hidden_size
         self.num_heads = config.num_attention_heads
@@ -109,11 +109,11 @@ class BertLayer(nn.Module):
 
 
 class BertModel(nn.Module):
-    def __init__(self, config: BertConfig, device=None):
+    def __init__(self, config: BertConfig, *, device=None):
         super().__init__()
         self.config = config
-        self.embeddings = BertEmbeddings(config, device)
-        self.encoder = LayerList([BertLayer(config, device)
+        self.embeddings = BertEmbeddings(config, device=device)
+        self.encoder = LayerList([BertLayer(config, device=device)
                                   for _ in range(config.num_hidden_layers)])
         self.pooler = Linear(config.hidden_size, config.hidden_size,
                              weight_attr=_init_attr(config),
@@ -135,9 +135,9 @@ class BertModel(nn.Module):
 
 
 class BertForPretraining(nn.Module):
-    def __init__(self, config: BertConfig, device=None):
+    def __init__(self, config: BertConfig, *, device=None):
         super().__init__()
-        self.bert = BertModel(config, device)
+        self.bert = BertModel(config, device=device)
         h = config.hidden_size
         wa = _init_attr(config)
         self.mlm_transform = Linear(h, h, weight_attr=wa,
@@ -169,9 +169,9 @@ class BertForPretraining(nn.Module):
 
 
 class BertForSequenceClassification(nn.Module):
-    def __init__(self, config: BertConfig, num_classes=2, device=None):
+    def __init__(self, config: BertConfig, num_classes=2, *, device=None):
         super().__init__()
-        self.bert = BertModel(config, device)
+        self.bert = BertModel(config, device=device)
         self.classifier = Linear(config.hidden_size, num_classes,
                                  weight_attr=_init_attr(config),
                                  **_kw(config, device))
@@ -187,16 +187,16 @@ class BertForSequenceClassification(nn.Module):
         return logits
 
 
-def bert_tiny(device=None, **kw):
+def bert_tiny(*, device=None, **kw):
     """Small config for tests and dry runs."""
     cfg = dict(vocab_size=512, hidden_size=128, num_hidden_layers=2,
                num_attention_heads=4, intermediate_size=256,
                max_position_embeddings=128)
     cfg.update(kw)
-    return BertForPretraining(BertConfig(**cfg), device)
+    return BertForPretraining(BertConfig(**cfg), device=device)
 
 
-def bert_base(device=None, **kw):
+def bert_base(*, device=None, **kw):
     """BERT-base: hidden 768, 12 heads of 64, FFN 3072, 12 layers, vocab
     30522."""
-    return BertForPretraining(BertConfig(**kw), device)
+    return BertForPretraining(BertConfig(**kw), device=device)

@@ -32,7 +32,7 @@ class GPTConfig:
                  num_attention_heads=16, intermediate_size=None,
                  max_position_embeddings=2048, layer_norm_eps=1e-5,
                  dropout=0.0, tie_word_embeddings=True,
-                 initializer_range=0.02, dtype="float32"):
+                 initializer_range=0.02, *, dtype="float32"):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_hidden_layers = num_hidden_layers
@@ -51,7 +51,7 @@ def _kw(config, device):
 
 
 class GPTAttention(nn.Module):
-    def __init__(self, config, device=None):
+    def __init__(self, config, *, device=None):
         super().__init__()
         h = config.hidden_size
         kw = dict(weight_attr=_init_attr(config), **_kw(config, device))
@@ -74,12 +74,12 @@ class GPTAttention(nn.Module):
 
 
 class GPTBlock(nn.Module):
-    def __init__(self, config, device=None):
+    def __init__(self, config, *, device=None):
         super().__init__()
         h, eps = config.hidden_size, config.layer_norm_eps
         kw = dict(weight_attr=_init_attr(config), **_kw(config, device))
         self.ln_1 = LayerNorm(h, eps, **_kw(config, device))
-        self.attn = GPTAttention(config, device)
+        self.attn = GPTAttention(config, device=device)
         self.ln_2 = LayerNorm(h, eps, **_kw(config, device))
         self.fc1 = Linear(h, config.intermediate_size, **kw)
         self.fc2 = Linear(config.intermediate_size, h, **kw)
@@ -92,14 +92,14 @@ class GPTBlock(nn.Module):
 
 
 class GPTModel(nn.Module):
-    def __init__(self, config: GPTConfig, device=None):
+    def __init__(self, config: GPTConfig, *, device=None):
         super().__init__()
         self.config = config
         kw = dict(weight_attr=_init_attr(config), **_kw(config, device))
         self.wte = Embedding(config.vocab_size, config.hidden_size, **kw)
         self.wpe = Embedding(config.max_position_embeddings,
                              config.hidden_size, **kw)
-        self.h = LayerList([GPTBlock(config, device)
+        self.h = LayerList([GPTBlock(config, device=device)
                             for _ in range(config.num_hidden_layers)])
         self.ln_f = LayerNorm(config.hidden_size, config.layer_norm_eps,
                               **_kw(config, device))
@@ -115,10 +115,10 @@ class GPTModel(nn.Module):
 
 
 class GPTForCausalLM(nn.Module):
-    def __init__(self, config: GPTConfig, device=None):
+    def __init__(self, config: GPTConfig, *, device=None):
         super().__init__()
         self.config = config
-        self.gpt = GPTModel(config, device)
+        self.gpt = GPTModel(config, device=device)
         self.lm_head = None if config.tie_word_embeddings else Linear(
             config.hidden_size, config.vocab_size,
             weight_attr=_init_attr(config), bias_attr=False,
@@ -148,18 +148,18 @@ class GPTForCausalLM(nn.Module):
         return generate(self, input_ids, **kwargs)
 
 
-def gpt_tiny(device=None, **kw):
+def gpt_tiny(*, device=None, **kw):
     """Small config for tests and dry runs."""
     cfg = dict(vocab_size=512, hidden_size=128, num_hidden_layers=2,
                num_attention_heads=4, max_position_embeddings=256)
     cfg.update(kw)
-    return GPTForCausalLM(GPTConfig(**cfg), device)
+    return GPTForCausalLM(GPTConfig(**cfg), device=device)
 
 
-def gpt3_1p3b(device=None, **kw):
+def gpt3_1p3b(*, device=None, **kw):
     """GPT-3 1.3B: hidden 2048, 16 heads of 128, FFN 8192, 24 layers, vocab
     50304, 2048 positions."""
     cfg = dict(vocab_size=50304, hidden_size=2048, num_hidden_layers=24,
                num_attention_heads=16, max_position_embeddings=2048)
     cfg.update(kw)
-    return GPTForCausalLM(GPTConfig(**cfg), device)
+    return GPTForCausalLM(GPTConfig(**cfg), device=device)

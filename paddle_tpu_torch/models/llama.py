@@ -29,7 +29,7 @@ class LlamaConfig:
                  num_attention_heads=32, num_key_value_heads=None,
                  max_position_embeddings=4096, rms_norm_eps=1e-5,
                  rope_theta=10000.0, tie_word_embeddings=False,
-                 dtype="float32"):
+                 dtype="float32", use_flash_attention=True):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.intermediate_size = intermediate_size
@@ -41,10 +41,13 @@ class LlamaConfig:
         self.rope_theta = rope_theta
         self.tie_word_embeddings = tie_word_embeddings
         self.dtype = dtype
+        # stored and read by nothing, as in the reference: the attention
+        # backend is the router's (ops/attention_router)
+        self.use_flash_attention = use_flash_attention
 
 
 class LlamaAttention(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         self.config = config
         h = config.hidden_size
@@ -73,7 +76,7 @@ class LlamaAttention(nn.Module):
 
 
 class LlamaMLP(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
         kw = dict(bias_attr=False, dtype=config.dtype, device=device)
@@ -86,11 +89,11 @@ class LlamaMLP(nn.Module):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         kw = dict(dtype=config.dtype, device=device)
-        self.self_attn = LlamaAttention(config, device)
-        self.mlp = LlamaMLP(config, device)
+        self.self_attn = LlamaAttention(config, device=device)
+        self.mlp = LlamaMLP(config, device=device)
         self.input_layernorm = RMSNorm(config.hidden_size,
                                        config.rms_norm_eps, **kw)
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
@@ -103,13 +106,13 @@ class LlamaDecoderLayer(nn.Module):
 
 
 class LlamaModel(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         self.config = config
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       dtype=config.dtype, device=device)
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, device)
+            [LlamaDecoderLayer(config, device=device)
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             dtype=config.dtype, device=device)
@@ -122,10 +125,10 @@ class LlamaModel(nn.Module):
 
 
 class LlamaForCausalLM(nn.Module):
-    def __init__(self, config: LlamaConfig, device=None):
+    def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         self.config = config
-        self.llama = LlamaModel(config, device)
+        self.llama = LlamaModel(config, device=device)
         if config.tie_word_embeddings:
             self.lm_head = None
         else:
@@ -157,25 +160,25 @@ class LlamaForCausalLM(nn.Module):
         return generate(self, input_ids, **kwargs)
 
 
-def llama_tiny(device=None, **kw):
+def llama_tiny(*, device=None, **kw):
     """Small config for tests and dry runs."""
     cfg = dict(vocab_size=512, hidden_size=128, intermediate_size=256,
                num_hidden_layers=2, num_attention_heads=4,
                num_key_value_heads=2, max_position_embeddings=256)
     cfg.update(kw)
-    return LlamaForCausalLM(LlamaConfig(**cfg), device)
+    return LlamaForCausalLM(LlamaConfig(**cfg), device=device)
 
 
-def llama_7b(device=None, **kw):
+def llama_7b(*, device=None, **kw):
     """Llama-2-7B: hidden 4096, 32 heads of 128, FFN 11008, 32 layers."""
     cfg = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008,
                num_hidden_layers=32, num_attention_heads=32)
     cfg.update(kw)
-    return LlamaForCausalLM(LlamaConfig(**cfg), device)
+    return LlamaForCausalLM(LlamaConfig(**cfg), device=device)
 
 
-def llama_13b(device=None, **kw):
+def llama_13b(*, device=None, **kw):
     cfg = dict(vocab_size=32000, hidden_size=5120, intermediate_size=13824,
                num_hidden_layers=40, num_attention_heads=40)
     cfg.update(kw)
-    return LlamaForCausalLM(LlamaConfig(**cfg), device)
+    return LlamaForCausalLM(LlamaConfig(**cfg), device=device)

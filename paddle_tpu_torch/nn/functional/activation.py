@@ -8,19 +8,19 @@ import torch
 __all__ = ["relu", "tanh", "silu", "gelu"]
 
 
-def relu(x):
+def relu(x, name=None):
     return torch.relu(x)
 
 
-def tanh(x):
+def tanh(x, name=None):
     return torch.tanh(x)
 
 
-def silu(x):
+def silu(x, name=None):
     return torch.nn.functional.silu(x)
 
 
-def gelu(x, approximate=False):
+def gelu(x, approximate=False, name=None):
     """x * Phi(x) by erf, or with approximate=True the tanh form
     0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3))), as jax.nn.gelu."""
     return torch.nn.functional.gelu(

@@ -83,7 +83,7 @@ def _use_pallas(q_shape, head_dim, has_bias, dtype=None, causal=True,
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True):
+                                 training=True, name=None):
     """query (b, sq, h, d); key/value (b, sk, kvh, d) with kvh dividing h;
     attn_mask an additive bias broadcastable to (b, h, sq, sk). Dropout on
     the probabilities only when `training` and dropout_p > 0, and then on
@@ -99,9 +99,15 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,
-                    training=True):
+                    return_softmax=False, fixed_seed_offset=None,
+                    training=True, name=None, *, rng_name=""):
     """Paddle's flash_attention: (scaled_dot_product_attention's output,
-    None, where Paddle may return the softmax)."""
+    None). The reference returns None for the softmax whatever
+    `return_softmax` is, and ignores `fixed_seed_offset` and `rng_name`:
+    the dropout mask comes from the port's generator of the tensors'
+    device. The sixth positional is `return_softmax`, as in both of the
+    reference's definitions (nn/functional/common.py:288,
+    nn/functional/attention.py:135)."""
     out = scaled_dot_product_attention(query, key, value, dropout_p=dropout,
                                        is_causal=causal, training=training)
     return out, None

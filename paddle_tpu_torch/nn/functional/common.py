@@ -11,13 +11,14 @@ from ...framework.random import get_generator
 __all__ = ["linear", "dropout", "embedding"]
 
 
-def linear(x, weight, bias=None):
+def linear(x, weight, bias=None, name=None):
     """y = x @ W + b with W shaped (in, out), Paddle's layout."""
     out = x @ weight
     return out if bias is None else out + bias
 
 
-def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train"):
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None):
     """Zero each element with probability p, drawn from the port's generator
     of x's device (framework.random). `axis` (an int or a list) draws one
     mask over those axes, broadcast over the rest. "upscale_in_train"
@@ -41,10 +42,11 @@ def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train"):
                                             device=x.device))
 
 
-def embedding(ids, weight, padding_idx=None):
-    """Rows of `weight` (num_embeddings, dim) at integer `ids`; rows at
-    `padding_idx` are zero."""
-    out = weight[ids]
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of `weight` (num_embeddings, dim) at integer ids `x`; rows at
+    `padding_idx` are zero. `sparse` asks Paddle for a sparse gradient; the
+    reference accepts it and ignores it, and so does the port."""
+    out = weight[x]
     if padding_idx is not None:
-        out = out.masked_fill((ids == padding_idx)[..., None], 0.0)
+        out = out.masked_fill((x == padding_idx)[..., None], 0.0)
     return out

@@ -87,18 +87,18 @@ def _conv(x, weight, bias, stride, padding, dilation, groups, data_format,
 
 
 def conv1d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
-           data_format="NCL"):
+           data_format="NCL", name=None):
     return _conv(x, weight, bias, stride, padding, dilation, groups,
                  data_format, 1)
 
 
 def conv2d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
-           data_format="NCHW"):
+           data_format="NCHW", name=None):
     return _conv(x, weight, bias, stride, padding, dilation, groups,
                  data_format, 2)
 
 
 def conv3d(x, weight, bias=None, stride=1, padding=0, dilation=1, groups=1,
-           data_format="NCDHW"):
+           data_format="NCDHW", name=None):
     return _conv(x, weight, bias, stride, padding, dilation, groups,
                  data_format, 3)

@@ -3,7 +3,8 @@
 
 Only the hard-label path is ported: integer class labels, `ignore_index`,
 and the mean/sum/none reductions, in float32 through `log_softmax`. Soft
-labels, label smoothing and class weights are not ported and raise.
+labels, label smoothing, class weights and `use_softmax=False` are not
+ported and raise.
 """
 
 from __future__ import annotations
@@ -15,11 +16,15 @@ __all__ = ["cross_entropy"]
 
 def cross_entropy(input, label, weight=None, ignore_index=-100,
                   reduction="mean", soft_label=False, axis=-1,
-                  label_smoothing=0.0):
+                  use_softmax=True, label_smoothing=0.0, name=None):
     """Cross-entropy of logits `input` against integer class indices
     `label` (the shape of `input` without `axis`, or with `axis` of size 1).
     Positions whose label is `ignore_index` contribute 0 and are not
-    counted by the mean."""
+    counted by the mean. `use_softmax=False` (`input` already holds
+    probabilities) is not ported and raises."""
+    if not use_softmax:
+        raise NotImplementedError("cross_entropy: use_softmax=False is not "
+                                  "ported; pass logits")
     if weight is not None or soft_label or label_smoothing:
         raise NotImplementedError(
             "cross_entropy: class weights, soft labels and label smoothing "

@@ -12,7 +12,7 @@ __all__ = ["batch_norm", "layer_norm", "rms_norm"]
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
                training=False, momentum=0.9, epsilon=1e-5,
-               data_format="NCHW", use_global_stats=None):
+               data_format="NCHW", use_global_stats=None, name=None):
     """Batch normalization over every axis but the channel's, in the
     reference's rounding order.
 
@@ -54,7 +54,8 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     return out.to(x.dtype)
 
 
-def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
     """LayerNorm over the trailing `normalized_shape` axes in the
     reference's rounding order: mean, variance and the normalization in
     fp32, cast back to x's dtype, and only then the multiply by the weight
@@ -73,7 +74,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
     return out
 
 
-def rms_norm(x, weight=None, epsilon=1e-6):
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     """RMSNorm in the reference's rounding order (norm.py:101-112): the mean
     square and the normalization in fp32, cast back to x's dtype, and only
     then the multiply by the weight."""

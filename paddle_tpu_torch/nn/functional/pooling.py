@@ -143,34 +143,34 @@ def _no_mask(return_mask):
 
 
 def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
-               ceil_mode=False, data_format="NCL"):
+               ceil_mode=False, data_format="NCL", name=None):
     _no_mask(return_mask)
     return _max_pool(x, kernel_size, stride, padding, 1, ceil_mode,
                      data_format)
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
-               ceil_mode=False, data_format="NCHW"):
+               ceil_mode=False, data_format="NCHW", name=None):
     _no_mask(return_mask)
     return _max_pool(x, kernel_size, stride, padding, 2, ceil_mode,
                      data_format)
 
 
 def max_pool3d(x, kernel_size, stride=None, padding=0, return_mask=False,
-               ceil_mode=False, data_format="NCDHW"):
+               ceil_mode=False, data_format="NCDHW", name=None):
     _no_mask(return_mask)
     return _max_pool(x, kernel_size, stride, padding, 3, ceil_mode,
                      data_format)
 
 
 def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
-               ceil_mode=False, data_format="NCL"):
+               ceil_mode=False, data_format="NCL", name=None):
     return _avg_pool(x, kernel_size, stride, padding, 1, ceil_mode,
                      exclusive, data_format)
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
-               exclusive=True, divisor_override=None, data_format="NCHW"):
+               exclusive=True, divisor_override=None, data_format="NCHW", name=None):
     if divisor_override is not None:
         raise NotImplementedError("divisor_override is not ported")
     return _avg_pool(x, kernel_size, stride, padding, 2, ceil_mode,
@@ -178,37 +178,37 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
 
 
 def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
-               exclusive=True, divisor_override=None, data_format="NCDHW"):
+               exclusive=True, divisor_override=None, data_format="NCDHW", name=None):
     if divisor_override is not None:
         raise NotImplementedError("divisor_override is not ported")
     return _avg_pool(x, kernel_size, stride, padding, 3, ceil_mode,
                      exclusive, data_format)
 
 
-def adaptive_avg_pool1d(x, output_size):
+def adaptive_avg_pool1d(x, output_size, name=None):
     return _ADAPTIVE_AVG[1](x, output_size)
 
 
-def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
     return _channels_first(
         x, data_format, lambda a: _ADAPTIVE_AVG[2](a, output_size))
 
 
-def adaptive_avg_pool3d(x, output_size, data_format="NCDHW"):
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
     return _channels_first(
         x, data_format, lambda a: _ADAPTIVE_AVG[3](a, output_size))
 
 
-def adaptive_max_pool2d(x, output_size, return_mask=False):
+def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
     _no_mask(return_mask)
     return TF.adaptive_max_pool2d(x, output_size)
 
 
 def lp_pool1d(x, norm_type, kernel_size, stride=None, padding=0,
-              ceil_mode=False, data_format="NCL"):
+              ceil_mode=False, data_format="NCL", name=None):
     raise NotImplementedError("lp_pool1d is not ported")
 
 
 def lp_pool2d(x, norm_type, kernel_size, stride=None, padding=0,
-              ceil_mode=False, data_format="NCHW"):
+              ceil_mode=False, data_format="NCHW", name=None):
     raise NotImplementedError("lp_pool2d is not ported")

@@ -37,7 +37,7 @@ class Constant:
 
 
 class Normal:
-    def __init__(self, mean=0.0, std=1.0):
+    def __init__(self, mean=0.0, std=1.0, name=None):
         self.mean, self.std = mean, std
 
     def __call__(self, shape, dtype, device, generator=None):
@@ -49,7 +49,7 @@ class TruncatedNormal:
     """mean + std * z, z a standard normal truncated to [a, b] (bounds in
     units of std, as the reference's). Drawn in float32 and cast."""
 
-    def __init__(self, mean=0.0, std=1.0, a=-2.0, b=2.0):
+    def __init__(self, mean=0.0, std=1.0, a=-2.0, b=2.0, name=None):
         self.mean, self.std, self.a, self.b = mean, std, a, b
 
     def __call__(self, shape, dtype, device, generator=None):
@@ -60,7 +60,7 @@ class TruncatedNormal:
 
 
 class Uniform:
-    def __init__(self, low=-1.0, high=1.0):
+    def __init__(self, low=-1.0, high=1.0, name=None):
         self.low, self.high = low, high
 
     def __call__(self, shape, dtype, device, generator=None):
@@ -69,8 +69,16 @@ class Uniform:
 
 
 class XavierUniform:
+    """Uniform(-limit, limit), limit = gain * sqrt(6 / (fan_in + fan_out));
+    each fan from the shape unless given."""
+
+    def __init__(self, fan_in=None, fan_out=None, gain=1.0, name=None):
+        self.fan_in, self.fan_out, self.gain = fan_in, fan_out, gain
+
     def __call__(self, shape, dtype, device, generator=None):
         fi, fo = _fans(shape)
-        limit = math.sqrt(6.0 / (fi + fo))
+        fi = self.fan_in or fi
+        fo = self.fan_out or fo
+        limit = self.gain * math.sqrt(6.0 / (fi + fo))
         out = torch.empty(shape, dtype=dtype, device=device)
         return out.uniform_(-limit, limit, generator=generator)

@@ -1,8 +1,7 @@
-from torch.nn import ModuleList as LayerList
 from torch.nn import ReLU
 
 from .common import Dropout, Embedding, Linear
-from .container import Sequential
+from .container import LayerList, Sequential
 from .conv import Conv1D, Conv2D, Conv3D
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
                    LayerNorm, RMSNorm)

@@ -2,6 +2,10 @@
 `Embedding` :48, `Dropout` :69) and `create_parameter`'s defaults
 (nn/layer/layers.py:48-77).
 
+Each layer takes the reference's parameters in the reference's order,
+`name` included (accepted and ignored, as there), and then the port's own
+`dtype` and `device` as keyword-only parameters.
+
 Parameter names and shapes follow the reference so that `state_dict()` keys
 and shapes equal the JAX model's: `Linear.weight` is (in, out). The port
 has no `ParamAttr`: `weight_attr` and `bias_attr` take an initializer
@@ -36,7 +40,7 @@ class Linear(nn.Module):
     initializer."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
-                 bias_attr=None, dtype="float32", device=None):
+                 bias_attr=None, name=None, *, dtype="float32", device=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
@@ -56,10 +60,12 @@ class Linear(nn.Module):
 class Embedding(nn.Module):
     """Lookup table (num_embeddings, embedding_dim), Normal(0, 1) unless
     `weight_attr` names an initializer. The row at `padding_idx` (negative:
-    counted from the end) starts at zero and its lookups give zeros."""
+    counted from the end) starts at zero and its lookups give zeros.
+    `sparse` is accepted and ignored, as the reference does."""
 
     def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
-                 weight_attr=None, dtype="float32", device=None):
+                 sparse=False, weight_attr=None, name=None, *,
+                 dtype="float32", device=None):
         super().__init__()
         self.padding_idx = (padding_idx if padding_idx is None
                             or padding_idx >= 0
@@ -77,7 +83,7 @@ class Embedding(nn.Module):
 class Dropout(nn.Module):
     """F.dropout with the module's training flag."""
 
-    def __init__(self, p=0.5, axis=None, mode="upscale_in_train"):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
         super().__init__()
         self.p, self.axis, self.mode = p, axis, mode
 

@@ -1,5 +1,5 @@
 """Containers. reference: paddle_tpu/nn/layer/layers.py (`Sequential`
-:308)."""
+:308, `LayerList`)."""
 
 from __future__ import annotations
 
@@ -7,7 +7,15 @@ from collections import OrderedDict
 
 from torch import nn
 
-__all__ = ["Sequential"]
+__all__ = ["Sequential", "LayerList"]
+
+
+class LayerList(nn.ModuleList):
+    """A list of layers, named "0", "1", ... (torch's ModuleList under the
+    reference's parameter name)."""
+
+    def __init__(self, sublayers=None):
+        super().__init__(sublayers)
 
 
 class Sequential(nn.Sequential):

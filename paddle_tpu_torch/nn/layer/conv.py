@@ -5,7 +5,8 @@ The weight is (out, in / groups, *kernel), the reference's layout and
 torch's. Weight and bias both draw from Uniform(-1/sqrt(fan_in),
 1/sqrt(fan_in)), fan_in = in / groups * prod(kernel), unless
 `weight_attr` / `bias_attr` name an initializer; `bias_attr=False`
-leaves the bias out. Transposed convolutions are not ported.
+leaves the bias out. `padding_mode` other than "zeros" and transposed
+convolutions are not ported; the first raises.
 """
 
 from __future__ import annotations
@@ -26,10 +27,13 @@ class _ConvNd(nn.Module):
     _fn = None
 
     def __init__(self, in_channels, out_channels, kernel_size, stride=1,
-                 padding=0, dilation=1, groups=1, weight_attr=None,
-                 bias_attr=None, data_format=None, dtype="float32",
-                 device=None):
+                 padding=0, dilation=1, groups=1, padding_mode="zeros",
+                 weight_attr=None, bias_attr=None, data_format=None, *,
+                 dtype="float32", device=None):
         super().__init__()
+        if padding_mode != "zeros":
+            raise NotImplementedError(
+                f"padding_mode={padding_mode!r} is not ported; only 'zeros'")
         n = self._n
         ks = (kernel_size,) * n if isinstance(kernel_size, int) \
             else tuple(kernel_size)

@@ -26,7 +26,8 @@ class _BatchNormBase(nn.Module):
 
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
-                 use_global_stats=None, dtype="float32", device=None):
+                 use_global_stats=None, name=None, *, dtype="float32",
+                 device=None):
         super().__init__()
         self._num_features = num_features
         self._momentum = momentum
@@ -76,7 +77,7 @@ class LayerNorm(nn.Module):
     left out when False."""
 
     def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
-                 bias_attr=None, dtype="float32", device=None):
+                 bias_attr=None, name=None, *, dtype="float32", device=None):
         super().__init__()
         if isinstance(normalized_shape, int):
             normalized_shape = (normalized_shape,)
@@ -95,13 +96,15 @@ class LayerNorm(nn.Module):
 
 
 class RMSNorm(nn.Module):
-    """Llama-family RMSNorm with a ones-initialized weight."""
+    """Llama-family RMSNorm with a ones-initialized weight unless
+    `weight_attr` names an initializer."""
 
-    def __init__(self, hidden_size, epsilon=1e-6, dtype="float32",
-                 device=None):
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None,
+                 name=None, *, dtype="float32", device=None):
         super().__init__()
         self.epsilon = epsilon
-        self.weight = _param(Constant(1.0), (hidden_size,), dtype, device)
+        self.weight = _param(weight_attr or Constant(1.0), (hidden_size,),
+                             dtype, device)
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self.epsilon)

@@ -424,7 +424,7 @@ class BlockKVCacheManager:
     returns a block to the free list only when its last holder lets go."""
 
     def __init__(self, num_blocks, block_size, num_kv_heads, head_dim,
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, *, device=None):
         from ..framework.device import resolve_device
         device = resolve_device(device)
         self.block_size = block_size

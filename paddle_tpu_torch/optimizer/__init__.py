@@ -173,9 +173,13 @@ class Momentum(Optimizer):
 
 
 class Adam(Optimizer):
+    """`lazy_mode`, `multi_precision` and `use_multi_tensor` are accepted
+    and ignored, as the reference does."""
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=None,
-                 grad_clip=None, name=None, amsgrad=False):
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 use_multi_tensor=False, name=None, amsgrad=False):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          name)
         self._beta1 = beta1
@@ -217,11 +221,18 @@ class Adam(Optimizer):
 
 
 class AdamW(Adam):
-    """Decoupled weight decay. reference: python/paddle/optimizer/adamw.py."""
+    """Decoupled weight decay. reference: python/paddle/optimizer/adamw.py.
+    `lr_ratio` and `apply_decay_param_fun` are not ported and raise when
+    given."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, parameters=None, weight_decay=0.01,
-                 grad_clip=None, name=None, amsgrad=False):
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None,
+                 amsgrad=False):
+        if lr_ratio is not None or apply_decay_param_fun is not None:
+            raise NotImplementedError(
+                "AdamW: lr_ratio and apply_decay_param_fun are not ported")
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          weight_decay, grad_clip, name=name, amsgrad=amsgrad)
         self._decoupled_wd = True

@@ -8,6 +8,6 @@ import torch
 __all__ = ["flatten"]
 
 
-def flatten(x, start_axis=0, stop_axis=-1):
+def flatten(x, start_axis=0, stop_axis=-1, name=None):
     """Axes start_axis .. stop_axis merged into one."""
     return torch.flatten(x, start_axis, stop_axis)

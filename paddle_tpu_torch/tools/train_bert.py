@@ -57,7 +57,7 @@ class TrainStep:
     def __init__(self, cfg, batch, seq, dtype="bfloat16", device=None):
         device = resolve_device(device)
         seed(0)
-        self.model = BertForPretraining(cfg, device)
+        self.model = BertForPretraining(cfg, device=device)
         self.n_params = sum(t.numel()
                             for t in self.model.state_dict().values())
         self.model.to(convert_dtype(dtype))

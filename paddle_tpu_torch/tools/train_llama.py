@@ -106,7 +106,7 @@ class TrainStep:
                  loss_chunk_mb=256, device=None):
         device = resolve_device(device)
         seed(0)
-        model = LlamaForCausalLM(cfg, device)
+        model = LlamaForCausalLM(cfg, device=device)
         self.n_params = model.num_params()
         self.params, self.loss_fn = build_scanned_llama(
             model, remat=remat, remat_policy=remat_policy,

@@ -12,7 +12,7 @@ __all__ = ["LeNet"]
 
 
 class LeNet(nn.Module):
-    def __init__(self, num_classes=10, device=None):
+    def __init__(self, num_classes=10, *, device=None):
         super().__init__()
         self.num_classes = num_classes
         self.features = pnn.Sequential(

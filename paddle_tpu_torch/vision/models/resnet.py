@@ -28,7 +28,8 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
-                 base_width=64, dilation=1, norm_layer=None, device=None):
+                 base_width=64, dilation=1, norm_layer=None, *,
+                 device=None):
         super().__init__()
         norm_layer = norm_layer or pnn.BatchNorm2D
         self.conv1 = pnn.Conv2D(inplanes, planes, 3, stride=stride,
@@ -54,7 +55,8 @@ class BottleneckBlock(nn.Module):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
-                 base_width=64, dilation=1, norm_layer=None, device=None):
+                 base_width=64, dilation=1, norm_layer=None, *,
+                 device=None):
         super().__init__()
         norm_layer = norm_layer or pnn.BatchNorm2D
         width = int(planes * (base_width / 64.0)) * groups
@@ -84,7 +86,7 @@ class BottleneckBlock(nn.Module):
 
 class ResNet(nn.Module):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
-                 with_pool=True, groups=1, device=None):
+                 with_pool=True, groups=1, *, device=None):
         super().__init__()
         layer_cfg = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
                      101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}

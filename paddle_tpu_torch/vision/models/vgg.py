@@ -36,7 +36,7 @@ def _make_layers(cfg, batch_norm=False, device=None):
 
 
 class VGG(nn.Module):
-    def __init__(self, features, num_classes=1000, with_pool=True,
+    def __init__(self, features, num_classes=1000, with_pool=True, *,
                  device=None):
         super().__init__()
         self.features = features

@@ -276,7 +276,7 @@ def test_run_one_on_the_cpu():
     assert r["bert_base_mfu"] is None and r["peak_memory_bytes"] is None
     assert r["bert_params"] == sum(
         p.numel() for p in pt.models.BertForPretraining(
-            cfg, "cpu").parameters())
+            cfg, device="cpu").parameters())
     assert r["launches_per_step"] == [{"flash_fwd": 0, "flash_bwd_dq": 0,
                                        "flash_bwd_dkv": 0}] * steps
     assert (fa.flash_fwd_launches, fa.flash_bwd_dq_launches,

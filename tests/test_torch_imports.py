@@ -66,7 +66,8 @@ def test_import_loads_no_jax_and_no_reference(code):
     "nn.functional.activation", "nn.functional.common", "nn.layer.norm",
     "tools.train_bert", "generation", "convert", "vision.models",
     "nn.functional.conv", "nn.functional.pooling", "nn.layer.conv",
-    "nn.layer.pooling", "tensor", "tools.train_resnet"])
+    "nn.layer.pooling", "tensor", "tools.train_resnet", "quantization",
+    "incubate.nn.layer", "incubate.nn.functional", "tools.bench_decode"])
 def test_serving_subpackages_load_no_jax_and_no_reference(sub):
     """The serving engine's subpackages, each imported alone: copies of
     jax-free reference modules must not reach back into the reference."""
