@@ -203,6 +203,38 @@ Phases, each of which makes the script exit non-zero if it fails:
      llm_int8_linear on the card must equal their CPU results bit for bit
      at 8 tokens of k2048 n5504 (one outlier column) and at 39 tokens of
      k1001 n515 (k and n no multiples of 8).
+  18. vision zoo: MobileNetV2 (scale 1.0, 1000 classes) trained as phase 16
+     trains ResNet-50, through train_resnet.run_one(zoo_config(
+     "mobilenet_v2", "cuda")): parameters and batch-norm buffers in bf16,
+     batch 64 of 224 x 224 images, Momentum(0.1, 0.9), one warm-up step
+     and 8 timed steps, cuDNN's autotuner off; prints step ms, images/s,
+     MFU (conv_linear_macs, a grouped convolution counted by its weight's
+     rows), peak memory, one traced step's kernel time by class with
+     depthwise convolutions a class of their own (kernels named so, and
+     those a depthwise convolution launches and a dense one does not,
+     found by probing both first) and the busy share; the same for DenseNet-121, with the time
+     of torch.cat's kernels. Losses finite, the first update lowering
+     the loss, running statistics finite and moved, a float32 copy's
+     training-mode logits at b4 within RESNET_F32_RTOL of the CPU's, the
+     bf16 first loss within RESNET_BF16_LOSS_RTOL of a float32 run's.
+     Then the flagship of every other family (mobilenet_v1,
+     mobilenet_v3_small, mobilenet_v3_large, densenet121, alexnet,
+     squeezenet1_1, shufflenet_v2_x1_0, googlenet, inception_v3 at
+     299 x 299), one warm-up and 2 timed bf16 steps each at b64 through
+     the same run_one: losses finite (dropout at 0.5 in some: the loss
+     need not fall), a float32 copy's training-mode outputs at b2 (dropout
+     off) within RESNET_F32_RTOL of the CPU's; prints step ms, images/s,
+     parameters and peak memory. Then the new ops on the card against
+     their CPU results: conv2d_transpose at a decoder's shape (b8,
+     256 -> 128 channels, 64 x 64, kernel 4, stride 2, padding 1) in
+     float32 (TF32 off, ZOO_OPS_F32_RTOL) and bf16 (ZOO_OPS_BF16_RTOL), and
+     with padding "SAME" and a 2 x 2 kernel at stride 3; max_pool2d with
+     return_mask on a ReLU'd tensor and max_unpool2d (indices and values
+     exactly equal); roi_align at a Mask R-CNN FPN level (2 x 256 x 200 x
+     304, 512 boxes, 7 x 7, sampling ratio 2); deform_conv2d at 2 x 64 x
+     64 x 64 with a 3 x 3 kernel, with and without a mask; nms over 1000
+     boxes (the same indices in the same order), each timed. No K1-K4
+     launch over the phase. Prints the phase's seconds.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -242,10 +274,12 @@ from paddle_tpu_torch.observability.quantiles import quantile_from_cumulative
 from paddle_tpu_torch.ops import _build
 from paddle_tpu_torch.ops import attention_router as ar
 from paddle_tpu_torch.ops import flash_attention as fa
-from paddle_tpu_torch.nn import quant
+from paddle_tpu_torch.nn import Dropout, quant
+from paddle_tpu_torch.nn import functional as PF
 from paddle_tpu_torch.tools import (bench_decode, profile_serving,
                                     profile_train, train_bert, train_llama,
                                     train_resnet)
+from paddle_tpu_torch.vision import ops as V
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s
 # and bf16 tensor-core FLOP/s
@@ -448,6 +482,23 @@ RESNET_CLASSES = (("convolutions (cuDNN)", ("conv", "fprop", "dgrad",
                                             "wgrad", "implicit", "cudnn")),
                   ("pooling", ("pool",)),
                   ("layout transposes", ("nchwtonhwc", "nhwctonchw")))
+
+# the vision-zoo phase: the flagship of every family but MobileNetV2's
+# (which trains 1 + 8 steps) trained 1 + 2 steps; their float32 outputs
+# on the card against the CPU's at ZOO_CHECK_BATCH. The new ops on the
+# card against the CPU: float32 (TF32 off) results are the same math
+# summed in other orders, as RESNET_F32_RTOL's; a bf16 transposed
+# convolution rounds its output to bf16 (2^-9 relative) after cuDNN's
+# float32 accumulation over 256 x 4 products, against the CPU's float32
+# result of the same bf16 inputs, relative to the largest |value|
+ZOO_FLAGSHIPS = ("mobilenet_v1", "mobilenet_v3_small", "mobilenet_v3_large",
+                 "densenet121", "alexnet", "squeezenet1_1",
+                 "shufflenet_v2_x1_0", "googlenet", "inception_v3")
+ZOO_STEPS = 2
+ZOO_CHECK_BATCH = 2
+ZOO_OPS_F32_RTOL = 1e-4
+ZOO_OPS_BF16_RTOL = 1e-2
+ZOO_DEPTHWISE = "depthwise convolutions"
 
 # the card's name and power limit as nvidia-smi gives them (phase 1)
 CARD = "not read"
@@ -2434,20 +2485,28 @@ def phase_gpt():
     return launches
 
 
-def resnet_check_f32(cfg):
-    """max |logit difference| / max |logit| of a float32 ResNet-50's
-    training-mode forward of RESNET_CHECK_BATCH images on the card against
-    the same weights and images on the CPU."""
+def check_f32(ctor, hw, batch):
+    """max |output difference| / max |output| of a float32 `ctor()`'s
+    training-mode forward (dropout off) of `batch` images on the card
+    against the same weights and images on the CPU, over every output."""
     pt.seed(0)
-    cpu = cfg.ctor(device="cpu")
-    card = cfg.ctor(device="cpu").to("cuda")
+    cpu = ctor(device="cpu")
+    card = ctor(device="cpu").to("cuda")
     card.load_state_dict(cpu.state_dict())
-    x = torch.as_tensor(np.random.RandomState(1).randn(
-        RESNET_CHECK_BATCH, 3, cfg.hw, cfg.hw), dtype=torch.float32)
+    for m in (cpu, card):
+        m.train()
+        for sub in m.modules():
+            if isinstance(sub, Dropout):
+                sub.eval()
+    x = torch.as_tensor(np.random.RandomState(1).randn(batch, 3, hw, hw),
+                        dtype=torch.float32)
     with torch.no_grad():
         want = cpu(x)
-        got = card(x.cuda()).cpu()
-    return ((got - want).abs().max() / want.abs().max()).item()
+        got = card(x.cuda())
+    want = want if isinstance(want, tuple) else (want,)
+    got = got if isinstance(got, tuple) else (got,)
+    return max(((g.cpu() - w).abs().max() / w.abs().max()).item()
+               for g, w in zip(got, want))
 
 
 def resnet_tuned():
@@ -2523,7 +2582,7 @@ def phase_resnet():
         f"{by_class.get(conv, 0.0):.3f} ms with it off")
     gc.collect()
     torch.cuda.empty_cache()
-    f32_err = resnet_check_f32(cfg)
+    f32_err = check_f32(cfg.ctor, cfg.hw, RESNET_CHECK_BATCH)
     loss_err = abs(r["losses"][0] - f32["losses"][0]) / abs(f32["losses"][0])
     log(f"resnet50: float32 logits card vs CPU (b{RESNET_CHECK_BATCH}, TF32 "
         f"off) max|err|/max|logit| {f32_err:.3e} (tol {RESNET_F32_RTOL}); "
@@ -2554,6 +2613,254 @@ def phase_resnet():
     if not loss_err <= RESNET_BF16_LOSS_RTOL:
         sys.exit("chip_smoke: ResNet-50's bf16 first loss disagrees with "
                  "the float32 model's")
+    return launches
+
+
+def depthwise_kernel_names():
+    """The convolution kernels a depthwise convolution's forward and
+    backward launch and a dense one's do not: bf16 at MobileNetV2's shapes
+    (144 channels at 56 x 56 stride 1 and 2, 960 at 7 x 7), b64. The
+    probe's other kernels (casts, fills, reductions) stay in their own
+    classes. (A kernel whose name says "depthwise", torch's own
+    conv_depthwise2d, is one whatever the probe sees.)"""
+    names = set()
+    for c, hw, stride in ((144, 56, 1), (144, 56, 2), (960, 7, 1)):
+        x = torch.randn(64, c, hw, hw, device="cuda", dtype=torch.bfloat16,
+                        requires_grad=True)
+        w_dw = torch.randn(c, 1, 3, 3, device="cuda", dtype=torch.bfloat16,
+                           requires_grad=True)
+        w_pw = torch.randn(c, c, 1, 1, device="cuda", dtype=torch.bfloat16,
+                           requires_grad=True)
+
+        def launched(fn):
+            fn()                       # warm: the traced call is steady
+            kernels = []
+            kernel_ms_by_class(fn, kernels=kernels)
+            return {name for _, _, name in kernels}
+        dw = launched(lambda: torch.nn.functional.conv2d(
+            x, w_dw, stride=stride, padding=1, groups=c).float().sum()
+            .backward())
+        dense = launched(lambda: torch.nn.functional.conv2d(
+            x, w_pw, stride=stride).float().sum().backward())
+        names |= {n for n in dw - dense
+                  if resnet_class(n) == "convolutions (cuDNN)"}
+    return names
+
+
+def zoo_line(name, r):
+    secs = r["seconds"]
+    macs = r["flops_per_step"] / (6 * r["resnet_batch"])
+    log(f"{r['resnet_variant']} {name}: {r['resnet_params']} params, "
+        f"{macs / 1e9:.4f} GMAC an image, b"
+        f"{r['resnet_batch']}; set-up {secs['setup']:.2f} s, warm-up step "
+        f"{secs['warmup']:.2f} s; step {r['step_ms']:.2f} ms, "
+        f"{r['resnet_images_per_s']:.1f} images/s, mfu "
+        f"{r['resnet_mfu']:.4f} ({r['flops_per_step'] / 1e12:.4f} TFLOP a "
+        f"step), peak memory {r['peak_memory_bytes'] / 2**30:.2f} GiB; "
+        f"losses {r['losses']} [{CARD}]")
+
+
+def zoo_ops():
+    """The new ops on the card against the CPU (see ZOO_* above); prints
+    each one's median time and error."""
+    rs = np.random.RandomState(0)
+
+    def on_both(fn, *args):
+        cpu = fn(*[a.cpu() if torch.is_tensor(a) else a for a in args])
+        card = fn(*[a.cuda() if torch.is_tensor(a) else a for a in args])
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: fn(*[a.cuda() if torch.is_tensor(a) else a
+                                  for a in args]), reps=5, warmup=1)
+        return cpu, card, ms
+
+    def rel(card, cpu):
+        return ((card.float().cpu() - cpu.float()).abs().max()
+                / cpu.float().abs().max()).item()
+    problems = []
+
+    def check(label, err, tol, ms):
+        log(f"zoo op {label}: max|err|/max|value| {err:.3e} (tol {tol}), "
+            f"{ms:.3f} ms median [{CARD}]")
+        if not err <= tol:
+            problems.append(label)
+    x = torch.as_tensor(rs.randn(8, 256, 64, 64), dtype=torch.float32)
+    w = torch.as_tensor(rs.randn(256, 128, 4, 4) / 64, dtype=torch.float32)
+    b = torch.as_tensor(rs.randn(128), dtype=torch.float32)
+    tconv = (lambda a, k, c: PF.conv2d_transpose(a, k, c, stride=2,
+                                                 padding=1))
+    cpu, card, ms = on_both(tconv, x, w, b)
+    assert card.shape == (8, 128, 128, 128)
+    check("conv2d_transpose f32 b8 256->128 64x64 k4 s2 p1",
+          rel(card, cpu), ZOO_OPS_F32_RTOL, ms)
+    xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+    cpu = tconv(xb.float(), wb.float(), bb.float())
+    _, card, ms = on_both(tconv, xb, wb, bb)
+    check("conv2d_transpose bf16 (against float32 of the bf16 inputs)",
+          rel(card, cpu), ZOO_OPS_BF16_RTOL, ms)
+    same = (lambda a, k: PF.conv2d_transpose(a, k, stride=3,
+                                             padding="SAME"))
+    w2 = torch.as_tensor(rs.randn(256, 128, 2, 2) / 32, dtype=torch.float32)
+    cpu, card, ms = on_both(same, x, w2)
+    assert card.shape == (8, 128, 192, 192)
+    check("conv2d_transpose SAME k2 s3 (kernel < stride)", rel(card, cpu),
+          ZOO_OPS_F32_RTOL, ms)
+
+    relu = torch.relu(torch.as_tensor(rs.randn(8, 128, 112, 112),
+                                      dtype=torch.float32))
+    pool = (lambda a: PF.max_pool2d(a, 2, 2, return_mask=True))
+    (cpu_out, cpu_idx), (card_out, card_idx), ms = on_both(pool, relu)
+    un = (lambda a, i: PF.max_unpool2d(a, i, 2, 2))
+    cpu_un, card_un, ms_un = on_both(un, cpu_out, cpu_idx)
+    exact = (torch.equal(card_idx.cpu(), cpu_idx)
+             and torch.equal(card_out.cpu(), cpu_out)
+             and torch.equal(card_un.cpu(), cpu_un))
+    ties = int((relu == 0).sum())
+    log(f"zoo op max_pool2d(return_mask) + max_unpool2d on a ReLU'd "
+        f"8x128x112x112 ({ties} zeros): indices and values equal {exact}; "
+        f"{ms:.3f} + {ms_un:.3f} ms median [{CARD}]")
+    if not exact:
+        problems.append("max_pool2d mask / max_unpool2d")
+
+    feat = torch.as_tensor(rs.randn(2, 256, 200, 304), dtype=torch.float32)
+    xy = rs.uniform(0, 280, (512, 2))
+    wh = rs.uniform(4, 120, (512, 2))
+    boxes = torch.as_tensor(np.concatenate([xy, xy + wh], 1) * 4,
+                            dtype=torch.float32)
+    num = torch.tensor([256, 256], dtype=torch.int32)
+    ra = (lambda f, bx, n: V.roi_align(f, bx, n, 7, spatial_scale=0.25,
+                                       sampling_ratio=2))
+    cpu, card, ms = on_both(ra, feat, boxes, num)
+    check("roi_align 2x256x200x304 512 boxes 7x7 sr2", rel(card, cpu),
+          ZOO_OPS_F32_RTOL, ms)
+
+    img = torch.as_tensor(rs.randn(2, 64, 64, 64), dtype=torch.float32)
+    off = torch.as_tensor(rs.randn(2, 18, 64, 64), dtype=torch.float32)
+    mask = torch.as_tensor(rs.rand(2, 9, 64, 64), dtype=torch.float32)
+    wd = torch.as_tensor(rs.randn(64, 64, 3, 3) / 24, dtype=torch.float32)
+    for label, m in (("", ()), (" with a mask", (mask,))):
+        dc = (lambda a, o, k, *mm: V.deform_conv2d(
+            a, o, k, padding=1, mask=mm[0] if mm else None))
+        cpu, card, ms = on_both(dc, img, off, wd, *m)
+        check(f"deform_conv2d 2x64x64x64 3x3{label}", rel(card, cpu),
+              ZOO_OPS_F32_RTOL, ms)
+
+    xy = rs.uniform(0, 600, (1000, 2))
+    nb = torch.as_tensor(np.concatenate(
+        [xy, xy + rs.uniform(10, 200, (1000, 2))], 1), dtype=torch.float32)
+    sc = torch.as_tensor(rs.rand(1000), dtype=torch.float32)
+    cpu, card, ms = on_both(lambda bx, s: V.nms(bx, 0.5, s), nb, sc)
+    same_keep = torch.equal(card.cpu(), cpu)
+    log(f"zoo op nms 1000 boxes: {len(cpu)} kept, equal to the CPU's "
+        f"{same_keep}; {ms:.3f} ms median (host numpy) [{CARD}]")
+    if not same_keep:
+        problems.append("nms")
+    return problems
+
+
+def phase_zoo():
+    """The vision zoo (phase 18): MobileNetV2 training, every other
+    family's flagship, the new ops; returns the flash kernels' launches
+    over the phase (none is on this path)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dw_names = depthwise_kernel_names()
+
+    def zoo_class(name):
+        depthwise = name in dw_names or "depthwise" in name.lower()
+        return ZOO_DEPTHWISE if depthwise else resnet_class(name)
+
+    def traced_step(cfg):
+        """kernel_ms_by_class of the third bf16 step of cfg's TrainStep,
+        and its kernels' (ms, launches, name)."""
+        train = train_resnet.TrainStep(cfg, "cuda")
+        train.step(1)
+        kernels = []
+        by_class = kernel_ms_by_class(lambda: train.step(2), zoo_class,
+                                      kernels)
+        del train
+        gc.collect()
+        torch.cuda.empty_cache()
+        return by_class, kernels
+    cfg = train_resnet.zoo_config("mobilenet_v2", "cuda")
+    zero_flash_launches()                      # the zoo path starts here
+    r = train_resnet.run_one(cfg, device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = train_resnet.run_one(cfg._replace(dtype="float32"), steps=1,
+                               device="cuda")
+    by_class, kernels = traced_step(cfg)
+    zoo_line("mobilenet_v2 bf16", r)
+    zoo_line("mobilenet_v2 float32 (TF32 off)", f32)
+    log(f"mobilenet_v2 bf16, one traced step: {class_line(by_class)}; busy "
+        f"{sum(by_class.values()) / r['step_ms']:.1%} of the timed steps' "
+        f"mean; {len(dw_names)} depthwise kernel names; the largest "
+        f"kernels: " + "; ".join(
+            f"{name[:60]} x{n} {ms:.3f} ms ({zoo_class(name)})"
+            for ms, n, name in sorted(kernels, reverse=True)[:8]))
+    f32_err = check_f32(cfg.ctor, cfg.hw, RESNET_CHECK_BATCH)
+    loss_err = abs(r["losses"][0] - f32["losses"][0]) / abs(f32["losses"][0])
+    log(f"mobilenet_v2: float32 logits card vs CPU (b{RESNET_CHECK_BATCH}, "
+        f"TF32 off) max|err|/max|logit| {f32_err:.3e} (tol "
+        f"{RESNET_F32_RTOL}); bf16 first loss {r['losses'][0]:.6f} vs "
+        f"float32 {f32['losses'][0]:.6f}, rel err {loss_err:.3e} (tol "
+        f"{RESNET_BF16_LOSS_RTOL}); running stats finite "
+        f"{r['running_stats_finite']}, stem mean max|.| "
+        f"{r['stem_mean_absmax']:.4g}")
+    zero = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    problems = []
+    if not all(np.isfinite(r["losses"] + f32["losses"])):
+        problems.append("a MobileNetV2 loss is not finite")
+    if not r["losses"][1] < r["losses"][0]:
+        problems.append("the first MobileNetV2 update did not lower the "
+                        "loss")
+    if not (r["running_stats_finite"] and r["stem_mean_absmax"] > 0):
+        problems.append("MobileNetV2's running statistics are not finite "
+                        "or did not move")
+    if not f32_err <= RESNET_F32_RTOL:
+        problems.append("MobileNetV2's float32 logits on the card "
+                        "disagree with the CPU's")
+    if not loss_err <= RESNET_BF16_LOSS_RTOL:
+        problems.append("MobileNetV2's bf16 first loss disagrees with the "
+                        "float32 model's")
+    runs = [r, f32]
+    for name in ZOO_FLAGSHIPS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        zcfg = train_resnet.zoo_config(name, "cuda")
+        z = train_resnet.run_one(zcfg, steps=ZOO_STEPS, device="cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+        err = check_f32(zcfg.ctor, zcfg.hw, ZOO_CHECK_BATCH)
+        zoo_line(name, z)
+        if name == "densenet121":
+            dense, kernels = traced_step(zcfg)
+            cat = [(ms, n) for ms, n, k in kernels if "CatArray" in k]
+            log(f"densenet121 bf16, one traced step: {class_line(dense)}; "
+                f"busy {sum(dense.values()) / z['step_ms']:.1%} of the "
+                f"timed steps' mean; torch.cat's kernels (CatArrayBatched"
+                f"Copy) {sum(ms for ms, _ in cat):.3f} ms in "
+                f"{sum(n for _, n in cat)} launches")
+        log(f"{name}: float32 outputs card vs CPU (b{ZOO_CHECK_BATCH}, TF32 "
+            f"off) max|err|/max|value| {err:.3e} (tol {RESNET_F32_RTOL})")
+        runs.append(z)
+        if not np.isfinite(z["losses"]).all():
+            problems.append(f"a {name} loss is not finite")
+        if not err <= RESNET_F32_RTOL:
+            problems.append(f"{name}'s float32 outputs on the card "
+                            f"disagree with the CPU's")
+    gc.collect()
+    torch.cuda.empty_cache()
+    problems += zoo_ops()
+    launches = train_llama.launch_counts()     # the zoo path ends here
+    k2 = fa.flash_fwd_rms_epilogue_launches
+    if k2 or launches != zero or any(
+            step != zero for run in runs for step in run["launches_per_step"]):
+        problems.append("the zoo phase launched a flash kernel")
+    log(f"vision zoo phase: launches over it {launches}, K2 {k2}; "
+        f"{time.perf_counter() - t0:.1f} s [{CARD}]")
+    if problems:
+        sys.exit("chip_smoke: vision zoo: " + "; ".join(problems))
     return launches
 
 
@@ -2679,14 +2986,15 @@ def main():
     gpt = phase_gpt()
     resnet = phase_resnet()
     decode = phase_decode()
+    zoo = phase_zoo()
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # K1 runs on the serving (bf16 and int8), predictor, training, BERT,
     # GPT and decode paths, K3
-    # and K4 on the training and BERT paths (the ResNet path adds none,
-    # counted all the same); their times are the Llama
+    # and K4 on the training and BERT paths (the ResNet and vision-zoo
+    # paths add none, counted all the same); their times are the Llama
     # training shape's (phases 3 and 5 print BERT's too). K2's are
     # the serving prefill shape's (no single library call computes it).
     # "ms" and "library_ms" are device times from back-to-back calls
@@ -2694,7 +3002,8 @@ def main():
                     replaces=ref + "116",
                     launches=(serve + predictor + train["flash_fwd"]
                               + bert["flash_fwd"] + gpt
-                              + resnet["flash_fwd"] + decode),
+                              + resnet["flash_fwd"] + decode
+                              + zoo["flash_fwd"]),
                     **{key: k1["train"][key] for key in keys}),
                dict(name="flash_fwd_rms_epilogue", route="cuda",
                     source=src + "fwd.cu", replaces=ref + "116",
@@ -2703,12 +3012,13 @@ def main():
                dict(name="flash_bwd_dq", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "198",
                     launches=(train["flash_bwd_dq"] + bert["flash_bwd_dq"]
-                              + resnet["flash_bwd_dq"]),
+                              + resnet["flash_bwd_dq"] + zoo["flash_bwd_dq"]),
                     **k34["train"]["dq"]),
                dict(name="flash_bwd_dkv", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "249",
                     launches=(train["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
-                              + resnet["flash_bwd_dkv"]),
+                              + resnet["flash_bwd_dkv"]
+                              + zoo["flash_bwd_dkv"]),
                     **k34["train"]["dkv"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""Carry weights from the JAX package's Llama, BERT, GPT, ResNet, VGG and
-LeNet models, its fused layers and its quantized models, to the port's.
+"""Carry weights from the JAX package's Llama, BERT, GPT and vision models
+(every family of vision/models), its fused layers and its quantized
+models, to the port's.
 
 Parameter names and layouts are the same in both packages, so a reference
 state dict, as numpy arrays, maps onto the port key for key:
@@ -19,6 +20,19 @@ quantize at the same scales. Both functions raise on a
 missing or an unexpected key and on a shape mismatch. `tree_from_reference` carries a nested dict of arrays across as
 it is: the scanned params tree of `build_scanned_llama`, its grads, or an
 optimizer-state tree of `Optimizer.tree_init`.
+
+`state_from_reference` tells a state's family by a key only that family's
+states hold (or, for the `features.0.weight` families, by the stem: LeNet
+has one input channel, AlexNet an 11 x 11 kernel, SqueezeNet fire modules,
+VGG none of these). ResNet's, VGG's and LeNet's maps are written out
+below. Each other family's map is the port's own model of the
+configuration the state shows (its class count, depth or scale), built on
+the meta device: no memory, no draw. Where the state does not show its
+configuration outright (a MobileNet's or ShuffleNet's scale, DenseNet's
+depth), the candidate configurations are built in turn and the first the
+state fits is taken, or else the closest one, so that the check names the
+missing, unexpected or misshapen keys. A MobileNet's scale is one of
+MOBILENET_SCALES, or for V1 the one its last block's width shows.
 """
 
 from __future__ import annotations
@@ -30,10 +44,16 @@ import torch
 
 from .framework.device import resolve_device
 from .framework.dtypes import convert_dtype
+from .vision import models as _vision
 from .vision.models.vgg import _CFGS as _VGG_CFGS
 
 __all__ = ["state_from_reference", "load_reference_state",
            "tree_from_reference", "tensor_from_bytes"]
+
+# the scales tried on a MobileNet state (the published ones of V1-V3 and
+# the reference's tests')
+MOBILENET_SCALES = (0.25, 0.35, 0.5, 0.75, 1.0, 1.25, 1.4, 1.5, 2.0)
+
 
 def _shape(np_state, key):
     try:
@@ -226,10 +246,113 @@ def _lenet_shapes(np_state) -> dict:
     return shapes
 
 
+def _built(ctor, **kw) -> dict:
+    """key -> shape of the port's `ctor(**kw)`, built on the meta device."""
+    return {k: tuple(v.shape)
+            for k, v in ctor(device="meta", **kw).state_dict().items()}
+
+
+def _classes(np_state, key, axis=1) -> int:
+    """The class count: dim `axis` of the head's `key`, 0 without a head."""
+    return _shape(np_state, key)[axis] if key in np_state else 0
+
+
+def _faults(np_state, shapes) -> int:
+    return len(set(shapes) ^ set(np_state)) + sum(
+        tuple(np.shape(np_state[k])) != s for k, s in shapes.items()
+        if k in np_state)
+
+
+def _closest(np_state, candidates) -> dict:
+    """The first candidate map `np_state` fits, else the one it misses by
+    the fewest keys and shapes."""
+    best = None
+    for shapes in candidates:
+        n = _faults(np_state, shapes)
+        if n == 0:
+            return shapes
+        if best is None or n < best[0]:
+            best = (n, shapes)
+    return best[1]
+
+
+def _alexnet_shapes(np_state) -> dict:
+    return _built(_vision.AlexNet,
+                  num_classes=_classes(np_state, "classifier.6.weight"))
+
+
+def _squeezenet_shapes(np_state) -> dict:
+    """Version 1.0 (a 7 x 7 stem) or 1.1 (3 x 3)."""
+    version = "1.0" if _shape(np_state, "features.0.weight")[-1] == 7 \
+        else "1.1"
+    return _built(_vision.SqueezeNet, version=version, num_classes=_classes(
+        np_state, "final_conv.weight", 0))
+
+
 def _features_shapes(np_state) -> dict:
-    """LeNet (one input channel) or VGG (three)."""
-    lenet = _shape(np_state, "features.0.weight")[1] == 1
-    return (_lenet_shapes if lenet else _vgg_shapes)(np_state)
+    """LeNet (one input channel), AlexNet (an 11 x 11 stem), SqueezeNet
+    (fire modules) or VGG."""
+    stem = _shape(np_state, "features.0.weight")
+    if stem[1] == 1:
+        return _lenet_shapes(np_state)
+    if any(".squeeze." in k for k in np_state):
+        return _squeezenet_shapes(np_state)
+    if stem[-1] == 11:
+        return _alexnet_shapes(np_state)
+    return _vgg_shapes(np_state)
+
+
+def _mobilenet_v1_shapes(np_state) -> dict:
+    classes = _classes(np_state, "fc.weight")
+    width = np_state.get("blocks.12.pw.conv.weight")
+    scales = MOBILENET_SCALES if width is None else \
+        (np.shape(width)[0] / 1024,) + MOBILENET_SCALES
+    return _closest(np_state, (_built(_vision.MobileNetV1, scale=s,
+                                      num_classes=classes) for s in scales))
+
+
+def _mobilenet_v2_shapes(np_state) -> dict:
+    classes = _classes(np_state, "classifier.1.weight")
+    return _closest(np_state, (_built(_vision.MobileNetV2, scale=s,
+                                      num_classes=classes)
+                               for s in MOBILENET_SCALES))
+
+
+def _mobilenet_v3_shapes(np_state) -> dict:
+    """Small or Large at one of MOBILENET_SCALES."""
+    classes = _classes(np_state, "classifier.3.weight")
+    return _closest(np_state, (_built(ctor, scale=s, num_classes=classes)
+                               for ctor in (_vision.MobileNetV3Small,
+                                            _vision.MobileNetV3Large)
+                               for s in MOBILENET_SCALES))
+
+
+def _densenet_shapes(np_state) -> dict:
+    """Depth 121-264; bn_size from the first 1 x 1 convolution."""
+    from .vision.models.densenet import _ARCH
+    classes = _classes(np_state, "fc.weight")
+    width = _shape(np_state, "blocks.0.layers.0.conv1.weight")[0]
+    return _closest(np_state, (_built(_vision.DenseNet, layers=n,
+                                      bn_size=width // growth,
+                                      num_classes=classes)
+                               for n, (growth, _, _) in _ARCH.items()))
+
+
+def _shufflenet_shapes(np_state) -> dict:
+    classes = _classes(np_state, "fc.weight")
+    return _closest(np_state, (_built(_vision.ShuffleNetV2, scale=s,
+                                      num_classes=classes)
+                               for s in _vision.ShuffleNetV2._STAGE_OUT))
+
+
+def _googlenet_shapes(np_state) -> dict:
+    return _built(_vision.GoogLeNet,
+                  num_classes=_classes(np_state, "fc.weight"))
+
+
+def _inception_v3_shapes(np_state) -> dict:
+    return _built(_vision.InceptionV3,
+                  num_classes=_classes(np_state, "fc.weight"))
 
 
 # each family by the key prefix of its models' states; the vision models'
@@ -237,7 +360,14 @@ def _features_shapes(np_state) -> dict:
 _FAMILIES = {"llama.": _llama_shapes, "bert.": _bert_shapes,
              "gpt.": _gpt_shapes}
 _KEYED = {"layer1.0.conv1.weight": _resnet_shapes,
-          "features.0.weight": _features_shapes}
+          "features.0.weight": _features_shapes,
+          "blocks.0.dw.conv.weight": _mobilenet_v1_shapes,
+          "features.1.conv.0.conv.weight": _mobilenet_v2_shapes,
+          "features.1.block.0.conv.weight": _mobilenet_v3_shapes,
+          "blocks.0.layers.0.conv1.weight": _densenet_shapes,
+          "stages.0.0.branch1.0.weight": _shufflenet_shapes,
+          "i3a.b1.conv.weight": _googlenet_shapes,
+          "blocks.0.b1.conv.weight": _inception_v3_shapes}
 
 
 def _reference_shapes(np_state) -> dict:

@@ -30,8 +30,11 @@ def seed(s: int) -> None:
 
 
 def get_generator(device) -> torch.Generator:
-    """The generator of `device`, created from the current seed on first use."""
+    """The generator of `device`, created from the current seed on first use;
+    None on the meta device, where nothing is drawn."""
     dev = _key(device)
+    if dev.type == "meta":
+        return None
     gen = _GENERATORS.get(dev)
     if gen is None:
         gen = torch.Generator(device=dev)

@@ -19,7 +19,8 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     With running statistics (eval, or `use_global_stats`):
     (x - rm) * rsqrt(rv + eps), then the weight and the bias, then a cast
     to x's dtype. In training: the batch mean and population variance in
-    float32, each cast to x's dtype before (x - m) * rsqrt(v + eps), then
+    float32 (float64 for a float64 x), each cast to x's dtype before
+    (x - m) * rsqrt(v + eps), then
     the weight and the bias in x's dtype (torch's batch_norm applies them
     in float32 and rounds bf16 once, differently). Training also updates
     the running statistics in place, Paddle's way round:
@@ -36,7 +37,9 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
             rv + rounded(epsilon, rv.dtype))
     else:
         axes = tuple(i for i in range(x.dim()) if i != ch)
-        v, m = torch.var_mean(x.float(), dim=axes, correction=0)
+        v, m = torch.var_mean(x.to(torch.promote_types(x.dtype,
+                                                       torch.float32)),
+                              dim=axes, correction=0)
         out = (x - m.reshape(shape).to(x.dtype)) * torch.rsqrt(
             v.reshape(shape).to(x.dtype) + rounded(epsilon, x.dtype))
         with torch.no_grad():

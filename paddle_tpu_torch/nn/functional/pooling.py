@@ -1,18 +1,25 @@
 """Pooling. reference: paddle_tpu/nn/functional/pooling.py (`_pads` :21,
 `_ceil_extra` :34, `_pool_geometry` :50, `_pool` :72-126, the max and avg
-pools :129-202, `_adaptive` :205-224 and its entry points).
+pools :129-202 with `_max_pool_indices` :137, `_adaptive` :205-224 and its
+entry points, `lp_pool1d/2d` :238-262).
 
 The reference pools with `lax.reduce_window` over explicit (low, high)
 pads, `ceil_mode` folded in as extra high padding. The port resolves the
 same pads. A max pool whose pads torch's own pooling takes (symmetric, at
 most half the window) calls it directly, `ceil_mode` included (its output
 size rule is the reference's); other pads are applied with -inf first.
-An avg pool sums each window in float32 (`divisor_override=1` over
-zero-padded input) and divides by the reference's divisor: the window's
-real elements with `exclusive`, else the whole window, except that with
-`ceil_mode` the extra high padding is never counted. Adaptive pools take torch's, whose
-bins are the reference's: floor(i * in / out) to ceil((i + 1) * in / out).
-`return_mask` and the lp pools are not ported and raise.
+`return_mask` gives the reference's indices, flat over the spatial dims:
+the largest value of each window, a non-finite one counted as -inf, and
+of equal ones the lowest index (a pad never wins). An avg pool sums each
+window in float32 (`divisor_override=1` over zero-padded input) and
+divides by the reference's divisor: the window's real elements with
+`exclusive`, else the whole window, except that with `ceil_mode` the
+extra high padding is never counted. Adaptive pools take torch's, whose
+bins are the reference's: floor(i * in / out) to ceil((i + 1) * in / out);
+the adaptive max pools' `return_mask` gives (out, None), as the
+reference's. An lp pool is the reference's: the non-exclusive avg pool of
+|x|^p times the window's size, to the power 1/p (torch's lp_pool pools
+x^p, without the absolute value).
 """
 
 from __future__ import annotations
@@ -27,11 +34,14 @@ from .conv import _tuple, same_pads
 __all__ = ["avg_pool1d", "avg_pool2d", "avg_pool3d", "max_pool1d",
            "max_pool2d", "max_pool3d", "adaptive_avg_pool1d",
            "adaptive_avg_pool2d", "adaptive_avg_pool3d",
-           "adaptive_max_pool2d", "lp_pool1d", "lp_pool2d"]
+           "adaptive_max_pool1d", "adaptive_max_pool2d",
+           "adaptive_max_pool3d", "lp_pool1d", "lp_pool2d"]
 
 _MAX = {1: TF.max_pool1d, 2: TF.max_pool2d, 3: TF.max_pool3d}
 _ADAPTIVE_AVG = {1: TF.adaptive_avg_pool1d, 2: TF.adaptive_avg_pool2d,
                  3: TF.adaptive_avg_pool3d}
+_ADAPTIVE_MAX = {1: TF.adaptive_max_pool1d, 2: TF.adaptive_max_pool2d,
+                 3: TF.adaptive_max_pool3d}
 
 
 def _pads(padding, n):
@@ -137,30 +147,57 @@ def _avg_pool(x, kernel, stride, padding, n, ceil_mode, exclusive,
     return _channels_first(x, data_format, f)
 
 
-def _no_mask(return_mask):
-    if return_mask:
-        raise NotImplementedError("return_mask is not ported")
+def _max_pool_indices(x, kernel, stride, padding, n, ceil_mode,
+                      data_format):
+    """The reference's return_mask: each window's argmax, flat over the
+    spatial dims (int64), read from the windows of the padded input."""
+    def f(a):
+        spatial = tuple(a.shape[2:])
+        size = math.prod(spatial)
+        ks, sd, pad, extra = _geometry(spatial, kernel, stride, padding, n,
+                                       ceil_mode)
+        full = _flat([(lo, hi + e) for (lo, hi), e in zip(pad, extra)])
+        vals = TF.pad(torch.where(torch.isfinite(a), a, -math.inf), full,
+                      value=-math.inf)
+        idx = TF.pad(torch.arange(size, device=a.device).reshape(
+            (1, 1) + spatial), full, value=size)
+        for d in range(n):
+            vals = vals.unfold(2 + d, ks[d], sd[d])
+            idx = idx.unfold(2 + d, ks[d], sd[d])
+        win = tuple(range(-n, 0))
+        top = vals.amax(dim=win, keepdim=True)
+        return torch.where(vals == top, idx, size).amin(dim=win)
+    return _channels_first(x, data_format, f)
+
+
+def _max_pool_nd(x, kernel_size, stride, padding, return_mask, ceil_mode,
+                 data_format, n):
+    out = _max_pool(x, kernel_size, stride, padding, n, ceil_mode,
+                    data_format)
+    if not return_mask:
+        return out
+    with torch.no_grad():
+        mask = _max_pool_indices(x, kernel_size, stride, padding, n,
+                                 ceil_mode, data_format)
+    return out, mask
 
 
 def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCL", name=None):
-    _no_mask(return_mask)
-    return _max_pool(x, kernel_size, stride, padding, 1, ceil_mode,
-                     data_format)
+    return _max_pool_nd(x, kernel_size, stride, padding, return_mask,
+                        ceil_mode, data_format, 1)
 
 
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCHW", name=None):
-    _no_mask(return_mask)
-    return _max_pool(x, kernel_size, stride, padding, 2, ceil_mode,
-                     data_format)
+    return _max_pool_nd(x, kernel_size, stride, padding, return_mask,
+                        ceil_mode, data_format, 2)
 
 
 def max_pool3d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCDHW", name=None):
-    _no_mask(return_mask)
-    return _max_pool(x, kernel_size, stride, padding, 3, ceil_mode,
-                     data_format)
+    return _max_pool_nd(x, kernel_size, stride, padding, return_mask,
+                        ceil_mode, data_format, 3)
 
 
 def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
@@ -199,16 +236,38 @@ def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
         x, data_format, lambda a: _ADAPTIVE_AVG[3](a, output_size))
 
 
+def _adaptive_max(x, output_size, return_mask, n):
+    out = _ADAPTIVE_MAX[n](x, output_size)
+    return (out, None) if return_mask else out
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
+    return _adaptive_max(x, output_size, return_mask, 1)
+
+
 def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
-    _no_mask(return_mask)
-    return TF.adaptive_max_pool2d(x, output_size)
+    return _adaptive_max(x, output_size, return_mask, 2)
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
+    return _adaptive_max(x, output_size, return_mask, 3)
+
+
+def _lp_pool(x, norm_type, kernel_size, stride, padding, ceil_mode,
+             data_format, n):
+    p = float(norm_type)
+    s = _avg_pool(x.abs() ** p, kernel_size, stride, padding, n, ceil_mode,
+                  False, data_format)
+    return (s * float(math.prod(_tuple(kernel_size, n)))) ** (1.0 / p)
 
 
 def lp_pool1d(x, norm_type, kernel_size, stride=None, padding=0,
               ceil_mode=False, data_format="NCL", name=None):
-    raise NotImplementedError("lp_pool1d is not ported")
+    return _lp_pool(x, norm_type, kernel_size, stride, padding, ceil_mode,
+                    data_format, 1)
 
 
 def lp_pool2d(x, norm_type, kernel_size, stride=None, padding=0,
               ceil_mode=False, data_format="NCHW", name=None):
-    raise NotImplementedError("lp_pool2d is not ported")
+    return _lp_pool(x, norm_type, kernel_size, stride, padding, ceil_mode,
+                    data_format, 2)

@@ -1,6 +1,7 @@
 """Pooling layers. reference: paddle_tpu/nn/layer/pooling.py (`_Pool` :14,
 the max and avg pools :28-50, `_AdaptivePool` :53, the adaptive pools
-:65-87). `return_mask` and the lp pools are not ported."""
+:65-87, `LPPool1D`/`LPPool2D` :90-106). A `name` keyword is dropped, as
+the reference drops it."""
 
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ from .. import functional as F
 
 __all__ = ["AvgPool1D", "AvgPool2D", "AvgPool3D", "MaxPool1D", "MaxPool2D",
            "MaxPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
-           "AdaptiveAvgPool3D", "AdaptiveMaxPool2D"]
+           "AdaptiveAvgPool3D", "AdaptiveMaxPool1D", "AdaptiveMaxPool2D",
+           "AdaptiveMaxPool3D", "LPPool1D", "LPPool2D"]
 
 
 class _Pool(nn.Module):
@@ -20,7 +22,7 @@ class _Pool(nn.Module):
         super().__init__()
         self.kernel_size, self.stride, self.padding = kernel_size, stride, \
             padding
-        self.kwargs = kwargs
+        self.kwargs = {k: v for k, v in kwargs.items() if k != "name"}
 
     def forward(self, x):
         return getattr(F, self._fn)(x, self.kernel_size, self.stride,
@@ -57,7 +59,7 @@ class _AdaptivePool(nn.Module):
     def __init__(self, output_size, **kwargs):
         super().__init__()
         self.output_size = output_size
-        self.kwargs = kwargs
+        self.kwargs = {k: v for k, v in kwargs.items() if k != "name"}
 
     def forward(self, x):
         return getattr(F, self._fn)(x, self.output_size, **self.kwargs)
@@ -75,5 +77,35 @@ class AdaptiveAvgPool3D(_AdaptivePool):
     _fn = "adaptive_avg_pool3d"
 
 
+class AdaptiveMaxPool1D(_AdaptivePool):
+    _fn = "adaptive_max_pool1d"
+
+
 class AdaptiveMaxPool2D(_AdaptivePool):
     _fn = "adaptive_max_pool2d"
+
+
+class AdaptiveMaxPool3D(_AdaptivePool):
+    _fn = "adaptive_max_pool3d"
+
+
+class LPPool1D(nn.Module):
+    def __init__(self, norm_type, kernel_size, stride=None, padding=0,
+                 ceil_mode=False, data_format="NCL", name=None):
+        super().__init__()
+        self.args = (norm_type, kernel_size, stride, padding, ceil_mode,
+                     data_format)
+
+    def forward(self, x):
+        return F.lp_pool1d(x, *self.args)
+
+
+class LPPool2D(nn.Module):
+    def __init__(self, norm_type, kernel_size, stride=None, padding=0,
+                 ceil_mode=False, data_format="NCHW", name=None):
+        super().__init__()
+        self.args = (norm_type, kernel_size, stride, padding, ceil_mode,
+                     data_format)
+
+    def forward(self, x):
+        return F.lp_pool2d(x, *self.args)

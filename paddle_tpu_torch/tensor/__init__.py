@@ -1,3 +1,3 @@
-from .manipulation import flatten
+from .manipulation import concat, flatten, reshape, split, transpose
 
-__all__ = ["flatten"]
+__all__ = ["reshape", "flatten", "transpose", "concat", "split"]

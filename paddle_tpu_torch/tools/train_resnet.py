@@ -1,8 +1,9 @@
 """The ResNet training step: the counterpart of bench.py's `_bench_resnet`
 (:253-287), with `_functional_train_setup` (:210) and `_time_train`
-(:241).
+(:241); and the same step for any model of vision/models (`zoo_config`).
 
     python3 -m paddle_tpu_torch.tools.train_resnet [--steps 8] [--device cuda]
+        [--model mobilenet_v2]
 
 On CUDA (the default) it trains bench.py's configuration: ResNet-50 (1000
 classes) with its parameters and batch-norm buffers cast to bf16, batch
@@ -12,7 +13,15 @@ Either way: weights from seed(0), Momentum(0.1, momentum=0.9), the
 cross-entropy of the logits, x = RandomState(0).randn(batch, 3, hw, hw)
 and y = randint(0, classes, (batch,)) from the same RandomState, the same
 batch every step, one warm-up step, then `steps` timed steps. Prints one
-JSON line with the result of `run_one`.
+JSON line with the result of `run_one`. With `--model NAME` it trains
+`zoo_config(NAME, device)` instead: on CUDA the model with 1000 classes at
+its published input size (224 x 224; 299 x 299 for inception_v3), batch
+64, bf16; on the CPU with 10 classes at a small size (64 x 64; 75 x 75
+for inception_v3, the smallest it takes), batch 2, float32.
+
+A model whose output is a tuple (GoogLeNet's main head and its two aux
+heads) is trained on the loss of its first element, the main head: the
+reference has no recipe that weighs the aux heads in.
 
 The step runs the model eagerly in training mode, so each batch norm
 updates its running statistics in place, as the reference's eager forward
@@ -38,11 +47,12 @@ from ..framework.dtypes import convert_dtype
 from ..nn import Linear
 from ..nn import functional as F
 from ..nn.layer.conv import _ConvNd
+from ..nn.layer.norm import _BatchNormBase
 from ..vision import models
 from .train_llama import _sync, device_report, peak_flops, time_steps
 
-__all__ = ["BenchConfig", "bench_config", "TrainStep", "run_one",
-           "conv_linear_macs"]
+__all__ = ["BenchConfig", "bench_config", "zoo_config", "TrainStep",
+           "run_one", "conv_linear_macs"]
 
 LR = 0.1
 MOMENTUM = 0.9
@@ -66,6 +76,28 @@ def bench_config(device) -> BenchConfig:
     return BenchConfig("resnet18_32_cpu",
                        functools.partial(models.resnet18, num_classes=10),
                        2, 32, 2, "float32", 10)
+
+
+# input sizes other than 224 x 224: on the card the published one, on the
+# CPU the smallest that the model takes (the others run at 64 x 64)
+_ZOO_HW = {"inception_v3": 299}
+_ZOO_HW_CPU = {"inception_v3": 75}
+
+
+def zoo_config(name, device) -> BenchConfig:
+    """The training configuration of vision/models' `name` on `device`:
+    on CUDA 1000 classes at its published input size, batch 64, bf16,
+    8 steps; on the CPU 10 classes at a small size, batch 2, float32, 2
+    steps."""
+    ctor = getattr(models, name)
+    if torch.device(device).type == "cuda":
+        hw = _ZOO_HW.get(name, 224)
+        return BenchConfig(f"{name}_{hw}", ctor, 64, hw, 8, "bfloat16",
+                           1000)
+    hw = _ZOO_HW_CPU.get(name, 64)
+    return BenchConfig(f"{name}_{hw}_cpu",
+                       functools.partial(ctor, num_classes=10), 2, hw, 2,
+                       "float32", 10)
 
 
 def conv_linear_macs(model, x):
@@ -98,8 +130,10 @@ class TrainStep:
     Momentum(0.1, 0.9), and bench.py's images and labels from
     RandomState(0). `step(n)` runs the forward in training mode, the
     backward and the update in place, and returns the loss as a float32
-    device tensor, with no host sync. `flops_per_step` counts 2 x the multiply-adds of the
-    convolutions and linear layers x 3 (forward and backward)."""
+    device tensor, with no host sync. Of a tuple of outputs (GoogLeNet's
+    main and aux heads) the loss takes the first, the main head's.
+    `flops_per_step` counts 2 x the multiply-adds of the convolutions and
+    linear layers x 3 (forward and backward)."""
 
     def __init__(self, cfg: BenchConfig, device=None):
         device = resolve_device(device)
@@ -119,7 +153,10 @@ class TrainStep:
             self.model, self.x[:1])
 
     def step(self, n):
-        loss = F.cross_entropy(self.model(self.x), self.y)
+        out = self.model(self.x)
+        if isinstance(out, tuple):
+            out = out[0]
+        loss = F.cross_entropy(out, self.y)
         loss.backward()
         self.opt.step()
         self.opt.clear_grad()
@@ -149,6 +186,8 @@ def run_one(cfg: BenchConfig, steps=None, device=None):
     peak = peak_flops(device)
     stats = [b for k, b in train.model.named_buffers()
              if k.endswith(("_mean", "_variance"))]
+    stem = next((m for m in train.model.modules()
+                 if isinstance(m, _BatchNormBase)), None)
     return {"resnet_images_per_s": cfg.batch * steps / dt,
             "resnet_batch": cfg.batch, "resnet_loss": losses[-1],
             "resnet_variant": cfg.variant,
@@ -160,7 +199,8 @@ def run_one(cfg: BenchConfig, steps=None, device=None):
             "launches_per_step": launches,
             "running_stats_finite": all(bool(torch.isfinite(b).all())
                                         for b in stats),
-            "stem_mean_absmax": train.model.bn1._mean.abs().max().item(),
+            "stem_mean_absmax": (None if stem is None else
+                                 stem._mean.abs().max().item()),
             "seconds": {"setup": setup, "warmup": warmup, "steps": dt},
             **device_report(device)}
 
@@ -169,9 +209,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--model", default=None,
+                    help="a model of vision/models (default: bench.py's "
+                         "ResNet configuration)")
     args = ap.parse_args()
     device = resolve_device(args.device)
-    print(json.dumps(run_one(bench_config(device), args.steps, device)))
+    cfg = (bench_config(device) if args.model is None
+           else zoo_config(args.model, device))
+    print(json.dumps(run_one(cfg, args.steps, device)))
 
 
 if __name__ == "__main__":

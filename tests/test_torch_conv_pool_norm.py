@@ -279,15 +279,34 @@ def test_max_pool_gradient_goes_to_the_first_tied_maximum(k, s, p, dtype):
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("call", [
-    lambda x: PF.max_pool2d(x, 2, return_mask=True),
-    lambda x: PF.adaptive_max_pool2d(x, 2, return_mask=True),
-    lambda x: PF.lp_pool2d(x, 2, 2),
-    lambda x: PF.avg_pool2d(x, 2, divisor_override=3),
+@pytest.mark.parametrize("call,ref", [
+    (lambda x: PF.max_pool2d(x, 2, return_mask=True),
+     lambda x: JF.max_pool2d(x, 2, return_mask=True)),
+    (lambda x: PF.adaptive_max_pool2d(x, 2, return_mask=True),
+     lambda x: JF.adaptive_max_pool2d(x, 2, return_mask=True)),
+    (lambda x: PF.lp_pool2d(x, 2, 2), lambda x: JF.lp_pool2d(x, 2, 2)),
+    (lambda x: PF.avg_pool2d(x, 2, divisor_override=3), None),
 ], ids=["max_mask", "adaptive_mask", "lp_pool", "divisor_override"])
-def test_unported_pool_options_raise(call):
-    with pytest.raises(NotImplementedError):
-        call(torch.zeros(1, 1, 4, 4))
+def test_unported_pool_options_raise(call, ref):
+    """divisor_override is not ported and raises. return_mask and the lp
+    pools raised too until the vision-zoo slice ported them: they now give
+    the reference's results (tests/test_torch_conv_transpose_pool.py holds
+    them to it in full)."""
+    x = np.arange(-5.0, 11.0, dtype=np.float32).reshape(1, 1, 4, 4)
+    if ref is None:
+        with pytest.raises(NotImplementedError):
+            call(torch.as_tensor(x))
+        return
+    got, want = call(torch.as_tensor(x)), ref(paddle.Tensor(x))
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if w is None:
+            assert g is None
+        else:
+            np.testing.assert_allclose(g.numpy(), np.asarray(w._data),
+                                       rtol=1e-6)
 
 
 # -- batch norm -------------------------------------------------------------

@@ -18,8 +18,10 @@ reference's weights carried across by paddle_tpu_torch.convert:
   three steps of tools/train_resnet's TrainStep against bench.py's own
   `_functional_train_setup` and `_jit_train_step` from the same weights
   (losses and final parameters), and `run_one`'s keys;
-- the converter: ResNet, VGG and LeNet states carry across, and a state
-  with a missing, an unexpected or a reshaped key raises.
+- the converter: ResNet, VGG and LeNet states, and one of each family
+  the zoo added (MobileNet V1-V3, DenseNet, AlexNet, SqueezeNet,
+  ShuffleNetV2, GoogLeNet, InceptionV3), carry across, and a state with a
+  missing, an unexpected or a reshaped key raises.
 
 Inputs come from numpy seeds. float32 parity is within F32_TOL (the same
 math summed in other orders; the loss within LOSS_RTOL, the gradients
@@ -61,6 +63,16 @@ LOSS_RTOL = 1e-5
 GRAD_TOL = 1e-4
 STEP_TOL = 1e-4
 BF16_TOL = 1e-2
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """torch on one thread: with a worker's default threads under xdist,
+    every worker's CPU kernels contend for the same cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _np_state(model):
@@ -537,15 +549,48 @@ def test_train_resnet_defaults_to_cuda(monkeypatch):
 
 # -- convert.py --------------------------------------------------------------
 
+# one constructor of each family the zoo added, at sizes that build fast;
+# AlexNet's and SqueezeNet's states hold `features.0.weight` with three
+# input channels, as VGG's do
+ZOO_FAMILIES = [
+    ("mobilenet_v1", dict(scale=0.25, num_classes=10)),
+    ("mobilenet_v2", dict(scale=0.5, num_classes=0)),
+    ("mobilenet_v3_small", dict(scale=0.5, num_classes=10)),
+    ("mobilenet_v3_large", dict(scale=0.35, num_classes=10)),
+    ("densenet121", dict(num_classes=10)),
+    ("alexnet", dict(num_classes=10)),
+    ("squeezenet1_0", dict(num_classes=10)),
+    ("squeezenet1_1", dict(num_classes=0)),
+    ("shufflenet_v2_x0_33", dict(num_classes=10)),
+    ("googlenet", dict(num_classes=10)),
+    ("inception_v3", dict(num_classes=10)),
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _zoo_state(name):
+    """A reference state of the zoo family `name` (ZOO_FAMILIES' arguments):
+    the reference model's keys and shapes (built with its initializers
+    giving zeros, tests/torch_zoo_parity.py), values from a numpy seed."""
+    import torch_zoo_parity
+    kw = dict(ZOO_FAMILIES)[name]
+    ref = torch_zoo_parity.reference_model(name, **kw)
+    rs = np.random.RandomState(len(name))
+    return {k: rs.randn(*np.shape(v._data)).astype(np.float32)
+            for k, v in ref.state_dict().items()}
+
+
 @pytest.mark.parametrize("name,kw", [
     ("resnet18", dict(num_classes=10)),
     ("vgg11", dict(batch_norm=True, num_classes=10)),
     ("vgg13", dict(num_classes=0)),
     ("LeNet", {}),
-], ids=["resnet18", "vgg11_bn", "vgg13_features", "lenet"])
+] + ZOO_FAMILIES, ids=["resnet18", "vgg11_bn", "vgg13_features", "lenet"]
+    + [n for n, _ in ZOO_FAMILIES])
 def test_state_carries_across(name, kw):
     paddle.seed(2)
     np_state = (_np_state(_vgg_pair()[0]) if name == "vgg11" else
+                _zoo_state(name) if name in dict(ZOO_FAMILIES) else
                 _np_state(_build(jmodels, name, **kw)))
     state = state_from_reference(np_state, "cpu", dtype="bfloat16")
     assert set(state) == set(np_state)
@@ -574,11 +619,19 @@ def test_converter_maps_a_grouped_bottleneck_state():
 @pytest.mark.parametrize("name,kw", [
     ("resnet18", dict(num_classes=10)),
     ("LeNet", dict(num_classes=10)),
-], ids=["resnet18", "lenet"])
+] + ZOO_FAMILIES, ids=["resnet18", "lenet"] + [n for n, _ in ZOO_FAMILIES])
 @pytest.mark.parametrize("fn", ["load", "state"])
 def test_converter_rejects_bad_state(fn, name, kw, fault):
-    np_state = dict(_reference_state(name))
-    key = "layer1.0.bn1._mean" if name == "resnet18" else "features.3.bias"
+    if name in dict(ZOO_FAMILIES):
+        np_state = dict(_zoo_state(name))
+        # a batch norm's statistic, or AlexNet's and SqueezeNet's (which
+        # have none) last convolution's bias
+        key = next((k for k in np_state if k.endswith("._mean")), None) \
+            or [k for k in np_state if k.endswith(".bias")][-1]
+    else:
+        np_state = dict(_reference_state(name))
+        key = "layer1.0.bn1._mean" if name == "resnet18" \
+            else "features.3.bias"
     if fault == "missing":
         del np_state[key]
     elif fault == "unexpected":
