@@ -235,6 +235,35 @@ Phases, each of which makes the script exit non-zero if it fails:
      64 x 64 with a 3 x 3 kernel, with and without a mask; nms over 1000
      boxes (the same indices in the same order), each timed. No K1-K4
      launch over the phase. Prints the phase's seconds.
+  19. the high-level API (Model, amp, io, metric, vision.datasets):
+     (a) resnet50 (102 classes, float32 weights from seed(0)) on the
+     synthetic Flowers-102 resized to 224 x 224 and normalized by
+     vision.transforms, through Model.prepare(Momentum(PiecewiseDecay,
+     0.9, L2Decay(1e-4)), CrossEntropyLoss, Accuracy(topk=(1, 5)),
+     amp_configs="O1") and fit(batch_size 64, num_iters 9, 4 loader
+     threads, eval_data Flowers("valid"), LRScheduler and
+     ModelCheckpoint callbacks); then Model.load of the checkpoint into a
+     fresh Model and evaluate again. Prints images/s over the 8 timed
+     iterations (loader included), the loader alone, train_batch ms with
+     the batch on the card, a traced train_batch's kernel time by class
+     and busy share, peak memory, the GradScaler's scale and skipped
+     steps, top-1/top-5. Holds: the O1 cast table of one forward (each
+     hooked op's name and input dtypes: 53 convolutions and the linear in
+     bf16, 53 batch norms and cross_entropy in float32) equal to the
+     CPU's; the first train_batch's loss within RESNET_BF16_LOSS_RTOL of
+     the CPU port's under O1 on the same weights and batch; parameters and
+     optimizer state after load bit-equal to those saved and the second
+     evaluate equal to the first; no K1-K4 launch. (b) bert_base as phase
+     14 with PaddleNLP's optimizer (AdamW, LinearWarmup into
+     PolynomialDecay, apply_decay_param_fun without biases and norms,
+     ClipGradByGlobalNorm(1.0)) through train_bert.run_one, 1 + 4 steps:
+     step ms beside phase 14's, K1/K3/K4 once per layer a step as routed,
+     the losses finite and falling, one step's global norm within
+     HAPI_CLIP_NORM_RTOL of a float64 sum of the same gradients. (c)
+     examples/train_lenet_mnist.py on the port: LeNet, Adam(1e-3), one
+     epoch of MNIST("train") at b64, evaluate on MNIST("test") at b128,
+     the accuracy within HAPI_LENET_ACC_ATOL of the CPU port's run from
+     the same weights and shuffles.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -280,6 +309,10 @@ from paddle_tpu_torch.tools import (bench_decode, profile_serving,
                                     profile_train, train_bert, train_llama,
                                     train_resnet)
 from paddle_tpu_torch.vision import ops as V
+from paddle_tpu_torch import amp, callbacks, io as pio, metric
+from paddle_tpu_torch.vision import datasets as VD
+from paddle_tpu_torch.vision import models as VM
+from paddle_tpu_torch.vision import transforms as VT
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s
 # and bf16 tensor-core FLOP/s
@@ -499,6 +532,31 @@ ZOO_CHECK_BATCH = 2
 ZOO_OPS_F32_RTOL = 1e-4
 ZOO_OPS_BF16_RTOL = 1e-2
 ZOO_DEPTHWISE = "depthwise convolutions"
+
+# phase 19, the high-level API. (a) ResNet-50 on the synthetic Flowers-102
+# through Model.fit under O1: batch 64 of 224 x 224 (ImageNet's mean and
+# std), 1 warm-up + 8 timed iterations, 4 loader threads. Its first
+# train_batch's loss on the card against the CPU port's under the same O1
+# on the same weights and batch: both round each of the 53 convolutions'
+# outputs to bf16, in other orders and algorithms, so each lies within
+# RESNET_BF16_LOSS_RTOL / 2 of a float32 loss, and the two within
+# RESNET_BF16_LOSS_RTOL of each other. (b) BERT-base with PaddleNLP's
+# optimizer, 1 + 4 steps: the clip's float32 global norm on the card
+# against a float64 sum of the same bf16 gradients' squares, within
+# HAPI_CLIP_NORM_RTOL (float32 sums over 1.1e8 squares in a tree of
+# depth ~27, a few units of 2^-24 each). (c) LeNet on the synthetic MNIST
+# as examples/train_lenet_mnist.py runs it: one epoch, then evaluate;
+# the accuracy within HAPI_LENET_ACC_ATOL of the CPU port's run of the
+# same weights and shuffles (one or two of 2048 test images, and the
+# float32 steps part in the last digits)
+HAPI_BATCH = 64
+HAPI_ITERS = 9
+HAPI_WORKERS = 4
+HAPI_MEAN = [0.485, 0.456, 0.406]
+HAPI_STD = [0.229, 0.224, 0.225]
+HAPI_BERT_STEPS = 4
+HAPI_CLIP_NORM_RTOL = 1e-5
+HAPI_LENET_ACC_ATOL = 0.02
 
 # the card's name and power limit as nvidia-smi gives them (phase 1)
 CARD = "not read"
@@ -2334,7 +2392,8 @@ def phase_train(decision):
 
 def phase_bert(decision):
     """BERT-base pretraining (bench.py's configuration) through
-    train_bert.run_one; returns each kernel's launches over the run.
+    train_bert.run_one; returns each kernel's launches over the run and
+    the step's ms.
     `decision` is the router's at BERT's attention shape: each step
     launches K1 once per layer if its forward is the kernel, and K3 and K4
     once per layer if its backward is too. Then the same steps under
@@ -2402,7 +2461,7 @@ def phase_bert(decision):
     if not loss_err <= BERT_LOSS_RTOL:
         sys.exit("chip_smoke: BERT's first loss under the routed attention "
                  "disagrees with the dense backend's")
-    return launches
+    return launches, r["step_ms"]
 
 
 def phase_gpt():
@@ -2964,6 +3023,359 @@ def phase_decode():
     return launches
 
 
+def flowers_transform():
+    """Resize to 224 x 224, to CHW float32 in [0, 1], ImageNet's
+    normalization: the port's vision.transforms as a user writes them."""
+    return VT.Compose([VT.Resize((224, 224)), VT.ToTensor(),
+                       VT.Normalize(mean=HAPI_MEAN, std=HAPI_STD)])
+
+
+def hapi_resnet_model(device):
+    """resnet50 with 102 classes in float32 through Model.prepare with
+    Paddle's ResNet recipe under O1 AMP."""
+    m = pt.Model(VM.resnet50(num_classes=102, device=device))
+    m.prepare(optimizer.Momentum(
+        learning_rate=optimizer.lr.PiecewiseDecay([4], [0.1, 0.01]),
+        momentum=0.9, weight_decay=pt.L2Decay(1e-4),
+        parameters=m.parameters()),
+        pt.nn.CrossEntropyLoss(), metric.Accuracy(topk=(1, 5)),
+        amp_configs="O1")
+    return m
+
+
+class BatchClock(callbacks.Callback):
+    """Each batch's end time (host clock, after the loss's read-back), its
+    loss, and the steps the GradScaler skipped."""
+
+    def __init__(self):
+        self.times, self.losses, self.skipped = [], [], 0
+
+    def on_train_batch_end(self, step, logs=None):
+        self.times.append(time.perf_counter())
+        self.losses.append(logs["loss"])
+        scaler = getattr(self.model, "_scaler", None)
+        self.skipped += bool(scaler is not None and scaler._found_inf)
+
+
+def cast_table(net, x, y):
+    """(op name, input dtypes after the cast) of every op amp hooks in one
+    eval-mode forward and cross-entropy under O1 (integers as "int")."""
+    table = []
+    amp._op_observer = lambda name, ts: table.append((name, tuple(
+        "int" if not t.is_floating_point() else str(t.dtype)[6:]
+        for t in ts)))
+    modes = [(mod, mod.training) for mod in net.modules()]
+    net.eval()
+    try:
+        with torch.no_grad(), amp.auto_cast(level="O1"):
+            pt.nn.functional.cross_entropy(net(x), y)
+    finally:
+        amp._op_observer = None
+        for mod, was in modes:
+            mod.training = was
+    return table
+
+
+def loader_images_per_s(dataset):
+    """Images/s of the fit's loader alone (shuffled, HAPI_WORKERS threads)
+    over HAPI_ITERS - 1 batches after the first."""
+    np.random.seed(1)
+    loader = pio.DataLoader(dataset, batch_size=HAPI_BATCH, shuffle=True,
+                            num_workers=HAPI_WORKERS)
+    t0 = None
+    for i, (x, _) in enumerate(loader):
+        if i == 0:
+            t0 = time.perf_counter()
+        if i == HAPI_ITERS - 1:
+            break
+    return (HAPI_ITERS - 1) * HAPI_BATCH / (time.perf_counter() - t0)
+
+
+def ms_beside_loader(dataset, fn, n=5):
+    """fn()'s mean ms over n calls (each ending in a host sync) while a
+    shuffled DataLoader of `dataset` (HAPI_WORKERS threads) is iterated
+    in a thread beside them: what the loader's threads cost the thread
+    that launches the step."""
+    import threading
+    stop = threading.Event()
+
+    def drain():
+        loader = pio.DataLoader(dataset, batch_size=HAPI_BATCH, shuffle=True,
+                                num_workers=HAPI_WORKERS)
+        for _ in loader:
+            if stop.is_set():
+                break
+
+    t = threading.Thread(target=drain)
+    t.start()
+    try:
+        time.sleep(0.5)             # the workers are fetching
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / n * 1e3
+    finally:
+        stop.set()
+        t.join()
+
+
+def same_state(a, b):
+    """Whether two (optimizer or network) state dicts are equal, tensors
+    bit for bit."""
+    if a.keys() != b.keys():
+        return False
+    for k, v in a.items():
+        w = b[k]
+        if isinstance(v, torch.Tensor):
+            if not (v.dtype == w.dtype and torch.equal(v.cpu(), w.cpu())):
+                return False
+        elif v != w:
+            return False
+    return True
+
+
+def phase_hapi_resnet():
+    """(a) ResNet-50 on Flowers-102 through Model.fit with O1 AMP; returns
+    the flash kernels' launches over the fit (none is on this path)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    tf = flowers_transform()
+    train = VD.Flowers(mode="train", transform=tf)
+    valid = VD.Flowers(mode="valid", transform=tf)
+    pt.seed(0)
+    m = hapi_resnet_model("cuda")
+    init = {k: v.detach().cpu().clone()
+            for k, v in m.network.state_dict().items()}
+    cpu_net = VM.resnet50(num_classes=102, device="cpu")
+    cpu_net.load_state_dict(init)
+    x2, y2 = pio.default_collate_fn([train[i] for i in range(2)])
+    card_table = cast_table(m.network, x2.cuda(), y2.cuda())
+    cpu_table = cast_table(cpu_net, x2, y2)
+    loader_ips = loader_images_per_s(train)
+
+    first = {}
+    fit_batch = m.train_batch
+
+    def capture(inputs, labels=None, update=True):
+        if not first:
+            first["x"], first["y"] = inputs.clone(), labels.clone()
+        return fit_batch(inputs, labels, update)
+
+    m.train_batch = capture
+    clock = BatchClock()
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_hapi_")
+    try:
+        zero_flash_launches()                  # the hapi path starts here
+        torch.cuda.reset_peak_memory_stats()
+        np.random.seed(0)
+        t0 = time.perf_counter()
+        m.fit(train, eval_data=valid, batch_size=HAPI_BATCH,
+              num_iters=HAPI_ITERS, num_workers=HAPI_WORKERS, verbose=0,
+              callbacks=[callbacks.LRScheduler(),
+                         callbacks.ModelCheckpoint(save_dir=ckpt), clock])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = train_llama.launch_counts()  # the hapi path ends here
+        k2 = fa.flash_fwd_rms_epilogue_launches
+        peak = torch.cuda.max_memory_allocated()
+        del m.train_batch
+        ev1 = m.evaluate(valid, batch_size=HAPI_BATCH,
+                         num_workers=HAPI_WORKERS, verbose=0)
+        m2 = hapi_resnet_model("cuda")
+        m2.load(os.path.join(ckpt, "final"))
+        params_equal = same_state(m.network.state_dict(),
+                                  m2.network.state_dict())
+        opt_equal = same_state(m._optimizer.state_dict(),
+                               m2._optimizer.state_dict())
+        ev2 = m2.evaluate(valid, batch_size=HAPI_BATCH,
+                          num_workers=HAPI_WORKERS, verbose=0)
+        del m2
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    x, y = first["x"].cuda(), first["y"].cuda()
+    for _ in range(2):
+        m.train_batch(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        m.train_batch(x, y)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) / 5 * 1e3
+    beside_ms = ms_beside_loader(train, lambda: m.train_batch(x, y))
+    by_class = kernel_ms_by_class(lambda: m.train_batch(x, y), resnet_class)
+    scale, skipped = m._scaler._scale, clock.skipped
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cpu_net.train()
+    with torch.no_grad(), amp.auto_cast(level="O1"):
+        cpu_loss = float(pt.nn.functional.cross_entropy(cpu_net(first["x"]),
+                                                        first["y"]))
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(clock.losses[0] - cpu_loss) / abs(cpu_loss)
+    timed = clock.times[-1] - clock.times[0]
+    ips = (len(clock.times) - 1) * HAPI_BATCH / timed
+    log(f"hapi resnet50 O1 [{CARD}]: fit of {HAPI_ITERS} iterations at "
+        f"b{HAPI_BATCH} 224x224 ({HAPI_WORKERS} loader threads) and the "
+        f"evaluate of {len(valid)} images in {fit_s:.2f} s; "
+        f"{ips:.1f} images/s over the {len(clock.times) - 1} timed "
+        f"iterations, loader included ({timed / (len(clock.times) - 1) * 1e3:.2f} "
+        f"ms an iteration); the loader alone {loader_ips:.1f} images/s; "
+        f"train_batch with the batch on the card {batch_ms:.2f} ms "
+        f"({HAPI_BATCH / batch_ms * 1e3:.1f} images/s), {beside_ms:.2f} ms "
+        f"with the loader's threads running beside it ({os.cpu_count()} "
+        f"host CPUs); peak memory {peak / 2**30:.2f} GiB")
+    log(f"hapi resnet50 O1, one traced train_batch: {class_line(by_class)}; "
+        f"busy {sum(by_class.values()) / batch_ms:.1%} of train_batch")
+    log(f"hapi resnet50 O1: losses {clock.losses}; GradScaler scale "
+        f"{scale:g}, {skipped} steps skipped; evaluate top-1 "
+        f"{ev1['acc_top1']:.4f} top-5 {ev1['acc_top5']:.4f} loss "
+        f"{ev1['loss'][0]:.6f}; after Model.load into a fresh Model: "
+        f"parameters equal {params_equal}, optimizer state equal "
+        f"{opt_equal}, evaluate {ev2}")
+    log(f"hapi resnet50 O1: cast table of {len(card_table)} ops equal to "
+        f"the CPU's {card_table == cpu_table} ("
+        + ", ".join(f"{n} x{c}: {d}" for (n, d), c in sorted(
+            {(n, d): sum(1 for e in card_table if e == (n, d))
+             for n, d in card_table}.items())) + f"); first loss "
+        f"{clock.losses[0]:.6f} vs the CPU's {cpu_loss:.6f} (rel err "
+        f"{loss_err:.3e}, tol {RESNET_BF16_LOSS_RTOL}; CPU forward "
+        f"{cpu_s:.1f} s); launches over the fit {launches}, K2 {k2}")
+    want_ops = {("conv2d", ("bfloat16",) * 2): 53,
+                ("batch_norm", ("float32",) * 5): 53,
+                ("linear", ("bfloat16",) * 3): 1,
+                ("cross_entropy", ("float32", "int")): 1}
+    counts = {}
+    for e in card_table:
+        counts[e] = counts.get(e, 0) + 1
+    if card_table != cpu_table or counts != want_ops:
+        sys.exit("chip_smoke: the O1 cast table on the card differs from "
+                 "the CPU's or from the reference's lists")
+    if not all(np.isfinite(clock.losses)) or len(clock.losses) != \
+            HAPI_ITERS:
+        sys.exit("chip_smoke: Model.fit's losses are not finite or not "
+                 f"{HAPI_ITERS}")
+    if not loss_err <= RESNET_BF16_LOSS_RTOL:
+        sys.exit("chip_smoke: the first O1 loss on the card disagrees with "
+                 "the CPU's")
+    if not (params_equal and opt_equal and ev1 == ev2):
+        sys.exit("chip_smoke: the checkpoint did not round-trip")
+    if k2 or any(launches.values()):
+        sys.exit("chip_smoke: the hapi ResNet run launched a flash kernel")
+    return launches
+
+
+def phase_hapi_bert(decision, phase14_ms):
+    """(b) BERT-base (bench.py's configuration) with PaddleNLP's optimizer
+    through train_bert.run_one(optimizer_name="paddlenlp"); returns each
+    kernel's launches over the run. First one step's clip global norm
+    against a float64 recomputation of the same gradients."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, batch, seq, _, dtype = train_bert.bench_config("cuda")
+    n_layers = cfg.num_hidden_layers
+    train = train_bert.TrainStep(cfg, batch, seq, dtype, "cuda",
+                                 "paddlenlp", HAPI_BERT_STEPS + 1)
+    train.model(train.ids, masked_lm_labels=train.labels)[0].float() \
+        .backward()
+    grads = [p.grad for p in train.model.parameters() if p.grad is not None]
+    norm = float(pt.nn.ClipGradByGlobalNorm.global_norm(grads))
+    norm64 = float(torch.stack([g.double().square().sum()
+                                for g in grads]).sum().sqrt())
+    del train, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    norm_err = abs(norm - norm64) / norm64
+    zero_flash_launches()                      # the path starts here
+    r = train_bert.run_one(cfg, batch, seq, HAPI_BERT_STEPS, dtype,
+                           device="cuda", optimizer_name="paddlenlp")
+    launches = train_llama.launch_counts()     # the path ends here
+    log(f"hapi bert_base PaddleNLP AdamW [{CARD}]: LinearWarmup into "
+        f"PolynomialDecay, decay but on biases and norms, "
+        f"ClipGradByGlobalNorm(1.0); b{batch} s{seq} {dtype}; step "
+        f"{r['step_ms']:.2f} ms against phase 14's {phase14_ms:.2f} ms "
+        f"({r['step_ms'] - phase14_ms:+.2f} ms), peak memory "
+        f"{r['peak_memory_bytes'] / 2**30:.2f} GiB; losses {r['losses']}; "
+        f"global norm {norm:.6f} vs float64 {norm64:.6f} (rel err "
+        f"{norm_err:.3e}, tol {HAPI_CLIP_NORM_RTOL}); launches {launches}")
+    fwd = decision.fwd == "pallas"
+    bwd = fwd and decision.bwd == "pallas"
+    want = {"flash_fwd": n_layers if fwd else 0,
+            "flash_bwd_dq": n_layers if bwd else 0,
+            "flash_bwd_dkv": n_layers if bwd else 0}
+    if not all(np.isfinite(r["losses"])) or not \
+            r["losses"][-1] < r["losses"][0]:
+        sys.exit("chip_smoke: the PaddleNLP-recipe BERT losses are not "
+                 "finite or did not fall")
+    if any(per_step != want for per_step in r["launches_per_step"]):
+        sys.exit(f"chip_smoke: a PaddleNLP-recipe BERT step launched "
+                 f"{r['launches_per_step']}, expected {want} each")
+    if not norm_err <= HAPI_CLIP_NORM_RTOL:
+        sys.exit("chip_smoke: the clip's global norm disagrees with float64")
+    return launches
+
+
+def lenet_mnist(device, init):
+    """examples/train_lenet_mnist.py on the port: LeNet (weights `init`),
+    Adam(1e-3), CrossEntropyLoss, Accuracy; one epoch of MNIST("train")
+    at b64 in a shuffle from np.random.seed(0), then evaluate on
+    MNIST("test") at b128. Returns (losses, evaluate's result, seconds)."""
+    net = VM.LeNet(device=device)
+    net.load_state_dict(init)
+    m = pt.Model(net)
+    m.prepare(optimizer.Adam(1e-3, parameters=m.parameters()),
+              pt.nn.CrossEntropyLoss(), metric.Accuracy())
+    clock = BatchClock()
+    np.random.seed(0)
+    t0 = time.perf_counter()
+    m.fit(VD.MNIST(mode="train"), epochs=1, batch_size=64, verbose=0,
+          callbacks=[clock])
+    res = m.evaluate(VD.MNIST(mode="test"), batch_size=128, verbose=0)
+    return clock.losses, res, time.perf_counter() - t0
+
+
+def phase_hapi_lenet():
+    """(c) The ladder's first rung on the card against the CPU port's run
+    of the same weights; returns the flash kernels' launches (none)."""
+    pt.seed(0)
+    init = VM.LeNet(device="cpu").state_dict()
+    zero_flash_launches()
+    losses, res, secs = lenet_mnist("cuda", init)
+    launches = train_llama.launch_counts()
+    cpu_losses, cpu_res, cpu_secs = lenet_mnist("cpu", init)
+    acc_err = abs(res["acc"] - cpu_res["acc"])
+    log(f"hapi lenet MNIST [{CARD}]: {len(losses)} batches of 64, loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; test loss "
+        f"{res['loss'][0]:.4f} acc {res['acc']:.4f} ({secs:.2f} s); the "
+        f"CPU's: loss {cpu_losses[0]:.4f} -> {cpu_losses[-1]:.4f}, test "
+        f"loss {cpu_res['loss'][0]:.4f} acc {cpu_res['acc']:.4f} "
+        f"({cpu_secs:.2f} s); acc diff {acc_err:.4f} (tol "
+        f"{HAPI_LENET_ACC_ATOL})")
+    if len(losses) != 32 or not all(np.isfinite(losses)) or not \
+            losses[-1] < losses[0]:
+        sys.exit("chip_smoke: LeNet's epoch did not train")
+    if not acc_err <= HAPI_LENET_ACC_ATOL:
+        sys.exit("chip_smoke: LeNet's accuracy on the card disagrees with "
+                 "the CPU's")
+    if any(launches.values()):
+        sys.exit("chip_smoke: the LeNet run launched a flash kernel")
+    return launches
+
+
+def phase_hapi(decision, phase14_ms):
+    """Phase 19: the high-level API on the card; each path's flash kernel
+    launches summed."""
+    t0 = time.perf_counter()
+    runs = (phase_hapi_resnet(), phase_hapi_bert(decision, phase14_ms),
+            phase_hapi_lenet())
+    log(f"phase 19 (hapi) took {time.perf_counter() - t0:.1f} s")
+    return {k: sum(r[k] for r in runs) for k in runs[0]}
+
+
 def main():
     phase_device()
     phase_build()
@@ -2982,18 +3394,19 @@ def main():
     del model
     epilogue = phase_epilogue(decisions)
     train = phase_train(decisions["train"][0])
-    bert = phase_bert(decisions["bert"][0])
+    bert, bert_ms = phase_bert(decisions["bert"][0])
     gpt = phase_gpt()
     resnet = phase_resnet()
     decode = phase_decode()
     zoo = phase_zoo()
+    hapi = phase_hapi(decisions["bert"][0], bert_ms)
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # K1 runs on the serving (bf16 and int8), predictor, training, BERT,
-    # GPT and decode paths, K3
-    # and K4 on the training and BERT paths (the ResNet and vision-zoo
+    # GPT, decode and hapi BERT paths, K3 and K4 on the training, BERT and
+    # hapi BERT paths (the ResNet, vision-zoo and hapi ResNet and LeNet
     # paths add none, counted all the same); their times are the Llama
     # training shape's (phases 3 and 5 print BERT's too). K2's are
     # the serving prefill shape's (no single library call computes it).
@@ -3003,7 +3416,7 @@ def main():
                     launches=(serve + predictor + train["flash_fwd"]
                               + bert["flash_fwd"] + gpt
                               + resnet["flash_fwd"] + decode
-                              + zoo["flash_fwd"]),
+                              + zoo["flash_fwd"] + hapi["flash_fwd"]),
                     **{key: k1["train"][key] for key in keys}),
                dict(name="flash_fwd_rms_epilogue", route="cuda",
                     source=src + "fwd.cu", replaces=ref + "116",
@@ -3012,13 +3425,15 @@ def main():
                dict(name="flash_bwd_dq", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "198",
                     launches=(train["flash_bwd_dq"] + bert["flash_bwd_dq"]
-                              + resnet["flash_bwd_dq"] + zoo["flash_bwd_dq"]),
+                              + resnet["flash_bwd_dq"] + zoo["flash_bwd_dq"]
+                              + hapi["flash_bwd_dq"]),
                     **k34["train"]["dq"]),
                dict(name="flash_bwd_dkv", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "249",
                     launches=(train["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
                               + resnet["flash_bwd_dkv"]
-                              + zoo["flash_bwd_dkv"]),
+                              + zoo["flash_bwd_dkv"]
+                              + hapi["flash_bwd_dkv"]),
                     **k34["train"]["dkv"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

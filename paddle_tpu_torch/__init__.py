@@ -9,9 +9,15 @@ no work that needs a GPU; the CUDA kernels are built at first use
 
 __version__ = "0.1.0"
 
-from . import generation, models, optimizer  # noqa: E402
-from .framework import (get_device, get_flags, seed,  # noqa: E402
-                        set_device, set_flags)
+from . import (amp, generation, io, metric, models, nn,  # noqa: E402
+               optimizer, regularizer, vision)
+from . import hapi  # noqa: E402
+from .framework import (L1Decay, L2Decay, ParamAttr,  # noqa: E402
+                        get_device, get_flags, load, save, seed, set_device,
+                        set_flags)
+from .hapi import Model, callbacks, flops, summary  # noqa: E402
 
 __all__ = ["seed", "set_device", "get_device", "set_flags", "get_flags",
-           "models", "generation", "optimizer"]
+           "models", "generation", "optimizer", "nn", "amp", "io", "metric",
+           "vision", "hapi", "callbacks", "regularizer", "Model", "summary",
+           "flops", "save", "load", "ParamAttr", "L1Decay", "L2Decay"]

@@ -8,9 +8,11 @@ instead of re-seeding.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-__all__ = ["seed", "get_generator"]
+__all__ = ["seed", "get_generator", "generator_scope"]
 
 _SEED = [0]
 _GENERATORS: dict = {}
@@ -41,3 +43,22 @@ def get_generator(device) -> torch.Generator:
         gen.manual_seed(_SEED[0])
         _GENERATORS[dev] = gen
     return gen
+
+
+@contextlib.contextmanager
+def generator_scope(key):
+    """Draw from `key` inside the block: an int restarts every device's
+    generator from it (as `seed` would), a torch.Generator stands in for
+    its own device's. The generators in use before come back after it.
+    The port's counterpart of the reference's rng-key trace scope."""
+    saved = dict(_GENERATORS), _SEED[0]
+    if isinstance(key, torch.Generator):
+        _GENERATORS[_key(key.device)] = key
+    else:
+        seed(key)
+    try:
+        yield
+    finally:
+        _GENERATORS.clear()
+        _GENERATORS.update(saved[0])
+        _SEED[0] = saved[1]

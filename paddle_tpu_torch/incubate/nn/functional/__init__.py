@@ -30,6 +30,7 @@ import math
 
 import torch
 
+from ....amp import _cast
 from ....framework.random import get_generator
 from ....nn import functional as F
 from ....nn.functional import scaled_dot_product_attention, silu
@@ -63,18 +64,18 @@ def fused_rms_norm(x, norm_weight=None, norm_bias=None, epsilon=1e-6,
     if quant_scale > 0:
         raise NotImplementedError("fused_rms_norm: int8 output quantization "
                                   "(quant_scale > 0) is not ported")
-    a = x
-    if residual is not None:
-        a = a + residual
-    if bias is not None:
-        a = a + bias
+    a, res, b, w = _cast("rms_norm", x, residual, bias, norm_weight)
+    if res is not None:
+        a = a + res
+    if b is not None:
+        a = a + b
     a32 = a.float()
     ms = torch.mean(a32 * a32, dim=-1, keepdim=True)
     out = (a32 * torch.rsqrt(ms + epsilon)).to(a.dtype)
-    if norm_weight is not None:
-        out = out * norm_weight
+    if w is not None:
+        out = out * w
     if residual is not None:
-        return out, a
+        return out, (x + residual if bias is None else x + residual + bias)
     return out
 
 
@@ -228,6 +229,7 @@ def fused_layer_norm(x, norm_weight, norm_bias, epsilon=1e-5,
 def fused_matmul_bias(x, y, bias=None, transpose_x=False, transpose_y=False,
                       name=None):
     """x @ y (each optionally transposed over its last two axes) + bias."""
+    x, y, bias = _cast("fused_matmul_bias", x, y, bias)
     if transpose_x:
         x = x.transpose(-1, -2)
     if transpose_y:
@@ -249,6 +251,7 @@ def fused_linear_activation(x, y, bias, trans_x=False, trans_y=False,
                             activation="gelu"):
     """act(x @ y + bias) with act gelu (tanh form) or relu, anything else
     the identity, as the reference's."""
+    x, y, bias = _cast("linear", x, y, bias)
     if trans_x:
         x = _reversed(x)
     if trans_y:

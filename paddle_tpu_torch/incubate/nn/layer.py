@@ -36,10 +36,9 @@ def _create(shape, attr=None, is_bias=False, default=None, dtype="float32",
     """The reference's create_parameter: None for attr False, else the
     initializer `attr`, `default`, or zeros for a bias and XavierUniform
     for a weight."""
-    if attr is False:
-        return None
-    init = attr or default or (Constant(0.0) if is_bias else XavierUniform())
-    return _param(init, shape, dtype, device)
+    return _param(attr, default or (Constant(0.0) if is_bias
+                                    else XavierUniform()),
+                  shape, dtype, device)
 
 
 class FusedLinear(nn.Module):

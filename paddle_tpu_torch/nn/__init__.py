@@ -1,4 +1,8 @@
 from . import functional, initializer
+from .clip import (ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue,
+                   clip_grad_norm_, clip_grad_value_)
+from .layer import loss as _loss
+from .layer.loss import *  # noqa: F401,F403
 from .layer import (AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
                     AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D,
                     AvgPool1D, AvgPool2D, AvgPool3D, BatchNorm, BatchNorm1D,
@@ -19,3 +23,5 @@ __all__ = ["functional", "initializer", "Dropout", "Embedding", "LayerList",
            "AdaptiveAvgPool3D", "AdaptiveMaxPool1D", "AdaptiveMaxPool2D",
            "AdaptiveMaxPool3D", "LPPool1D", "LPPool2D", "MaxUnPool1D",
            "MaxUnPool2D", "MaxUnPool3D"]
+__all__ += ["ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
+            "clip_grad_norm_", "clip_grad_value_"] + _loss.__all__

@@ -1,13 +1,18 @@
 """Activation functionals. reference: paddle_tpu/nn/functional/activation.py
 (`relu` :30, `tanh` :33, `silu` :34, `relu6` :53, `gelu` :68, `swish`
-:72, `hardsigmoid` :96, `hardswish` :100)."""
+:72, `hardsigmoid` :96, `hardswish` :100, `softmax` :117,
+`log_softmax` :130); softmax and log_softmax are AMP black ops
+(amp._cast)."""
 
 from __future__ import annotations
 
 import torch
 
+from ...amp import _cast
+from ...framework.dtypes import convert_dtype
+
 __all__ = ["relu", "tanh", "silu", "gelu", "relu6", "swish", "hardsigmoid",
-           "hardswish"]
+           "hardswish", "softmax", "log_softmax"]
 
 
 def relu(x, name=None):
@@ -55,3 +60,17 @@ def hardsigmoid(x, slope=0.1666667, offset=0.5, name=None):
 def hardswish(x, name=None):
     """x * clip(x + 3, 0, 6) / 6."""
     return x * _clip(x + 3.0, 0.0, 6.0) / 6.0
+
+
+def softmax(x, axis=-1, dtype=None, name=None):
+    (x,) = _cast("softmax", x)
+    if dtype is not None:
+        x = x.to(convert_dtype(dtype))
+    return torch.softmax(x, dim=axis)
+
+
+def log_softmax(x, axis=-1, dtype=None, name=None):
+    (x,) = _cast("log_softmax", x)
+    if dtype is not None:
+        x = x.to(convert_dtype(dtype))
+    return torch.log_softmax(x, dim=axis)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import _cast
 from ...framework import flags as _flags
 from ...framework.random import get_generator
 from ...ops.flash_attention import NEG_INF, flash_attention_bshd, kernel_takes
@@ -92,7 +93,11 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if dropout_p == 0.0 and _use_pallas(
             tuple(query.shape), query.shape[-1], attn_mask is not None,
             dtype=query.dtype, causal=is_causal, device=query.device):
+        query, key, value = _cast("flash_attention_pallas", query, key,
+                                  value)
         return flash_attention_bshd(query, key, value, causal=is_causal)
+    query, key, value, attn_mask = _cast("scaled_dot_product_attention",
+                                         query, key, value, attn_mask)
     k, v = _expand_kv(key, value, query.shape[2])
     return _dense_attention(query, k, v, bias=attn_mask, causal=is_causal,
                             dropout_p=dropout_p)

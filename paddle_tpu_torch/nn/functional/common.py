@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import _cast
 from ...framework.random import get_generator
 
 __all__ = ["linear", "dropout", "embedding"]
@@ -13,6 +14,7 @@ __all__ = ["linear", "dropout", "embedding"]
 
 def linear(x, weight, bias=None, name=None):
     """y = x @ W + b with W shaped (in, out), Paddle's layout."""
+    x, weight, bias = _cast("linear", x, weight, bias)
     out = x @ weight
     return out if bias is None else out + bias
 

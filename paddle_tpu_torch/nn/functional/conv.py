@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch.nn.functional as TF
 
+from ...amp import _cast
+
 __all__ = ["conv1d", "conv2d", "conv3d", "conv1d_transpose",
            "conv2d_transpose", "conv3d_transpose"]
 
@@ -76,6 +78,7 @@ def same_pads(spatial, kernel, stride, dilation):
 
 def _conv(x, weight, bias, stride, padding, dilation, groups, data_format,
           n):
+    x, weight, bias = _cast(f"conv{n}d", x, weight, bias)
     sd = _tuple(stride, n)
     dd = _tuple(dilation, n)
     pad = _padding(padding, n, data_format)
@@ -135,6 +138,7 @@ def _transpose_pads(padding, n, data_format, k_eff, sd):
 
 def _conv_transpose(x, weight, bias, stride, padding, output_padding,
                     dilation, groups, data_format, n, output_size=None):
+    x, weight, bias = _cast(f"conv{n}d_transpose", x, weight, bias)
     sd = _tuple(stride, n)
     dd = _tuple(dilation, n)
     opad = (_tuple(output_padding, n) if output_padding is not None

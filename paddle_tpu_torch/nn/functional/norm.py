@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ...amp import _cast
 from ...framework.dtypes import rounded
 
 __all__ = ["batch_norm", "layer_norm", "rms_norm"]
@@ -32,10 +33,13 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     use_stats = (not training) if use_global_stats is None \
         else use_global_stats
     if use_stats:
+        x, running_mean, running_var, weight, bias = _cast(
+            "batch_norm", x, running_mean, running_var, weight, bias)
         rv = running_var.reshape(shape)
         out = (x - running_mean.reshape(shape)) * torch.rsqrt(
             rv + rounded(epsilon, rv.dtype))
     else:
+        x, weight, bias = _cast("batch_norm", x, weight, bias)
         axes = tuple(i for i in range(x.dim()) if i != ch)
         v, m = torch.var_mean(x.to(torch.promote_types(x.dtype,
                                                        torch.float32)),
@@ -67,6 +71,7 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
     if isinstance(normalized_shape, int):
         normalized_shape = (normalized_shape,)
     dims = tuple(range(x.dim() - len(tuple(normalized_shape)), x.dim()))
+    x, weight, bias = _cast("layer_norm", x, weight, bias)
     x32 = x.float()
     var, mean = torch.var_mean(x32, dim=dims, keepdim=True, correction=0)
     out = ((x32 - mean) * torch.rsqrt(var + epsilon)).to(x.dtype)
@@ -81,6 +86,7 @@ def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     """RMSNorm in the reference's rounding order (norm.py:101-112): the mean
     square and the normalization in fp32, cast back to x's dtype, and only
     then the multiply by the weight."""
+    x, weight = _cast("rms_norm", x, weight)
     x32 = x.float()
     ms = torch.mean(x32 * x32, dim=-1, keepdim=True)
     out = (x32 * torch.rsqrt(ms + epsilon)).to(x.dtype)

@@ -6,6 +6,8 @@ from .container import LayerList, Sequential
 from .conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
                    Conv3DTranspose)
 from .extras import MaxUnPool1D, MaxUnPool2D, MaxUnPool3D
+from . import loss as _loss
+from .loss import *  # noqa: F401,F403
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
                    LayerNorm, RMSNorm)
 from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
@@ -24,3 +26,4 @@ __all__ = ["Dropout", "Embedding", "LayerList", "LayerNorm", "Linear",
            "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
            "LPPool1D", "LPPool2D", "MaxUnPool1D", "MaxUnPool2D",
            "MaxUnPool3D"]
+__all__ += _loss.__all__

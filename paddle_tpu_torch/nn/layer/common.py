@@ -7,10 +7,11 @@ Each layer takes the reference's parameters in the reference's order,
 `dtype` and `device` as keyword-only parameters.
 
 Parameter names and shapes follow the reference so that `state_dict()` keys
-and shapes equal the JAX model's: `Linear.weight` is (in, out). The port
-has no `ParamAttr`: `weight_attr` and `bias_attr` take an initializer
-(nn/initializer.py) or None for the reference's default; `bias_attr=False`
-leaves the bias out.
+and shapes equal the JAX model's: `Linear.weight` is (in, out).
+`weight_attr` and `bias_attr` take a `ParamAttr` (its initializer,
+`trainable`, `name` and `learning_rate`, as the reference's
+`create_parameter` reads them), an initializer (nn/initializer.py), or
+None for the reference's default; `bias_attr=False` leaves the bias out.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from torch import nn
 
 from ...framework.device import resolve_device
 from ...framework.dtypes import convert_dtype
+from ...framework.param_attr import ParamAttr
 from ...framework.random import get_generator
 from .. import functional as F
 from ..initializer import Constant, Normal, XavierUniform
@@ -27,11 +29,28 @@ from ..initializer import Constant, Normal, XavierUniform
 __all__ = ["Linear", "Embedding", "Dropout"]
 
 
-def _param(init, shape, dtype, device):
+def _param(attr, default, shape, dtype, device):
+    """The reference's `create_parameter` (nn/layer/layers.py:48-80): None
+    when `attr` is False; else drawn by `attr`'s initializer (a ParamAttr's
+    or `attr` itself) or `default`, with the ParamAttr's `trainable`, its
+    `name` as `param_name` (torch's `Tensor.name` cannot be set), and
+    `optimize_attr = {"learning_rate": lr}` (1.0 without a ParamAttr);
+    the optimizers read both."""
+    if attr is False:
+        return None
+    init, trainable, name, lr = default, True, None, 1.0
+    if isinstance(attr, ParamAttr):
+        init = attr.initializer or default
+        trainable, name, lr = attr.trainable, attr.name, attr.learning_rate
+    elif attr is not None and attr is not True:
+        init = attr
     device = resolve_device(device)
     data = init(tuple(shape), convert_dtype(dtype), device,
                 get_generator(device))
-    return nn.Parameter(data)
+    p = nn.Parameter(data, requires_grad=trainable)
+    p.param_name = name
+    p.optimize_attr = {"learning_rate": lr}
+    return p
 
 
 class Linear(nn.Module):
@@ -44,11 +63,10 @@ class Linear(nn.Module):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = _param(weight_attr or XavierUniform(),
+        self.weight = _param(weight_attr, XavierUniform(),
                              (in_features, out_features), dtype, device)
-        self.bias = (None if bias_attr is False else
-                     _param(bias_attr or Constant(0.0), (out_features,),
-                            dtype, device))
+        self.bias = _param(bias_attr, Constant(0.0), (out_features,), dtype,
+                           device)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -70,7 +88,7 @@ class Embedding(nn.Module):
         self.padding_idx = (padding_idx if padding_idx is None
                             or padding_idx >= 0
                             else num_embeddings + padding_idx)
-        self.weight = _param(weight_attr or Normal(0.0, 1.0),
+        self.weight = _param(weight_attr, Normal(0.0, 1.0),
                              (num_embeddings, embedding_dim), dtype, device)
         if self.padding_idx is not None:
             with torch.no_grad():

@@ -34,11 +34,10 @@ def _kernel_params(module, in_channels, out_channels, kernel_size, n,
     bound = 1.0 / math.sqrt(in_channels // groups * math.prod(ks))
     shape = ((in_channels, out_channels // groups) if transpose
              else (out_channels, in_channels // groups)) + ks
-    module.weight = _param(weight_attr or Uniform(-bound, bound), shape,
+    module.weight = _param(weight_attr, Uniform(-bound, bound), shape,
                            dtype, device)
-    module.bias = (None if bias_attr is False else
-                   _param(bias_attr or Uniform(-bound, bound),
-                          (out_channels,), dtype, device))
+    module.bias = _param(bias_attr, Uniform(-bound, bound), (out_channels,),
+                         dtype, device)
 
 
 def _default_format(n):

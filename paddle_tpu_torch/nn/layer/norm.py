@@ -35,12 +35,10 @@ class _BatchNormBase(nn.Module):
         self._data_format = ("NCHW" if data_format in
                              ("NC", "NCL", "NCHW", "NCDHW") else "NHWC")
         self._use_global_stats = use_global_stats
-        self.weight = (None if weight_attr is False else
-                       _param(weight_attr or Constant(1.0), (num_features,),
-                              dtype, device))
-        self.bias = (None if bias_attr is False else
-                     _param(bias_attr or Constant(0.0), (num_features,),
-                            dtype, device))
+        self.weight = _param(weight_attr, Constant(1.0), (num_features,),
+                             dtype, device)
+        self.bias = _param(bias_attr, Constant(0.0), (num_features,), dtype,
+                           device)
         device = resolve_device(device)
         self.register_buffer("_mean", torch.zeros(
             num_features, dtype=torch.float32, device=device))
@@ -83,12 +81,10 @@ class LayerNorm(nn.Module):
             normalized_shape = (normalized_shape,)
         self.normalized_shape = tuple(normalized_shape)
         self.epsilon = epsilon
-        self.weight = (None if weight_attr is False else
-                       _param(weight_attr or Constant(1.0),
-                              self.normalized_shape, dtype, device))
-        self.bias = (None if bias_attr is False else
-                     _param(bias_attr or Constant(0.0),
-                            self.normalized_shape, dtype, device))
+        self.weight = _param(weight_attr, Constant(1.0),
+                             self.normalized_shape, dtype, device)
+        self.bias = _param(bias_attr, Constant(0.0), self.normalized_shape,
+                           dtype, device)
 
     def forward(self, x):
         return F.layer_norm(x, self.normalized_shape, self.weight, self.bias,
@@ -103,7 +99,7 @@ class RMSNorm(nn.Module):
                  name=None, *, dtype="float32", device=None):
         super().__init__()
         self.epsilon = epsilon
-        self.weight = _param(weight_attr or Constant(1.0), (hidden_size,),
+        self.weight = _param(weight_attr, Constant(1.0), (hidden_size,),
                              dtype, device)
 
     def forward(self, x):

@@ -1,7 +1,7 @@
 """Functional pieces of the training step. reference:
 paddle_tpu/parallel/functional.py — `functional_call` (:21),
-`split_stacked_layer_params` (:112), `rmsnorm_lm_loss` (:136) and
-`rmsnorm_lm_loss_chunked` (:149).
+`make_loss_fn` (:84), `split_stacked_layer_params` (:112),
+`rmsnorm_lm_loss` (:136) and `rmsnorm_lm_loss_chunked` (:149).
 """
 
 from __future__ import annotations
@@ -11,28 +11,62 @@ import re
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..framework.random import generator_scope
 from ..nn.functional import rms_norm
 
-__all__ = ["functional_call", "split_stacked_layer_params",
+__all__ = ["functional_call", "make_loss_fn", "split_stacked_layer_params",
            "rmsnorm_lm_loss", "rmsnorm_lm_loss_chunked"]
 
 
-def functional_call(model, params: dict, *args, training=True, **kwargs):
+def functional_call(model, params: dict, *args, rng_key=None, training=True,
+                    **kwargs):
     """Run model(*args, **kwargs) with the tensors of `params` (name ->
     tensor, `model.state_dict()` keys; names left out keep the model's own)
     in place of the model's parameters, through
     `torch.func.functional_call`. Autograd flows to the given tensors.
-    training=False runs the model in eval mode and restores every
-    submodule's own flag afterwards."""
+    `rng_key` (an int or a torch.Generator) is what dropout draws from
+    inside the call (framework.random.generator_scope); without it, the
+    port's generators. training=False runs the model in eval mode and
+    restores every submodule's own flag afterwards."""
     saved = None
     if not training and model.training:
         saved = [(m, m.training) for m in model.modules()]
         model.eval()
     try:
-        return torch.func.functional_call(model, params, args, kwargs)
+        if rng_key is None:
+            return torch.func.functional_call(model, params, args, kwargs)
+        with generator_scope(rng_key):
+            return torch.func.functional_call(model, params, args, kwargs)
     finally:
         for m, was in saved or ():
             m.training = was
+
+
+def make_loss_fn(model, loss_fn=None, training=True):
+    """pure loss(params, batch, rng_key) -> float32 scalar, for
+    torch.func.grad and the like. `batch` is (x, y) or x alone. Without
+    `loss_fn` the model is called with `labels=y` and returns the loss
+    (or (loss, ...), the LM convention); with it, loss_fn(logits, y) of
+    the model's output (its first element if a tuple). training=False
+    runs the model in eval mode."""
+
+    def pure_loss(params, batch, rng_key):
+        if isinstance(batch, (tuple, list)) and len(batch) == 2:
+            x, y = batch
+        else:
+            x, y = batch, None
+        if loss_fn is None:
+            out = functional_call(model, params, x, labels=y,
+                                  rng_key=rng_key, training=training)
+            loss = out[0] if isinstance(out, (tuple, list)) else out
+        else:
+            out = functional_call(model, params, x, rng_key=rng_key,
+                                  training=training)
+            logits = out[0] if isinstance(out, (tuple, list)) else out
+            loss = loss_fn(logits, y)
+        return loss.float()
+
+    return pure_loss
 
 
 def split_stacked_layer_params(state: dict,

@@ -10,6 +10,11 @@ program once under a `TorchDispatchMode` and prices every aten op that
 reaches the dispatcher, by the reference's rule:
 
   - `mm`, `bmm`, `addmm`, `baddbmm` and `matmul` cost 2 * out * K flops;
+  - `convolution` costs 2 * out * (in / groups * prod(kernel)) flops, or
+    2 * input * (out / groups * prod(kernel)) transposed, as XLA's cost
+    analysis counts it (the reference's jaxpr rule takes 10 * out, an
+    elementwise floor for an op the Llama stack never emits;
+    hapi.flops counts convolutions by this one);
   - any other op costs its output elements;
   - bytes are the op's tensor inputs plus its outputs;
   - raw_seconds = max(flops / (peak * efficiency), bytes / hbm_bps).
@@ -29,6 +34,8 @@ synchronisation.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch.utils import _pytree as pytree
@@ -106,6 +113,10 @@ class _Pricer(TorchDispatchMode):
         k_arg = _PRODUCT_K_ARG.get(name)
         if k_arg is not None and outs:
             flops = 2.0 * outs[0].numel() * args[k_arg].shape[-1]
+        elif name == "convolution":
+            x, w, transposed = args[0], args[1], args[6]
+            flops = 2.0 * (x if transposed else outs[0]).numel() * \
+                math.prod(w.shape[1:])
         else:
             flops = float(sum(t.numel() for t in outs))
         c = self.per_op.setdefault(name, OpCost())

@@ -1,11 +1,11 @@
-"""paddle.vision. reference: paddle_tpu/vision/__init__.py: the models,
-ops and transforms, and the image-backend registry (`set_image_backend`,
-`get_image_backend`, `image_load`). `datasets` is not ported."""
+"""paddle.vision. reference: paddle_tpu/vision/__init__.py: the datasets,
+models, ops and transforms, and the image-backend registry
+(`set_image_backend`, `get_image_backend`, `image_load`)."""
 
-from . import models, ops, transforms
+from . import datasets, models, ops, transforms
 from .models import LeNet, ResNet, resnet18, resnet50
 
-__all__ = ["models", "ops", "transforms", "LeNet", "ResNet", "resnet18",
+__all__ = ["datasets", "models", "ops", "transforms", "LeNet", "ResNet", "resnet18",
            "resnet50", "set_image_backend", "get_image_backend",
            "image_load"]
 

@@ -193,18 +193,23 @@ def test_unported_values_raise():
     with pytest.raises(NotImplementedError):
         nn.Conv1D(2, 2, 3, padding_mode="reflect", device="cpu")
     logits, label = torch.randn(4, 5), torch.tensor([0, 1, 2, 3])
-    with pytest.raises(NotImplementedError):
-        F.cross_entropy(logits, label, None, -100, "mean", False, -1, False)
-    # use_softmax=True by position lands on use_softmax, not smoothing
+    # use_softmax=False (ported since) by position: input holds
+    # probabilities; use_softmax=True lands on use_softmax, not smoothing
+    torch.testing.assert_close(
+        F.cross_entropy(logits.softmax(-1), label, None, -100, "mean",
+                        False, -1, False),
+        F.cross_entropy(logits, label))
     torch.testing.assert_close(
         F.cross_entropy(logits, label, None, -100, "mean", False, -1, True),
         F.cross_entropy(logits, label))
+    # AdamW's lr_ratio and apply_decay_param_fun (accepted since, and
+    # ignored as the reference ignores them) bind by position and name
     p = [torch.nn.Parameter(torch.zeros(2))]
-    with pytest.raises(NotImplementedError):
-        pt.optimizer.AdamW(0.1, 0.9, 0.999, 1e-8, p, 0.01, 0.5)
-    with pytest.raises(NotImplementedError):
-        pt.optimizer.AdamW(0.1, parameters=p,
-                           apply_decay_param_fun=lambda n: True)
+    opt = pt.optimizer.AdamW(0.1, 0.9, 0.999, 1e-8, p, 0.01, 0.5)
+    assert opt._apply_decay_fn is None
+    f = lambda n: True   # noqa: E731
+    opt = pt.optimizer.AdamW(0.1, parameters=p, apply_decay_param_fun=f)
+    assert opt._apply_decay_fn is f
     from paddle_tpu_torch.incubate.nn.functional import (
         fused_rms_norm, fused_rotary_position_embedding)
     q = torch.randn(1, 4, 2, 8)

@@ -162,11 +162,16 @@ def test_cross_entropy_matches_reference(reduction, ignore):
 
 
 def test_cross_entropy_refuses_what_is_not_ported():
+    """Soft labels and label smoothing, which raised until they were
+    ported, now give the reference's values (tests/test_torch_losses.py
+    holds every form)."""
     x = torch.randn(2, 5)
-    with pytest.raises(NotImplementedError):
-        PF.cross_entropy(x, torch.softmax(x, -1), soft_label=True)
-    with pytest.raises(NotImplementedError):
-        PF.cross_entropy(x, torch.tensor([1, 2]), label_smoothing=0.1)
+    for label, kw in ((torch.softmax(x, -1), dict(soft_label=True)),
+                      (torch.tensor([1, 2]), dict(label_smoothing=0.1))):
+        want = JF.cross_entropy(paddle.to_tensor(x.numpy()),
+                                paddle.to_tensor(label.numpy()), **kw)
+        np.testing.assert_allclose(PF.cross_entropy(x, label, **kw).numpy(),
+                                   np.asarray(want._data), rtol=1e-5)
 
 
 def test_chunked_loss_matches_fused_and_reference():
