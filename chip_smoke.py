@@ -264,6 +264,33 @@ Phases, each of which makes the script exit non-zero if it fails:
      epoch of MNIST("train") at b64, evaluate on MNIST("test") at b128,
      the accuracy within HAPI_LENET_ACC_ATOL of the CPU port's run from
      the same weights and shuffles.
+  20. machine translation, the models written as a user writes them (an
+     nn.Layer of the port's layers). (a) Transformer-base (Vaswani et al.
+     2017, Table 3 "base": nn.Transformer(512, 8, 6, 6, 2048, dropout 0.1,
+     no attention or ReLU dropout), one shared 37,000-token vocabulary tying
+     both embeddings and the pre-softmax projection, embeddings times
+     sqrt(512) plus sinusoidal positions, the causal tgt_mask from
+     generate_square_subsequent_mask, cross_entropy with label smoothing
+     0.1, Adam(0.9, 0.98, 1e-9) under NoamDecay(512, 4000)), bf16, b32 x
+     128 source and target tokens, 1 + 8 steps: step ms, tokens/s, MFU and
+     its formula, the router's decision at the three attention shapes (the
+     encoder's self-attention and the cross-attention routed, the
+     decoder's masked self-attention dense), K1/K3/K4 launches a step (12
+     each where routed to the kernels), a traced step by kernel class and
+     busy share, peak memory; its float32 twin at 2 + 2 layers, dropout
+     and TF32 off, first loss and gradient norm on the card within
+     MT_TWIN_LOSS_RTOL / MT_TWIN_GRAD_RTOL of the CPU's. (b) tensorflow/
+     nmt's iwslt15 recipe: a bidirectional LSTM encoder, two LSTMCells
+     with input feeding and Luong dot attention through nn.RNN, 17,191 /
+     7,709 vocabularies, 512 units, dropout 0.2, float32, b128 x 50, SGD
+     at 1.0 with ClipGradByGlobalNorm(5): 1 + 4 steps (step ms, tokens/s,
+     traced step, peak memory), then 32 sentences at beam 10 through
+     BeamSearchDecoder and dynamic_decode (max 100 steps; decode ms, ms a
+     decode step, tokens/s, traced decode, peak memory); with dropout off
+     the CPU forced along the card's beams (ReplayBeamSearch): at every
+     step the card's top scores within NMT_SCORE_ATOL of the CPU's totals
+     of the same extensions, and the card's picks a near-tie in the CPU's
+     own ranking where they differ (NMT_TIE_ATOL); no K1-K4 launch on (b).
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -271,6 +298,7 @@ prints no result.
 
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import os
@@ -359,6 +387,10 @@ TRAIN_ATTN = dict(b=8, h=16, kvh=16, sq=2048, sk=2048, d=128, causal=True)
 # BERT-base pretraining's attention (bench.py:299): batch 32, sequence 512,
 # 12 heads of 64, no mask and no causal flag
 BERT_ATTN = dict(b=32, h=12, kvh=12, sq=512, sk=512, d=64, causal=False)
+# Transformer-base's attention in phase 20 (the encoder's self-attention
+# and the cross-attention): batch 32, sequence 128, 8 heads of 64, no mask
+# and no causal flag
+MT_ATTN = dict(b=32, h=8, kvh=8, sq=128, sk=128, d=64, causal=False)
 # bench.py's decode leg's prefill attention (phase 17): batch 8, prompt 128,
 # 16 heads of 128
 DECODE_PREFILL = dict(b=8, h=16, kvh=16, sq=128, sk=128, d=128, causal=True)
@@ -384,7 +416,7 @@ BASE_CASES = (
                        (100, 260, False)]]
     + [dict(b=2, h=32, kvh=8, sq=512, sk=512, d=128, causal=True),   # GQA
        dict(b=2, h=8, kvh=8, sq=256, sk=256, d=96, causal=True),     # pad
-       PREFILL, TRAIN_ATTN, BERT_ATTN])
+       PREFILL, TRAIN_ATTN, BERT_ATTN, MT_ATTN])
 K1_CASES = BASE_CASES + FWD_EDGE_CASES + [DECODE_PREFILL]
 K2_CASES = (
     [dict(b=2, h=4, kvh=4, sq=sq, sk=sk, d=d, causal=c)
@@ -557,6 +589,44 @@ HAPI_STD = [0.229, 0.224, 0.225]
 HAPI_BERT_STEPS = 4
 HAPI_CLIP_NORM_RTOL = 1e-5
 HAPI_LENET_ACC_ATOL = 0.02
+
+# phase 20, machine translation. (a) Transformer-base (Vaswani et al.
+# 2017, Table 3 "base"): one shared 37,000-token vocabulary, b32 x 128
+# source and target tokens a step (§5.1's 25,000 a side over 8 GPUs is
+# about 3,125 a card), residual dropout 0.1, label smoothing 0.1,
+# Adam(0.9, 0.98, 1e-9) under NoamDecay(512, 4000), bf16, 1 + 8 steps.
+# Its float32 twin at 2 + 2 layers, dropout off, TF32 off, on the card and
+# the CPU with the same weights and batch: the same float32 math summed in
+# other orders, over 4,096 tokens and a 37,000-way softmax; the loss,
+# about ln(37000) = 10.5, moves by a few float32 roundings of it, and the
+# gradient norm, a sum over 4,096 tokens' contributions per weight, by a
+# few more
+MT_VOCAB, MT_BATCH, MT_SEQ = 37000, 32, 128
+MT_DROPOUT, MT_LABEL_SMOOTHING, MT_WARMUP, MT_STEPS = 0.1, 0.1, 4000, 8
+MT_TWIN_LOSS_RTOL, MT_TWIN_GRAD_RTOL = 1e-4, 1e-3
+MT_BOS, MT_EOS = 1, 2
+# (b) tensorflow/nmt's standard_hparams/iwslt15.json (IWSLT'15 en-vi):
+# vocabularies 17,191 and 7,709, 512 units, dropout 0.2, batch 128,
+# lengths 50, SGD at lr 1.0 with max_gradient_norm 5, float32; 1 + 4
+# training steps, then 32 sentences decoded at beam 10 for at most 100
+# steps (infer_batch_size 32, beam_width 10). With dropout off the card's
+# predicted_ids are held to the CPU's: the CPU replays the card's decode
+# with the card's tokens, parents and running scores forced at every step
+# (ReplayBeamSearch), so that each step is compared with one step's
+# rounding. At every step the card's top totals are within NMT_SCORE_ATOL
+# of the CPU's totals of the same extensions: the two sums may round one
+# float32 ulp apart (6.1e-5 below |score| 1024; 100 steps near uniform
+# over 7,709 tokens sum to about -895), plus the rounding of the step's
+# log-probability. Where the card picked other extensions than the CPU's
+# own top-k, the CPU's sorted totals of the card's picks are within
+# NMT_TIE_ATOL of its own top-k totals: a near-tie in the CPU's ranking.
+# The CPU's own free decode is reported beside it, with the gap at its
+# first differing step (its running scores are its own there, so the gap
+# holds every earlier step's rounding too; the replay is the check)
+NMT_SRC_VOCAB, NMT_TGT_VOCAB, NMT_HIDDEN, NMT_DROPOUT = 17191, 7709, 512, 0.2
+NMT_BATCH, NMT_LEN, NMT_STEPS = 128, 50, 4
+NMT_DECODE_BATCH, NMT_BEAM, NMT_MAX_STEPS = 32, 10, 100
+NMT_SCORE_ATOL, NMT_TIE_ATOL = 1e-4, 1e-4
 
 # the card's name and power limit as nvidia-smi gives them (phase 1)
 CARD = "not read"
@@ -777,7 +847,7 @@ def case_name(case):
 
 def phase_k1():
     """K1 vs its plain version at every case; returns the records of the
-    prefill, training, BERT and decode-prefill shapes."""
+    prefill, training, BERT, decode-prefill and Transformer-base shapes."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     records = {}
@@ -825,7 +895,8 @@ def phase_k1():
             sys.exit(f"chip_smoke: K1 disagrees with its plain version at "
                      f"{case}")
         for name, shape in (("prefill", PREFILL), ("train", TRAIN_ATTN),
-                            ("bert", BERT_ATTN), ("decode", DECODE_PREFILL)):
+                            ("bert", BERT_ATTN), ("decode", DECODE_PREFILL),
+                            ("mt", MT_ATTN)):
             if case is shape:
                 records[name] = dict(
                     max_abs_err=max(err_out, err_lse), ms=ms,
@@ -927,8 +998,9 @@ def phase_k2():
 def phase_k34():
     """K3 and K4 vs the plain backward at every case, on the kernel
     forward's out and lse; dQ, dK and dV repeated bit for bit; times at the
-    Llama training shape and BERT's. Returns the records of K3 and K4
-    there: {"train" | "bert": {"dq" | "dkv": record}}."""
+    Llama training shape, BERT's and Transformer-base's. Returns the
+    records of K3 and K4 there: {"train" | "bert" | "mt": {"dq" | "dkv":
+    record}}."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     records = {}
@@ -968,10 +1040,11 @@ def phase_k34():
         if not ok:
             sys.exit(f"chip_smoke: K3/K4 disagree with the plain backward "
                      f"or do not repeat at {case}")
-        if case is not TRAIN_ATTN and case is not BERT_ATTN:
+        timed = {id(TRAIN_ATTN): "train", id(BERT_ATTN): "bert",
+                 id(MT_ATTN): "mt"}
+        if id(case) not in timed:
             continue
-        shape = records.setdefault(
-            "train" if case is TRAIN_ATTN else "bert", {})
+        shape = records.setdefault(timed[id(case)], {})
         with torch.inference_mode():
             # the wrapper's delta pass, as _flash_bwd_bhsd takes it
             delta_fn = lambda: (gk.float() * out.float()).sum(-1)
@@ -3376,6 +3449,483 @@ def phase_hapi(decision, phase14_ms):
     return {k: sum(r[k] for r in runs) for k in runs[0]}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: machine translation. The models are written as a user of the
+# package writes them, against the package `P` they are given: the port
+# here, and the JAX package too in tests/test_torch_seq_slice.py, which
+# holds the same code at a small size to the reference.
+# ---------------------------------------------------------------------------
+
+def sinusoid_table(length, d_model):
+    """Vaswani et al.'s positions: sin on even features, cos on odd ones,
+    of pos / 10000^(2i / d_model); float32 (length, d_model)."""
+    pos = np.arange(length)[:, None]
+    i = np.arange(0, d_model, 2)[None, :]
+    angle = pos / np.power(10000.0, i / d_model)
+    table = np.zeros((length, d_model), np.float32)
+    table[:, 0::2] = np.sin(angle)
+    table[:, 1::2] = np.cos(angle)
+    return table
+
+
+def transformer_mt(P, vocab, d_model, nhead, layers, ff, dropout, max_len):
+    """Transformer for translation on one shared vocabulary: the source
+    and target embeddings and the pre-softmax projection share one
+    matrix (Vaswani et al. 2017, §3.4), embeddings times sqrt(d_model) plus
+    sinusoidal positions, residual dropout `dropout` and none on the
+    attention weights or the ReLU (tensor2tensor's transformer_base_v1)."""
+
+    class TransformerMT(P.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.d_model = d_model
+            self.embed = P.nn.Embedding(
+                vocab, d_model, weight_attr=P.ParamAttr(
+                    initializer=P.nn.initializer.Normal(0.0, d_model ** -0.5)))
+            self.transformer = P.nn.Transformer(
+                d_model, nhead, layers, layers, ff, dropout,
+                attn_dropout=0.0, act_dropout=0.0)
+            self.dropout = P.nn.Dropout(dropout)
+            self.register_buffer("pos", P.to_tensor(
+                sinusoid_table(max_len, d_model)), persistable=False)
+
+        def embed_tokens(self, ids):
+            x = self.embed(ids) * (self.d_model ** 0.5)
+            return self.dropout(x + self.pos[:ids.shape[1]])
+
+        def forward(self, src, tgt):
+            mask = self.transformer.generate_square_subsequent_mask(
+                tgt.shape[1])
+            h = self.transformer(self.embed_tokens(src),
+                                 self.embed_tokens(tgt), tgt_mask=mask)
+            return P.matmul(h, self.embed.weight, transpose_y=True)
+
+    return TransformerMT()
+
+
+def transformer_loss(P, model, src, tgt_in, labels):
+    logits = model(src, tgt_in)
+    return P.nn.functional.cross_entropy(
+        P.reshape(logits, [-1, logits.shape[-1]]), P.reshape(labels, [-1]),
+        label_smoothing=MT_LABEL_SMOOTHING)
+
+
+def lstm_seq2seq(P, src_vocab, tgt_vocab, hidden, dropout):
+    """tensorflow/nmt's attention model (standard_hparams/iwslt15.json):
+    a bidirectional LSTM encoder ("bi" with 2 layers: one layer each way),
+    a decoder of two LSTMCells fed the previous attention vector (input
+    feeding), Luong attention scored by dot product against the encoder
+    outputs' projection, a = tanh(W [h; context]), and the projection to
+    the target vocabulary. Embeddings and projections Uniform(-0.1, 0.1),
+    nmt's init_weight."""
+    init = P.ParamAttr(initializer=P.nn.initializer.Uniform(-0.1, 0.1))
+
+    class AttentionCell(P.nn.RNNCellBase):
+        """One decoder step; `memory` and `keys` (the encoder's outputs and
+        their projection) are set before a batch is decoded."""
+
+        def __init__(self):
+            super().__init__()
+            self.hidden_size = hidden
+            self.cell1 = P.nn.LSTMCell(2 * hidden, hidden)
+            self.cell2 = P.nn.LSTMCell(hidden, hidden)
+            self.attn_out = P.nn.Linear(3 * hidden, hidden, init, False)
+            self.dropout = P.nn.Dropout(dropout)
+            self.memory = self.keys = None
+
+        def forward(self, inputs, states):
+            s1, s2, attn = states
+            x = P.concat([inputs, attn], axis=-1)
+            h1, s1 = self.cell1(self.dropout(x), s1)
+            h2, s2 = self.cell2(self.dropout(h1), s2)
+            scores = P.matmul(self.keys, P.unsqueeze(h2, -1))   # (B, T, 1)
+            probs = P.nn.functional.softmax(scores, axis=1)
+            ctx = P.squeeze(P.matmul(probs, self.memory, transpose_x=True),
+                            1)
+            attn = P.nn.functional.tanh(self.attn_out(
+                P.concat([h2, ctx], axis=-1)))
+            return attn, (s1, s2, attn)
+
+    class Seq2Seq(P.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.src_embed = P.nn.Embedding(src_vocab, hidden,
+                                            weight_attr=init)
+            self.encoder = P.nn.LSTM(hidden, hidden, direction="bidirect")
+            self.mem_proj = P.nn.Linear(2 * hidden, hidden, init, False)
+            self.tgt_embed = P.nn.Embedding(tgt_vocab, hidden,
+                                            weight_attr=init)
+            self.decoder = P.nn.RNN(AttentionCell())
+            self.project = P.nn.Linear(hidden, tgt_vocab, init, False)
+            self.dropout = P.nn.Dropout(dropout)
+
+        def encode(self, src):
+            """The encoder's outputs, their projection, and the decoder's
+            first states: each direction's last state into one cell, and
+            a zero attention vector."""
+            out, (h, c) = self.encoder(self.dropout(self.src_embed(src)))
+            return out, self.mem_proj(out), ((h[0], c[0]), (h[1], c[1]),
+                                             P.zeros_like(h[0]))
+
+        def forward(self, src, tgt_in):
+            memory, keys, states = self.encode(src)
+            cell = self.decoder.cell
+            cell.memory, cell.keys = memory, keys
+            out, _ = self.decoder(self.tgt_embed(tgt_in), states)
+            return self.project(out)
+
+    return Seq2Seq()
+
+
+def seq2seq_loss(P, model, src, tgt_in, labels):
+    logits = model(src, tgt_in)
+    return P.nn.functional.cross_entropy(
+        P.reshape(logits, [-1, logits.shape[-1]]), P.reshape(labels, [-1]))
+
+
+def beam_decode(P, model, src, beam, max_steps, decoder_cls=None):
+    """Beam search over `model`'s decoder cell for the sentences `src`,
+    the encoder's outputs tiled beam times: (BeamSearchOutput, lengths)."""
+    decoder_cls = decoder_cls or P.nn.BeamSearchDecoder
+    memory, keys, states = model.encode(src)
+    cell = model.decoder.cell
+    cell.memory = decoder_cls.tile_beam_merge_with_batch(memory, beam)
+    cell.keys = decoder_cls.tile_beam_merge_with_batch(keys, beam)
+    dec = decoder_cls(cell, MT_BOS, MT_EOS, beam,
+                      embedding_fn=model.tgt_embed, output_fn=model.project)
+    out, _, lengths = P.nn.dynamic_decode(dec, inits=states,
+                                          max_step_num=max_steps)
+    return out, lengths
+
+
+def mt_tokens(seed, batch, length, vocab):
+    """Token ids in [3, vocab) from RandomState(seed): 0-2 are kept for
+    padding, BOS and EOS, and no batch has padding."""
+    return np.random.RandomState(seed).randint(3, vocab, (batch, length))
+
+
+class RecordingBeamSearch(pt.nn.BeamSearchDecoder):
+    """The port's BeamSearchDecoder, keeping each step's (token, parent,
+    top scores) so two decodes can be compared step by step."""
+
+    steps = None
+
+    def step(self, ids, states, log_probs, finished):
+        out = super().step(ids, states, log_probs, finished)
+        self.steps.append(tuple(t.detach().cpu() for t in
+                                (out[4], out[5], out[2])))
+        return out
+
+    @classmethod
+    def run(cls, model, src, beam, max_steps):
+        cls.steps = []
+        out, lengths = beam_decode(pt, model, src, beam, max_steps, cls)
+        return out, lengths, cls.steps
+
+
+class ReplayBeamSearch(pt.nn.BeamSearchDecoder):
+    """The port's BeamSearchDecoder forced along a recorded decode: at each
+    step the recorded tokens, parents and top scores replace its own
+    choice, so the next step starts from the recorded running scores.
+    Keeps each step's largest |recorded top score - own total of the same
+    extension| (`score_gaps`) and, where its own top-k picks other
+    extensions, the largest gap between its own sorted totals of the
+    recorded ones and its own top-k totals (`tie_gaps`, 0 where it agrees)."""
+
+    record = score_gaps = tie_gaps = None
+
+    def step(self, ids, states, log_probs, finished):
+        token, parent, top = (t.to(log_probs.device)
+                              for t in self.record[len(self.score_gaps)])
+        total, next_states = self.candidates(ids, states, log_probs,
+                                             finished)
+        vocab = total.shape[-1] // self.beam_size
+        idx = parent * vocab + token
+        own = total.gather(1, idx)
+        self.score_gaps.append(float((top - own).abs().max()))
+        own_top, own_idx = torch.topk(total, self.beam_size)
+        tie = (0.0 if torch.equal(own_idx, idx) else float(
+            (own.sort(1, descending=True).values - own_top).abs().max()))
+        self.tie_gaps.append(tie)
+        return self.select(top, idx, next_states, finished, vocab)
+
+    @classmethod
+    def run(cls, model, src, record, beam, max_steps):
+        cls.record, cls.score_gaps, cls.tie_gaps = record, [], []
+        out, lengths = beam_decode(pt, model, src, beam, max_steps, cls)
+        return out, lengths, cls.score_gaps, cls.tie_gaps
+
+
+def first_divergence(card_steps, cpu_steps):
+    """None if the two decodes chose the same (token, parent) at every
+    step; else (step, the largest |score gap| of the beams' totals there,
+    the largest |score| there)."""
+    for t, (a, b) in enumerate(zip(card_steps, cpu_steps)):
+        if not (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])):
+            return t, float((a[2] - b[2]).abs().max()), \
+                float(b[2].abs().max())
+    if len(card_steps) != len(cpu_steps):
+        return min(len(card_steps), len(cpu_steps)), float("inf"), 1.0
+    return None
+
+
+def transformer_flops(n_params_enc, n_params_dec, n_proj, batch, seq,
+                      layers, d_model):
+    """Training FLOPs of a step: 6 x (matrix-product weights x the tokens
+    that pass them) + 12 x b x s^2 x d per attention (QK^T and PV, forward
+    and backward), of which each encoder layer has one and each decoder
+    layer two."""
+    tokens = batch * seq
+    dense = 6 * tokens * (n_params_enc + n_params_dec + n_proj)
+    attn = 12 * batch * seq * seq * d_model * 3 * layers
+    return dense + attn
+
+
+def matmul_params(layer):
+    """Weights of the layer's Linear products (biases and norms left out)."""
+    return sum(m.weight.numel() for m in layer.sublayers()
+               if isinstance(m, pt.nn.Linear))
+
+
+def timed_steps(step, n):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(n)]
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3, [float(x) for x in losses]
+
+
+def phase_mt_transformer():
+    """(a) Transformer-base training; returns K1/K3/K4 launches over the
+    timed steps."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    pt.seed(0)
+    model = transformer_mt(pt, MT_VOCAB, 512, 8, 6, 2048, MT_DROPOUT,
+                           MT_SEQ + 1).to(torch.bfloat16)
+    sched = optimizer.lr.NoamDecay(512, MT_WARMUP)
+    opt = optimizer.Adam(learning_rate=sched, beta1=0.9, beta2=0.98,
+                         epsilon=1e-9, parameters=model.parameters())
+    src = torch.tensor(mt_tokens(1, MT_BATCH, MT_SEQ, MT_VOCAB),
+                       device="cuda")
+    tgt = torch.tensor(mt_tokens(2, MT_BATCH, MT_SEQ + 1, MT_VOCAB),
+                       device="cuda")
+    tgt_in, labels = tgt[:, :-1], tgt[:, 1:]
+
+    def step():
+        loss = transformer_loss(pt, model, src, tgt_in, labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return loss.detach()
+
+    route = ar.route(MT_BATCH * 8, MT_SEQ, MT_SEQ, 64, torch.bfloat16,
+                     False, platform="cuda")
+    first = float(step())                     # warm-up
+    zero_flash_launches()                     # the path starts here
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = timed_steps(step, MT_STEPS)
+    launches = train_llama.launch_counts()    # the path ends here
+    peak = torch.cuda.max_memory_allocated()
+    by_class = kernel_ms_by_class(step)
+    enc_p = matmul_params(model.transformer.encoder)
+    dec_p = matmul_params(model.transformer.decoder)
+    proj_p = model.embed.weight.numel()
+    flops = transformer_flops(enc_p, dec_p, proj_p, MT_BATCH, MT_SEQ, 6, 512)
+    n_params = sum(p.numel() for p in model.parameters())
+    tokens_s = 2 * MT_BATCH * MT_SEQ / step_ms * 1e3
+    mfu = flops / (step_ms / 1e3) / BF16_FLOP_PER_S
+    per_step = {k: v // MT_STEPS for k, v in launches.items()}
+    mm_params = enc_p + dec_p + proj_p
+    log(f"mt transformer-base [{CARD}]: {n_params} params ({mm_params} in "
+        f"matrix products, the tied projection once), vocab "
+        f"{MT_VOCAB}, b{MT_BATCH} x {MT_SEQ} source and target tokens, bf16, "
+        f"Adam(0.9, 0.98, 1e-9) under NoamDecay(512, {MT_WARMUP}); step "
+        f"{step_ms:.2f} ms ({MT_STEPS} timed after 1), {tokens_s:.1f} "
+        f"tokens/s (source + target), MFU {mfu:.4f} = {flops / 1e12:.4f} "
+        f"TFLOP a step [6 x weights x tokens + 12 b s^2 d per attention] "
+        f"/ step s / {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; peak memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"mt transformer-base: router at the encoder self-attention "
+        f"(bh={MT_BATCH * 8}, s={MT_SEQ}, d64, not causal): fwd={route.fwd} "
+        f"bwd={route.bwd} source={route.source}; the cross-attention "
+        f"(queries and keys {MT_SEQ}, the same key): fwd={route.fwd} "
+        f"bwd={route.bwd}; the decoder's self-attention carries the "
+        f"additive causal tgt_mask: dense, never routed; launches per step "
+        f"{per_step}")
+    log(f"mt transformer-base, one traced step: {class_line(by_class)}; "
+        f"busy {sum(by_class.values()) / step_ms:.1%} of the timed steps' "
+        f"mean")
+    log(f"mt transformer-base: losses {[first] + losses}")
+    fwd = route.fwd == "pallas"
+    bwd = fwd and route.bwd == "pallas"
+    want = {"flash_fwd": 12 if fwd else 0,
+            "flash_bwd_dq": 12 if bwd else 0,
+            "flash_bwd_dkv": 12 if bwd else 0}
+    if not all(np.isfinite([first] + losses)):
+        sys.exit("chip_smoke: a Transformer-base loss is not finite")
+    if per_step != want or any(v % MT_STEPS for v in launches.values()):
+        sys.exit(f"chip_smoke: Transformer-base launched {launches} over "
+                 f"{MT_STEPS} steps, expected {want} a step")
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, step_ms
+
+
+def phase_mt_twin():
+    """(a)'s float32 twin at 2 + 2 layers and full widths, dropout off: the
+    first loss and the gradient norm on the card against the CPU's, the
+    same weights and batch."""
+    pt.seed(0)
+    model = transformer_mt(pt, MT_VOCAB, 512, 8, 2, 2048, 0.0, MT_SEQ + 1)
+    src = torch.tensor(mt_tokens(1, MT_BATCH, MT_SEQ, MT_VOCAB))
+    tgt = torch.tensor(mt_tokens(2, MT_BATCH, MT_SEQ + 1, MT_VOCAB))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = model.to(dev)
+        loss = transformer_loss(pt, m, src.to(dev), tgt[:, :-1].to(dev),
+                                tgt[:, 1:].to(dev))
+        loss.backward()
+        norm = float(torch.sqrt(sum(p.grad.double().square().sum()
+                                    for p in m.parameters())))
+        out[dev] = (float(loss.detach()), norm)
+        m.clear_gradients()
+    loss_err = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    norm_err = abs(out["cuda"][1] - out["cpu"][1]) / out["cpu"][1]
+    log(f"mt transformer twin (float32, 2 + 2 layers, d512, dropout off, "
+        f"TF32 off): loss card {out['cuda'][0]:.7f} CPU {out['cpu'][0]:.7f} "
+        f"(rel err {loss_err:.3e}, tol {MT_TWIN_LOSS_RTOL}); grad norm card "
+        f"{out['cuda'][1]:.7f} CPU {out['cpu'][1]:.7f} (rel err "
+        f"{norm_err:.3e}, tol {MT_TWIN_GRAD_RTOL})")
+    if not (loss_err <= MT_TWIN_LOSS_RTOL and norm_err <= MT_TWIN_GRAD_RTOL):
+        sys.exit("chip_smoke: the Transformer twin on the card disagrees "
+                 "with the CPU")
+
+
+def phase_mt_lstm():
+    """(b) LSTM seq2seq: training through nn.RNN, then beam search; returns
+    the flash kernels' launches over both (none is on this path)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    pt.seed(0)
+    model = lstm_seq2seq(pt, NMT_SRC_VOCAB, NMT_TGT_VOCAB, NMT_HIDDEN,
+                         NMT_DROPOUT).to("cuda")
+    opt = optimizer.SGD(learning_rate=1.0, parameters=model.parameters(),
+                        grad_clip=pt.nn.ClipGradByGlobalNorm(5.0))
+    src = torch.tensor(mt_tokens(3, NMT_BATCH, NMT_LEN, NMT_SRC_VOCAB),
+                       device="cuda")
+    tgt = torch.tensor(mt_tokens(4, NMT_BATCH, NMT_LEN + 1, NMT_TGT_VOCAB),
+                       device="cuda")
+
+    def step():
+        loss = seq2seq_loss(pt, model, src, tgt[:, :-1], tgt[:, 1:])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    first = float(step())
+    zero_flash_launches()                     # the path starts here
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = timed_steps(step, NMT_STEPS)
+    train_peak = torch.cuda.max_memory_allocated()
+    by_class = kernel_ms_by_class(step)
+    model.eval()
+    sents = src[:NMT_DECODE_BATCH]
+    with torch.no_grad():
+        beam_decode(pt, model, sents, NMT_BEAM, NMT_MAX_STEPS)   # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, lengths, card_steps = RecordingBeamSearch.run(
+            model, sents, NMT_BEAM, NMT_MAX_STEPS)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3
+        dec_peak = torch.cuda.max_memory_allocated()
+        dec_class = kernel_ms_by_class(lambda: beam_decode(
+            pt, model, sents, NMT_BEAM, NMT_MAX_STEPS))
+    launches = train_llama.launch_counts()    # the path ends here
+    n_steps = len(card_steps)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu_out, cpu_len, cpu_steps = RecordingBeamSearch.run(
+            cpu_model, sents.cpu(), NMT_BEAM, NMT_MAX_STEPS)
+    cpu_s = time.perf_counter() - t0
+    same = torch.equal(out.predicted_ids.cpu(), cpu_out.predicted_ids)
+    div = first_divergence(card_steps, cpu_steps)
+    with torch.no_grad():
+        re_out, re_len, score_gaps, tie_gaps = ReplayBeamSearch.run(
+            cpu_model, sents.cpu(), card_steps, NMT_BEAM, NMT_MAX_STEPS)
+    replayed = (len(score_gaps) == n_steps
+                and torch.equal(re_out.predicted_ids, out.predicted_ids.cpu())
+                and torch.equal(re_out.parent_ids, out.parent_ids.cpu())
+                and torch.equal(re_len, lengths.cpu()))
+    worst = int(np.argmax(score_gaps))
+    ties = [t for t, g in enumerate(tie_gaps) if g > 0]
+    max_score = float(card_steps[-1][2].abs().max())
+    n_params = sum(p.numel() for p in model.parameters())
+    train_tokens = NMT_BATCH * NMT_LEN * 2 / step_ms * 1e3
+    decode_tokens = int(lengths.sum()) / decode_ms * 1e3
+    log(f"mt lstm seq2seq [{CARD}]: {n_params} params, vocab "
+        f"{NMT_SRC_VOCAB}/{NMT_TGT_VOCAB}, {NMT_HIDDEN} units, b{NMT_BATCH} "
+        f"x {NMT_LEN}, float32, SGD(1.0) with ClipGradByGlobalNorm(5.0); "
+        f"train step {step_ms:.2f} ms ({NMT_STEPS} timed after 1), "
+        f"{train_tokens:.1f} tokens/s (source + target), peak memory "
+        f"{train_peak / 2**30:.2f} GiB; losses {[first] + losses}")
+    log(f"mt lstm seq2seq, one traced train step: {class_line(by_class)}; "
+        f"busy {sum(by_class.values()) / step_ms:.1%} of the timed steps' "
+        f"mean")
+    log(f"mt lstm beam search [{CARD}]: {NMT_DECODE_BATCH} sentences, beam "
+        f"{NMT_BEAM}, {n_steps} decode steps (max {NMT_MAX_STEPS}); "
+        f"{decode_ms:.2f} ms, {decode_ms / n_steps:.3f} ms a decode step, "
+        f"{decode_tokens:.1f} tokens/s over the beams' lengths "
+        f"(sum {int(lengths.sum())}); peak memory {dec_peak / 2**30:.2f} GiB; "
+        f"one traced decode: {class_line(dec_class)}; busy "
+        f"{sum(dec_class.values()) / decode_ms:.1%}")
+    gap = ("none" if div is None else
+           f"step {div[0]}: score gap {div[1]:.3e} at |score| {div[2]:.1f}")
+    log(f"mt lstm beam search: predicted_ids equal to the CPU's own decode "
+        f"{same} (CPU decode {cpu_s:.1f} s); first differing step {gap}; "
+        f"launches {launches}")
+    log(f"mt lstm beam search, the CPU forced along the card's {n_steps} "
+        f"steps: ids, parents and lengths equal {replayed}; largest score gap "
+        f"{score_gaps[worst]:.3e} at step {worst} (tol {NMT_SCORE_ATOL}, "
+        f"|score| up to {max_score:.1f}); the card picked other extensions "
+        f"than the CPU's top-k at {len(ties)} steps {ties[:10]}, largest "
+        f"tie gap {max(tie_gaps):.3e} (tol {NMT_TIE_ATOL})")
+    if not all(np.isfinite([first] + losses)) or not losses[-1] < first:
+        sys.exit("chip_smoke: the seq2seq losses are not finite or did not "
+                 "fall")
+    if tuple(out.predicted_ids.shape[::2]) != (NMT_DECODE_BATCH, NMT_BEAM):
+        sys.exit("chip_smoke: beam search's predicted_ids have the wrong "
+                 "shape")
+    if not (replayed and max(score_gaps) <= NMT_SCORE_ATOL
+            and max(tie_gaps) <= NMT_TIE_ATOL):
+        sys.exit("chip_smoke: the CPU forced along the card's beams "
+                 "disagrees with the card's scores or choices")
+    if any(launches.values()):
+        sys.exit("chip_smoke: the LSTM path launched a flash kernel")
+    del model, cpu_model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mt():
+    """Phase 20: machine translation on the card; each path's flash kernel
+    launches summed."""
+    t0 = time.perf_counter()
+    transformer, _ = phase_mt_transformer()
+    phase_mt_twin()
+    lstm = phase_mt_lstm()
+    log(f"phase 20 (machine translation) took "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {k: transformer[k] + lstm[k] for k in transformer}
+
+
 def main():
     phase_device()
     phase_build()
@@ -3400,14 +3950,16 @@ def main():
     decode = phase_decode()
     zoo = phase_zoo()
     hapi = phase_hapi(decisions["bert"][0], bert_ms)
+    mt = phase_mt()
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # K1 runs on the serving (bf16 and int8), predictor, training, BERT,
-    # GPT, decode and hapi BERT paths, K3 and K4 on the training, BERT and
-    # hapi BERT paths (the ResNet, vision-zoo and hapi ResNet and LeNet
-    # paths add none, counted all the same); their times are the Llama
+    # GPT, decode, hapi BERT and Transformer-base paths, K3 and K4 on the
+    # training, BERT, hapi BERT and Transformer-base paths (the ResNet,
+    # vision-zoo, hapi ResNet and LeNet and LSTM seq2seq paths add none,
+    # counted all the same); their times are the Llama
     # training shape's (phases 3 and 5 print BERT's too). K2's are
     # the serving prefill shape's (no single library call computes it).
     # "ms" and "library_ms" are device times from back-to-back calls
@@ -3416,7 +3968,8 @@ def main():
                     launches=(serve + predictor + train["flash_fwd"]
                               + bert["flash_fwd"] + gpt
                               + resnet["flash_fwd"] + decode
-                              + zoo["flash_fwd"] + hapi["flash_fwd"]),
+                              + zoo["flash_fwd"] + hapi["flash_fwd"]
+                              + mt["flash_fwd"]),
                     **{key: k1["train"][key] for key in keys}),
                dict(name="flash_fwd_rms_epilogue", route="cuda",
                     source=src + "fwd.cu", replaces=ref + "116",
@@ -3426,14 +3979,15 @@ def main():
                     replaces=ref + "198",
                     launches=(train["flash_bwd_dq"] + bert["flash_bwd_dq"]
                               + resnet["flash_bwd_dq"] + zoo["flash_bwd_dq"]
-                              + hapi["flash_bwd_dq"]),
+                              + hapi["flash_bwd_dq"] + mt["flash_bwd_dq"]),
                     **k34["train"]["dq"]),
                dict(name="flash_bwd_dkv", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "249",
                     launches=(train["flash_bwd_dkv"] + bert["flash_bwd_dkv"]
                               + resnet["flash_bwd_dkv"]
                               + zoo["flash_bwd_dkv"]
-                              + hapi["flash_bwd_dkv"]),
+                              + hapi["flash_bwd_dkv"]
+                              + mt["flash_bwd_dkv"]),
                     **k34["train"]["dkv"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -285,7 +285,7 @@ def generate(model, input_ids, max_new_tokens=32, do_sample=False,
     from .models.llama import LlamaForCausalLM
     gc = GenerationConfig(max_new_tokens, do_sample, temperature, top_k,
                           top_p, eos_token_id)
-    device = next(model.parameters()).device
+    device = next(iter(model.parameters())).device
     ids = torch.as_tensor(input_ids, device=device).long()
     if max_new_tokens <= 0:
         return ids

@@ -27,7 +27,7 @@ def flops(net, input_size, custom_ops=None, print_detail=False):
         input_shapes = [tuple(input_size)]
     else:
         input_shapes = [tuple(s) for s in input_size]
-    p = next(net.parameters())
+    p = next(iter(net.parameters()))
     xs = [torch.zeros(s, dtype=p.dtype, device=p.device)
           for s in input_shapes]
     modes = [(m, m.training) for m in net.modules()]

@@ -17,13 +17,13 @@ from __future__ import annotations
 import math
 
 import torch
-from torch import nn
 
 from ... import nn as pnn
 from ...nn import functional as NF
 from ...nn.initializer import Constant, XavierUniform
 from ...nn.layer.common import _param
 from . import functional as F
+from ...nn.layer.layers import Layer
 
 __all__ = ["FusedLinear", "FusedMultiHeadAttention", "FusedFeedForward",
            "FusedMultiTransformer", "FusedTransformerEncoderLayer",
@@ -41,7 +41,7 @@ def _create(shape, attr=None, is_bias=False, default=None, dtype="float32",
                   shape, dtype, device)
 
 
-class FusedLinear(nn.Module):
+class FusedLinear(Layer):
     """x @ weight + bias, weight (in, out), or (out, in) with
     transpose_weight."""
 
@@ -61,7 +61,7 @@ class FusedLinear(nn.Module):
                               transpose_weight=self._transpose)
 
 
-class FusedDropoutAdd(nn.Module):
+class FusedDropoutAdd(Layer):
     """dropout(x) + y with the module's training flag."""
 
     def __init__(self, p=0.5, mode="upscale_in_train", name=None):
@@ -74,7 +74,7 @@ class FusedDropoutAdd(nn.Module):
                           mode=self._mode) + y
 
 
-class FusedBiasDropoutResidualLayerNorm(nn.Module):
+class FusedBiasDropoutResidualLayerNorm(Layer):
     """layer_norm(dropout(x + linear_bias) + residual)."""
 
     def __init__(self, embed_dim, dropout_rate=0.5, weight_attr=None,
@@ -96,7 +96,7 @@ class FusedBiasDropoutResidualLayerNorm(nn.Module):
                              self.ln_scale, self.ln_bias, self._epsilon)
 
 
-class FusedMultiHeadAttention(nn.Module):
+class FusedMultiHeadAttention(Layer):
     """Self-attention with the pre- or post-LN and the residual:
     qkv_weight (3, heads, head_dim, embed), qkv_bias (3, heads, head_dim),
     linear_weight (embed, embed). A bool attn_mask keeps True and masks
@@ -166,7 +166,7 @@ class FusedMultiHeadAttention(nn.Module):
         return out
 
 
-class FusedFeedForward(nn.Module):
+class FusedFeedForward(Layer):
     """The FFN block: linear1 -> activation (nn.functional's: gelu in its
     erf form) -> dropout -> linear2 -> dropout -> residual add, with norm1
     before it (normalize_before) or norm2 after it."""
@@ -213,7 +213,7 @@ class FusedFeedForward(nn.Module):
         return x if self._pre_ln else self.norm2(x)
 
 
-class FusedTransformerEncoderLayer(nn.Module):
+class FusedTransformerEncoderLayer(Layer):
     """FusedMultiHeadAttention then FusedFeedForward."""
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout_rate=0.1,
@@ -237,7 +237,7 @@ class FusedTransformerEncoderLayer(nn.Module):
         return self.ffn(self.fused_attn(src, attn_mask=src_mask))
 
 
-class FusedEcMoe(nn.Module):
+class FusedEcMoe(Layer):
     """Every token through every expert (gelu in its tanh form, or relu),
     weighted by the softmax of the gate's logits."""
 
@@ -264,7 +264,7 @@ class FusedEcMoe(nn.Module):
         return torch.einsum("bsed,bse->bsd", o, probs)
 
 
-class FusedMultiTransformer(nn.Module):
+class FusedMultiTransformer(Layer):
     """`num_layers` pre-LN FusedTransformerEncoderLayers. Incremental
     decode (caches, time_step) raises."""
 

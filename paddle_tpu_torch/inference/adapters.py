@@ -135,7 +135,7 @@ class AdapterStore:
         on [H, nkv*hd]."""
         cfg = model.config
         hd = cfg.hidden_size // cfg.num_attention_heads
-        device = next(model.parameters()).device
+        device = next(iter(model.parameters())).device
         return cls(cfg.num_hidden_layers, cfg.hidden_size,
                    cfg.num_attention_heads * hd,
                    cfg.num_key_value_heads * hd,

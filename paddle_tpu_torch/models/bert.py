@@ -12,11 +12,11 @@ router may send it to the flash kernels: K1 forward, K3/K4 backward.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ..nn import Dropout, Embedding, LayerList, LayerNorm, Linear
 from ..nn import functional as F
 from ._init import transformer_init_attr
+from ..nn.layer.layers import Layer
 
 __all__ = ["BertConfig", "BertModel", "BertForPretraining",
            "BertForSequenceClassification", "bert_tiny", "bert_base"]
@@ -51,7 +51,7 @@ def _kw(config, device):
     return dict(dtype=config.dtype, device=device)
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     def __init__(self, config, *, device=None):
         super().__init__()
         kw = dict(weight_attr=_init_attr(config), **_kw(config, device))
@@ -76,7 +76,7 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(emb))
 
 
-class BertLayer(nn.Module):
+class BertLayer(Layer):
     def __init__(self, config, *, device=None):
         super().__init__()
         h = config.hidden_size
@@ -108,7 +108,7 @@ class BertLayer(nn.Module):
         return self.ffn_norm(x + self.dropout(h))
 
 
-class BertModel(nn.Module):
+class BertModel(Layer):
     def __init__(self, config: BertConfig, *, device=None):
         super().__init__()
         self.config = config
@@ -134,7 +134,7 @@ class BertModel(nn.Module):
         return x, pooled
 
 
-class BertForPretraining(nn.Module):
+class BertForPretraining(Layer):
     def __init__(self, config: BertConfig, *, device=None):
         super().__init__()
         self.bert = BertModel(config, device=device)
@@ -168,7 +168,7 @@ class BertForPretraining(nn.Module):
         return mlm_logits, nsp_logits
 
 
-class BertForSequenceClassification(nn.Module):
+class BertForSequenceClassification(Layer):
     def __init__(self, config: BertConfig, num_classes=2, *, device=None):
         super().__init__()
         self.bert = BertModel(config, device=device)

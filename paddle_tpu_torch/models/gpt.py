@@ -11,11 +11,11 @@ recompute path of `paddle_tpu_torch.generation`.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ..nn import Dropout, Embedding, LayerList, LayerNorm, Linear
 from ..nn import functional as F
 from ._init import transformer_init_attr
+from ..nn.layer.layers import Layer
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM", "gpt_tiny",
            "gpt3_1p3b"]
@@ -50,7 +50,7 @@ def _kw(config, device):
     return dict(dtype=config.dtype, device=device)
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     def __init__(self, config, *, device=None):
         super().__init__()
         h = config.hidden_size
@@ -73,7 +73,7 @@ class GPTAttention(nn.Module):
                                          * self.head_dim))
 
 
-class GPTBlock(nn.Module):
+class GPTBlock(Layer):
     def __init__(self, config, *, device=None):
         super().__init__()
         h, eps = config.hidden_size, config.layer_norm_eps
@@ -91,7 +91,7 @@ class GPTBlock(nn.Module):
         return x + self.dropout(h)
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     def __init__(self, config: GPTConfig, *, device=None):
         super().__init__()
         self.config = config
@@ -114,7 +114,7 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     def __init__(self, config: GPTConfig, *, device=None):
         super().__init__()
         self.config = config

@@ -13,11 +13,10 @@ ops/attention_router picks them for the shape.
 
 from __future__ import annotations
 
-from torch import nn
-
 from ..incubate.nn.functional import fused_rotary_position_embedding, swiglu
-from ..nn import Embedding, Linear, RMSNorm
+from ..nn import Embedding, LayerList, Linear, RMSNorm
 from ..nn import functional as F
+from ..nn.layer.layers import Layer
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "llama_tiny",
            "llama_7b", "llama_13b"]
@@ -46,7 +45,7 @@ class LlamaConfig:
         self.use_flash_attention = use_flash_attention
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         self.config = config
@@ -75,7 +74,7 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
@@ -88,7 +87,7 @@ class LlamaMLP(nn.Module):
         return self.down_proj(swiglu(self.gate_proj(x), self.up_proj(x)))
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         kw = dict(dtype=config.dtype, device=device)
@@ -105,13 +104,13 @@ class LlamaDecoderLayer(nn.Module):
         return hidden + self.mlp(self.post_attention_layernorm(hidden))
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         self.config = config
         self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
                                       dtype=config.dtype, device=device)
-        self.layers = nn.ModuleList(
+        self.layers = LayerList(
             [LlamaDecoderLayer(config, device=device)
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
@@ -124,7 +123,7 @@ class LlamaModel(nn.Module):
         return self.norm(hidden)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(Layer):
     def __init__(self, config: LlamaConfig, *, device=None):
         super().__init__()
         self.config = config

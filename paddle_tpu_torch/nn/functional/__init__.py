@@ -5,7 +5,7 @@ from .attention import flash_attention, scaled_dot_product_attention, \
 from .common import dropout, embedding, linear
 from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_transpose,
                    conv3d, conv3d_transpose)
-from .extras import max_unpool1d, max_unpool2d, max_unpool3d
+from .extras import gather_tree, max_unpool1d, max_unpool2d, max_unpool3d
 from . import loss as _loss
 from .loss import *  # noqa: F401,F403
 from .norm import batch_norm, layer_norm, rms_norm
@@ -25,5 +25,6 @@ __all__ = ["scaled_dot_product_attention", "flash_attention", "sdp_kernel",
            "max_pool3d", "adaptive_avg_pool1d", "adaptive_avg_pool2d",
            "adaptive_avg_pool3d", "adaptive_max_pool1d",
            "adaptive_max_pool2d", "adaptive_max_pool3d", "lp_pool1d",
-           "lp_pool2d", "max_unpool1d", "max_unpool2d", "max_unpool3d"]
+           "lp_pool2d", "max_unpool1d", "max_unpool2d", "max_unpool3d",
+           "gather_tree"]
 __all__ += _loss.__all__

@@ -1,6 +1,7 @@
-"""Max unpooling. reference: paddle_tpu/nn/functional/extras.py
-(`_max_unpool` :130, `max_unpool1d/2d/3d` :153-175). The rest of that file
-is not ported.
+"""Max unpooling and beam back-tracing. reference:
+paddle_tpu/nn/functional/extras.py (`_max_unpool` :130,
+`max_unpool1d/2d/3d` :153-175, `gather_tree` :355-371). The rest of that
+file is not ported.
 
 Each value of x goes to the flat spatial index `indices` gives it (as
 max_pool*(return_mask=True) returns them) in an output of zeros whose
@@ -17,7 +18,7 @@ import torch
 
 from .conv import _tuple
 
-__all__ = ["max_unpool1d", "max_unpool2d", "max_unpool3d"]
+__all__ = ["max_unpool1d", "max_unpool2d", "max_unpool3d", "gather_tree"]
 
 
 def _max_unpool(x, indices, n, kernel_size, stride, output_size):
@@ -48,3 +49,16 @@ def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
 def max_unpool3d(x, indices, kernel_size, stride=None, padding=0,
                  data_format="NCDHW", output_size=None, name=None):
     return _max_unpool(x, indices, 3, kernel_size, stride, output_size)
+
+
+def gather_tree(ids, parents):
+    """Full beams from a beam search's step ids and parent beams, both
+    (max_time, batch, beam): walking back from the last step, each beam
+    takes its id at every step and moves to its parent there."""
+    beam = torch.arange(ids.shape[2], device=ids.device).expand(
+        ids.shape[1], -1)
+    out = []
+    for t in range(ids.shape[0] - 1, -1, -1):
+        out.append(ids[t].gather(1, beam))
+        beam = parents[t].gather(1, beam).long()
+    return torch.stack(out[::-1])

@@ -1,17 +1,24 @@
 """Activation layers. reference: paddle_tpu/nn/layer/activation.py
-(`ReLU6`, `Hardsigmoid`, `Hardswish`, `Swish`: each calls its functional
-with the arguments it was built with)."""
+(`ReLU`, `ReLU6`, `Hardsigmoid`, `Hardswish`, `Swish`: each calls its
+functional with the arguments it was built with)."""
 
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .layers import Layer
 
-__all__ = ["ReLU6", "Hardsigmoid", "Hardswish", "Swish"]
+__all__ = ["ReLU", "ReLU6", "Hardsigmoid", "Hardswish", "Swish"]
 
 
-class ReLU6(nn.Module):
+class ReLU(Layer):
+    def __init__(self, name=None):
+        super().__init__()
+
+    def forward(self, x):
+        return F.relu(x)
+
+
+class ReLU6(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -19,7 +26,7 @@ class ReLU6(nn.Module):
         return F.relu6(x)
 
 
-class Hardsigmoid(nn.Module):
+class Hardsigmoid(Layer):
     def __init__(self, slope=0.1666667, offset=0.5, name=None):
         super().__init__()
         self.slope, self.offset = slope, offset
@@ -28,7 +35,7 @@ class Hardsigmoid(nn.Module):
         return F.hardsigmoid(x, self.slope, self.offset)
 
 
-class Hardswish(nn.Module):
+class Hardswish(Layer):
     def __init__(self, name=None):
         super().__init__()
 
@@ -36,7 +43,7 @@ class Hardswish(nn.Module):
         return F.hardswish(x)
 
 
-class Swish(nn.Module):
+class Swish(Layer):
     def __init__(self, name=None):
         super().__init__()
 

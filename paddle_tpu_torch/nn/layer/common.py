@@ -17,56 +17,28 @@ None for the reference's default; `bias_attr=False` leaves the bias out.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
-from ...framework.device import resolve_device
-from ...framework.dtypes import convert_dtype
-from ...framework.param_attr import ParamAttr
-from ...framework.random import get_generator
 from .. import functional as F
-from ..initializer import Constant, Normal, XavierUniform
+from ..initializer import Normal
+from .layers import Layer, _param
 
 __all__ = ["Linear", "Embedding", "Dropout"]
 
 
-def _param(attr, default, shape, dtype, device):
-    """The reference's `create_parameter` (nn/layer/layers.py:48-80): None
-    when `attr` is False; else drawn by `attr`'s initializer (a ParamAttr's
-    or `attr` itself) or `default`, with the ParamAttr's `trainable`, its
-    `name` as `param_name` (torch's `Tensor.name` cannot be set), and
-    `optimize_attr = {"learning_rate": lr}` (1.0 without a ParamAttr);
-    the optimizers read both."""
-    if attr is False:
-        return None
-    init, trainable, name, lr = default, True, None, 1.0
-    if isinstance(attr, ParamAttr):
-        init = attr.initializer or default
-        trainable, name, lr = attr.trainable, attr.name, attr.learning_rate
-    elif attr is not None and attr is not True:
-        init = attr
-    device = resolve_device(device)
-    data = init(tuple(shape), convert_dtype(dtype), device,
-                get_generator(device))
-    p = nn.Parameter(data, requires_grad=trainable)
-    p.param_name = name
-    p.optimize_attr = {"learning_rate": lr}
-    return p
-
-
-class Linear(nn.Module):
+class Linear(Layer):
     """y = x @ W + b with W (in_features, out_features); XavierUniform
-    weight and zero bias unless `weight_attr` / `bias_attr` name an
-    initializer."""
+    weight and zero bias (or the global initializers) unless `weight_attr`
+    / `bias_attr` name an initializer."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
                  bias_attr=None, name=None, *, dtype="float32", device=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = _param(weight_attr, XavierUniform(),
-                             (in_features, out_features), dtype, device)
-        self.bias = _param(bias_attr, Constant(0.0), (out_features,), dtype,
-                           device)
+        self.weight = _param(weight_attr, None, (in_features, out_features),
+                             dtype, device)
+        self.bias = _param(bias_attr, None, (out_features,), dtype, device,
+                           is_bias=True)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -75,7 +47,7 @@ class Linear(nn.Module):
         return f"in_features={self.in_features}, out_features={self.out_features}"
 
 
-class Embedding(nn.Module):
+class Embedding(Layer):
     """Lookup table (num_embeddings, embedding_dim), Normal(0, 1) unless
     `weight_attr` names an initializer. The row at `padding_idx` (negative:
     counted from the end) starts at zero and its lookups give zeros.
@@ -98,7 +70,7 @@ class Embedding(nn.Module):
         return F.embedding(ids, self.weight, self.padding_idx)
 
 
-class Dropout(nn.Module):
+class Dropout(Layer):
     """F.dropout with the module's training flag."""
 
     def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):

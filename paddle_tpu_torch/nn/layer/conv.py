@@ -14,11 +14,11 @@ from __future__ import annotations
 
 import math
 
-from torch import nn
 
 from .. import functional as F
 from ..initializer import Uniform
 from .common import _param
+from .layers import Layer
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
            "Conv2DTranspose", "Conv3DTranspose"]
@@ -44,7 +44,7 @@ def _default_format(n):
     return "NC" + "DHW"[3 - n:] if n > 1 else "NCL"
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     _n = 0
     _fn = None
 
@@ -82,7 +82,7 @@ class Conv3D(_ConvNd):
     _n, _fn = 3, "conv3d"
 
 
-class _ConvTransposeNd(nn.Module):
+class _ConvTransposeNd(Layer):
     """The reference's transposed-convolution layers: `output_size` given
     to forward overrides `output_padding`."""
     _n = 0

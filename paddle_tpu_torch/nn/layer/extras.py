@@ -4,14 +4,13 @@ is not ported."""
 
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["MaxUnPool1D", "MaxUnPool2D", "MaxUnPool3D"]
 
 
-class _MaxUnPoolN(nn.Module):
+class _MaxUnPoolN(Layer):
     _ndim = 2
 
     def __init__(self, kernel_size, stride=None, padding=0,

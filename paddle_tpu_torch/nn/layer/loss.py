@@ -5,9 +5,8 @@ loss, `name` dropped) and CTCLoss."""
 
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
            "BCEWithLogitsLoss", "SmoothL1Loss", "KLDivLoss",
@@ -17,7 +16,7 @@ __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
            "GaussianNLLLoss", "CTCLoss"]
 
 
-class CrossEntropyLoss(nn.Module):
+class CrossEntropyLoss(Layer):
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
                  label_smoothing=0.0, name=None):
@@ -35,16 +34,16 @@ class CrossEntropyLoss(nn.Module):
 
 def _mk(name, fname):
     def __init__(self, *args, **kwargs):
-        nn.Module.__init__(self)
+        Layer.__init__(self)
         self._args = args
         self._kwargs = {k: v for k, v in kwargs.items() if k != "name"}
 
     def forward(self, *inputs):
         return getattr(F, fname)(*inputs, *self._args, **self._kwargs)
 
-    return type(name, (nn.Module,), {"__init__": __init__,
-                                     "forward": forward,
-                                     "__module__": __name__})
+    return type(name, (Layer,), {"__init__": __init__,
+                                  "forward": forward,
+                                  "__module__": __name__})
 
 
 MSELoss = _mk("MSELoss", "mse_loss")
@@ -68,7 +67,7 @@ PoissonNLLLoss = _mk("PoissonNLLLoss", "poisson_nll_loss")
 GaussianNLLLoss = _mk("GaussianNLLLoss", "gaussian_nll_loss")
 
 
-class CTCLoss(nn.Module):
+class CTCLoss(Layer):
     def __init__(self, blank=0, reduction="mean"):
         super().__init__()
         self.blank = blank

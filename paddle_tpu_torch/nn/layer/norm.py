@@ -1,22 +1,23 @@
 """Normalization layers. reference: paddle_tpu/nn/layer/norm.py
 (`_BatchNormBase` :18-40, `BatchNorm`/`BatchNorm1D/2D/3D` :43-57,
-`LayerNorm` :80, `RMSNorm` :99). `SyncBatchNorm` is not ported."""
+`LayerNorm` :80, `RMSNorm` :99, `SpectralNorm` :168). `SyncBatchNorm` is
+not ported."""
 
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ...framework.device import resolve_device
 from .. import functional as F
-from ..initializer import Constant
+from ..initializer import Constant, Normal
 from .common import _param
+from .layers import Layer
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-           "LayerNorm", "RMSNorm"]
+           "LayerNorm", "RMSNorm", "SpectralNorm"]
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     """Batch norm over `num_features` channels: weight ones and bias zeros
     unless `weight_attr` / `bias_attr` name an initializer (left out when
     False), and the running statistics as the float32 buffers `_mean`
@@ -69,7 +70,7 @@ class BatchNorm3D(_BatchNormBase):
     pass
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     """LayerNorm over the trailing `normalized_shape` axes; weight ones and
     bias zeros unless `weight_attr` / `bias_attr` name an initializer, and
     left out when False."""
@@ -91,7 +92,7 @@ class LayerNorm(nn.Module):
                             self.epsilon)
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(Layer):
     """Llama-family RMSNorm with a ones-initialized weight unless
     `weight_attr` names an initializer."""
 
@@ -104,3 +105,39 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self.epsilon)
+
+
+class SpectralNorm(Layer):
+    """weight / sigma, sigma its largest singular value as `power_iters`
+    steps of power iteration from the frozen parameters `weight_u` (h,)
+    and `weight_v` (w,) estimate it, with weight seen as (h, w): its axis
+    `dim` first, the rest flattened. The iteration carries no gradient
+    and does not update u and v, as in the reference."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, epsilon=1e-12,
+                 dtype="float32", *, device=None):
+        super().__init__()
+        self._dim = dim
+        self._power_iters = power_iters
+        self._epsilon = epsilon
+        h = weight_shape[dim]
+        w = 1
+        for i, s in enumerate(weight_shape):
+            if i != dim:
+                w *= s
+        self.weight_u = _param(None, Normal(0.0, 1.0), (h,), dtype, device)
+        self.weight_v = _param(None, Normal(0.0, 1.0), (w,), dtype, device)
+        self.weight_u.requires_grad_(False)
+        self.weight_v.requires_grad_(False)
+
+    def forward(self, weight):
+        wm = weight.movedim(self._dim, 0).reshape(weight.shape[self._dim],
+                                                  -1)
+        u, v = self.weight_u, self.weight_v
+        with torch.no_grad():
+            for _ in range(self._power_iters):
+                v = wm.T @ u
+                v = v / (torch.linalg.norm(v) + self._epsilon)
+                u = wm @ v
+                u = u / (torch.linalg.norm(u) + self._epsilon)
+        return weight / (u @ wm @ v)

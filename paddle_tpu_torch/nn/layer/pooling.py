@@ -5,9 +5,8 @@ the reference drops it."""
 
 from __future__ import annotations
 
-from torch import nn
-
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["AvgPool1D", "AvgPool2D", "AvgPool3D", "MaxPool1D", "MaxPool2D",
            "MaxPool3D", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
@@ -15,7 +14,7 @@ __all__ = ["AvgPool1D", "AvgPool2D", "AvgPool3D", "MaxPool1D", "MaxPool2D",
            "AdaptiveMaxPool3D", "LPPool1D", "LPPool2D"]
 
 
-class _Pool(nn.Module):
+class _Pool(Layer):
     _fn = None
 
     def __init__(self, kernel_size, stride=None, padding=0, **kwargs):
@@ -53,7 +52,7 @@ class MaxPool3D(_Pool):
     _fn = "max_pool3d"
 
 
-class _AdaptivePool(nn.Module):
+class _AdaptivePool(Layer):
     _fn = None
 
     def __init__(self, output_size, **kwargs):
@@ -89,7 +88,7 @@ class AdaptiveMaxPool3D(_AdaptivePool):
     _fn = "adaptive_max_pool3d"
 
 
-class LPPool1D(nn.Module):
+class LPPool1D(Layer):
     def __init__(self, norm_type, kernel_size, stride=None, padding=0,
                  ceil_mode=False, data_format="NCL", name=None):
         super().__init__()
@@ -100,7 +99,7 @@ class LPPool1D(nn.Module):
         return F.lp_pool1d(x, *self.args)
 
 
-class LPPool2D(nn.Module):
+class LPPool2D(Layer):
     def __init__(self, norm_type, kernel_size, stride=None, padding=0,
                  ceil_mode=False, data_format="NCHW", name=None):
         super().__init__()

@@ -25,6 +25,7 @@ from ...framework.dtypes import convert_dtype
 from . import format  # noqa: F401  (the QAT -> deployment layers)
 from .format import (LinearDequanter, LinearQuanter, LinearQuanterDequanter,
                      div, fake_fp8_dequant, fake_fp8_quant, fp8_limits)
+from ..layer.layers import Layer
 
 __all__ = ["Stub", "weight_only_linear", "llm_int8_linear",
            "weight_quantize", "weight_dequantize", "LinearQuanter",
@@ -146,7 +147,7 @@ def llm_int8_linear(x, weight, bias=None, weight_scale=None, threshold=6.0):
     return out.reshape(*lead, -1).to(x.dtype)
 
 
-class Stub(nn.Module):
+class Stub(Layer):
     """Observer placeholder where a quanter should attach; the identity
     until quantization.QAT resolves it."""
 

@@ -22,9 +22,9 @@ layer's `.to()`, and the state dict stays empty, as the reference's.
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ...framework.device import resolve_device
+from ..layer.layers import Layer
 
 __all__ = ["LinearQuanter", "LinearDequanter", "LinearQuanterDequanter",
            "fake_fp8_quant", "fake_fp8_dequant", "fp8_limits"]
@@ -110,7 +110,7 @@ def _as_f32(v, device):
                            device=resolve_device(device))
 
 
-class _ScaledFormat(nn.Module):
+class _ScaledFormat(Layer):
     """Shared scale / zero-point handling of the format layers."""
 
     def __init__(self, scales, zero_point, quant_axis, bit_length,
@@ -192,7 +192,7 @@ class LinearDequanter(_ScaledFormat):
                                bit_length=quanter.bit_length())
 
 
-class LinearQuanterDequanter(nn.Module):
+class LinearQuanterDequanter(Layer):
     """A quanter then a dequanter: the deployed form of a trained
     fake-quanter."""
 

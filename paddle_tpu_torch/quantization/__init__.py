@@ -26,6 +26,7 @@ from .. import nn as pnn
 from ..framework.device import resolve_device
 from ..nn import functional as F
 from ..nn.quant.format import div
+from ..nn.layer.layers import Layer
 
 __all__ = ["QuantConfig", "QAT", "PTQ", "BaseQuanter", "BaseObserver",
            "AbsmaxObserver", "EMAObserver", "FakeQuanterWithAbsMaxObserver",
@@ -42,7 +43,7 @@ def _fake_quant(x, scale, bits=8):
     return x + (q - x).detach()
 
 
-class BaseObserver(nn.Module):
+class BaseObserver(Layer):
     """An observer: the identity that records a scale of what it sees."""
 
     def __init__(self, quant_bits=8, *, device=None):
@@ -93,7 +94,7 @@ class EMAObserver(BaseObserver):
             prev == 0, cur, self._rate * prev + (1 - self._rate) * cur))
 
 
-class BaseQuanter(nn.Module):
+class BaseQuanter(Layer):
     """The base of quanters (the reference's takes a Layer's name_scope and
     dtype, and ignores them here)."""
 
@@ -173,10 +174,10 @@ def _make(factory, device):
 
 
 def _device_of(layer):
-    return next(layer.parameters()).device
+    return next(iter(layer.parameters())).device
 
 
-class _QuantedBase(nn.Module):
+class _QuantedBase(Layer):
     """A layer with its weight and input quanters; each quanter is set
     only when configured."""
 
@@ -264,7 +265,7 @@ class QAT:
         return model
 
 
-class _Observed(nn.Module):
+class _Observed(Layer):
     """A layer under PTQ calibration: its input observer sees every batch;
     its weight observer saw the (static) weight once."""
 

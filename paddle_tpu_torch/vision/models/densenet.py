@@ -10,10 +10,9 @@ layer is built on `device`; `pretrained` is accepted and ignored.
 
 from __future__ import annotations
 
-from torch import nn
-
 from ... import nn as pnn
 from ...tensor import concat
+from ...nn.layer.layers import Layer
 
 __all__ = ["DenseNet", "densenet121", "densenet161", "densenet169",
            "densenet201", "densenet264"]
@@ -27,7 +26,7 @@ _ARCH = {
 }
 
 
-class _DenseLayer(nn.Module):
+class _DenseLayer(Layer):
     def __init__(self, in_c, growth_rate, bn_size, dropout, *, device=None):
         super().__init__()
         self.bn1 = pnn.BatchNorm2D(in_c, device=device)
@@ -47,7 +46,7 @@ class _DenseLayer(nn.Module):
         return concat([x, out], axis=1)
 
 
-class _DenseBlock(nn.Module):
+class _DenseBlock(Layer):
     def __init__(self, num_layers, in_c, growth_rate, bn_size, dropout, *,
                  device=None):
         super().__init__()
@@ -62,7 +61,7 @@ class _DenseBlock(nn.Module):
         return x
 
 
-class _Transition(nn.Module):
+class _Transition(Layer):
     def __init__(self, in_c, out_c, *, device=None):
         super().__init__()
         self.bn = pnn.BatchNorm2D(in_c, device=device)
@@ -75,7 +74,7 @@ class _Transition(nn.Module):
         return self.pool(self.conv(self.relu(self.bn(x))))
 
 
-class DenseNet(nn.Module):
+class DenseNet(Layer):
     def __init__(self, layers=121, bn_size=4, dropout=0.0, num_classes=1000,
                  with_pool=True, *, device=None):
         super().__init__()

@@ -12,15 +12,14 @@ buffer names are the reference's; every layer is built on `device`;
 
 from __future__ import annotations
 
-from torch import nn
-
 from ... import nn as pnn
 from ...tensor import concat
+from ...nn.layer.layers import Layer
 
 __all__ = ["GoogLeNet", "googlenet", "InceptionV3", "inception_v3"]
 
 
-class _BasicConv(nn.Module):
+class _BasicConv(Layer):
     def __init__(self, in_c, out_c, kernel, *, device=None, **kw):
         super().__init__()
         self.conv = pnn.Conv2D(in_c, out_c, kernel, bias_attr=False,
@@ -32,7 +31,7 @@ class _BasicConv(nn.Module):
         return self.relu(self.bn(self.conv(x)))
 
 
-class _Inception(nn.Module):
+class _Inception(Layer):
     def __init__(self, in_c, c1, c3r, c3, c5r, c5, pool_proj, *,
                  device=None):
         super().__init__()
@@ -50,7 +49,7 @@ class _Inception(nn.Module):
                       axis=1)
 
 
-class GoogLeNet(nn.Module):
+class GoogLeNet(Layer):
     def __init__(self, num_classes=1000, with_pool=True, *, device=None):
         super().__init__()
         self.num_classes = num_classes
@@ -109,7 +108,7 @@ def googlenet(pretrained=False, **kwargs):
     return GoogLeNet(**kwargs)
 
 
-class _InceptionA(nn.Module):
+class _InceptionA(Layer):
     def __init__(self, in_c, pool_features, *, device=None):
         super().__init__()
         d = dict(device=device)
@@ -127,7 +126,7 @@ class _InceptionA(nn.Module):
                       axis=1)
 
 
-class _InceptionB(nn.Module):
+class _InceptionB(Layer):
     def __init__(self, in_c, *, device=None):
         super().__init__()
         d = dict(device=device)
@@ -141,7 +140,7 @@ class _InceptionB(nn.Module):
         return concat([self.b3(x), self.b3d(x), self.pool(x)], axis=1)
 
 
-class _InceptionC(nn.Module):
+class _InceptionC(Layer):
     def __init__(self, in_c, c7, *, device=None):
         super().__init__()
         d = dict(device=device)
@@ -164,7 +163,7 @@ class _InceptionC(nn.Module):
                       axis=1)
 
 
-class _InceptionD(nn.Module):
+class _InceptionD(Layer):
     def __init__(self, in_c, *, device=None):
         super().__init__()
         d = dict(device=device)
@@ -181,7 +180,7 @@ class _InceptionD(nn.Module):
         return concat([self.b3(x), self.b7(x), self.pool(x)], axis=1)
 
 
-class _InceptionE(nn.Module):
+class _InceptionE(Layer):
     def __init__(self, in_c, *, device=None):
         super().__init__()
         d = dict(device=device)
@@ -204,7 +203,7 @@ class _InceptionE(nn.Module):
         return concat([self.b1(x), b3, b3d, self.bp(x)], axis=1)
 
 
-class InceptionV3(nn.Module):
+class InceptionV3(Layer):
     def __init__(self, num_classes=1000, with_pool=True, *, device=None):
         super().__init__()
         self.num_classes = num_classes

@@ -3,15 +3,14 @@ built on `device`."""
 
 from __future__ import annotations
 
-from torch import nn
-
 from ... import nn as pnn
 from ...tensor import flatten
+from ...nn.layer.layers import Layer
 
 __all__ = ["LeNet"]
 
 
-class LeNet(nn.Module):
+class LeNet(Layer):
     def __init__(self, num_classes=10, *, device=None):
         super().__init__()
         self.num_classes = num_classes

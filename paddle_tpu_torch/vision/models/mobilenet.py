@@ -13,9 +13,8 @@ for the reference's signature and ignored.
 
 from __future__ import annotations
 
-from torch import nn
-
 from ... import nn as pnn
+from ...nn.layer.layers import Layer
 
 __all__ = ["MobileNetV1", "MobileNetV2", "MobileNetV3Small",
            "MobileNetV3Large", "mobilenet_v1", "mobilenet_v2",
@@ -30,7 +29,7 @@ def _make_divisible(v, divisor=8, min_value=None):
     return new_v
 
 
-class ConvBNLayer(nn.Module):
+class ConvBNLayer(Layer):
     def __init__(self, in_c, out_c, kernel, stride=1, padding=0, groups=1,
                  act=pnn.ReLU, *, device=None):
         super().__init__()
@@ -45,7 +44,7 @@ class ConvBNLayer(nn.Module):
         return self.act(x) if self.act is not None else x
 
 
-class DepthwiseSeparable(nn.Module):
+class DepthwiseSeparable(Layer):
     def __init__(self, in_c, out_c1, out_c2, stride, scale, *, device=None):
         super().__init__()
         c1 = int(out_c1 * scale)
@@ -58,7 +57,7 @@ class DepthwiseSeparable(nn.Module):
         return self.pw(self.dw(x))
 
 
-class MobileNetV1(nn.Module):
+class MobileNetV1(Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True, *,
                  device=None):
         super().__init__()
@@ -94,7 +93,7 @@ class MobileNetV1(nn.Module):
         return x
 
 
-class InvertedResidual(nn.Module):
+class InvertedResidual(Layer):
     def __init__(self, inp, oup, stride, expand_ratio, *, device=None):
         super().__init__()
         self.use_res = stride == 1 and inp == oup
@@ -113,7 +112,7 @@ class InvertedResidual(nn.Module):
         return x + self.conv(x) if self.use_res else self.conv(x)
 
 
-class MobileNetV2(nn.Module):
+class MobileNetV2(Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True, *,
                  device=None):
         super().__init__()
@@ -151,7 +150,7 @@ class MobileNetV2(nn.Module):
         return x
 
 
-class SqueezeExcitation(nn.Module):
+class SqueezeExcitation(Layer):
     def __init__(self, ch, squeeze_ch, *, device=None):
         super().__init__()
         self.avgpool = pnn.AdaptiveAvgPool2D(1)
@@ -165,7 +164,7 @@ class SqueezeExcitation(nn.Module):
         return x * s
 
 
-class _V3Block(nn.Module):
+class _V3Block(Layer):
     def __init__(self, in_c, exp_c, out_c, kernel, stride, use_se, act, *,
                  device=None):
         super().__init__()
@@ -188,7 +187,7 @@ class _V3Block(nn.Module):
         return x + self.block(x) if self.use_res else self.block(x)
 
 
-class _MobileNetV3(nn.Module):
+class _MobileNetV3(Layer):
     def __init__(self, cfg, last_exp, last_c, scale=1.0, num_classes=1000,
                  with_pool=True, *, device=None):
         super().__init__()

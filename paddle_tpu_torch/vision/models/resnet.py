@@ -12,10 +12,9 @@ weights to load.
 
 from __future__ import annotations
 
-from torch import nn
-
 from ... import nn as pnn
 from ...tensor import flatten
+from ...nn.layer.layers import Layer
 
 __all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "resnet18",
            "resnet34", "resnet50", "resnet101", "resnet152",
@@ -24,7 +23,7 @@ __all__ = ["ResNet", "BasicBlock", "BottleneckBlock", "resnet18",
            "wide_resnet50_2", "wide_resnet101_2"]
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -51,7 +50,7 @@ class BasicBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -84,7 +83,7 @@ class BottleneckBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, *, device=None):
         super().__init__()

@@ -11,10 +11,9 @@ accepted and ignored.
 
 from __future__ import annotations
 
-from torch import nn
-
 from ... import nn as pnn
 from ...tensor import concat, reshape, transpose
+from ...nn.layer.layers import Layer
 
 __all__ = ["AlexNet", "alexnet", "SqueezeNet", "squeezenet1_0",
            "squeezenet1_1", "ShuffleNetV2", "shufflenet_v2_x0_25",
@@ -22,7 +21,7 @@ __all__ = ["AlexNet", "alexnet", "SqueezeNet", "squeezenet1_0",
            "shufflenet_v2_x1_5", "shufflenet_v2_x2_0", "shufflenet_v2_swish"]
 
 
-class AlexNet(nn.Module):
+class AlexNet(Layer):
     def __init__(self, num_classes=1000, dropout=0.5, *, device=None):
         super().__init__()
         self.num_classes = num_classes
@@ -55,7 +54,7 @@ def alexnet(pretrained=False, **kwargs):
     return AlexNet(**kwargs)
 
 
-class _Fire(nn.Module):
+class _Fire(Layer):
     def __init__(self, in_c, squeeze, e1, e3, *, device=None):
         super().__init__()
         self.squeeze = pnn.Conv2D(in_c, squeeze, 1, device=device)
@@ -69,7 +68,7 @@ class _Fire(nn.Module):
                        self.relu(self.expand3(x))], axis=1)
 
 
-class SqueezeNet(nn.Module):
+class SqueezeNet(Layer):
     def __init__(self, version="1.0", num_classes=1000, with_pool=True, *,
                  device=None):
         super().__init__()
@@ -128,7 +127,7 @@ def _channel_shuffle(x, groups):
     return reshape(x, [n, c, h, w])
 
 
-class _ShuffleUnit(nn.Module):
+class _ShuffleUnit(Layer):
     def __init__(self, in_c, out_c, stride, act, *, device=None):
         super().__init__()
         self.stride = stride
@@ -164,7 +163,7 @@ class _ShuffleUnit(nn.Module):
         return _channel_shuffle(out, 2)
 
 
-class ShuffleNetV2(nn.Module):
+class ShuffleNetV2(Layer):
     _STAGE_OUT = {
         0.25: [24, 24, 48, 96, 512], 0.33: [24, 32, 64, 128, 512],
         0.5: [24, 48, 96, 192, 1024], 1.0: [24, 116, 232, 464, 1024],

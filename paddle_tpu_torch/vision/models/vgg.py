@@ -3,9 +3,8 @@
 
 from __future__ import annotations
 
-from torch import nn
-
 from ... import nn as pnn
+from ...nn.layer.layers import Layer
 
 __all__ = ["VGG", "vgg11", "vgg13", "vgg16", "vgg19"]
 
@@ -35,7 +34,7 @@ def _make_layers(cfg, batch_norm=False, device=None):
     return pnn.Sequential(*layers)
 
 
-class VGG(nn.Module):
+class VGG(Layer):
     def __init__(self, features, num_classes=1000, with_pool=True, *,
                  device=None):
         super().__init__()

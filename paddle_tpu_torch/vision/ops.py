@@ -31,6 +31,7 @@ from torch import nn
 
 from ..framework.device import resolve_device
 from ..framework.random import get_generator
+from ..nn.layer.layers import Layer
 
 __all__ = [
     "yolo_loss", "yolo_box", "prior_box", "box_coder", "deform_conv2d",
@@ -160,7 +161,7 @@ def psroi_pool(x, boxes, boxes_num, output_size, spatial_scale=1.0,
     return torch.diagonal(grouped, dim1=1, dim2=3).reshape(r, cg, oh, ow)
 
 
-class RoIAlign(nn.Module):
+class RoIAlign(Layer):
     def __init__(self, output_size, spatial_scale=1.0):
         super().__init__()
         self.output_size = output_size
@@ -171,7 +172,7 @@ class RoIAlign(nn.Module):
                          self.spatial_scale, aligned=aligned)
 
 
-class RoIPool(nn.Module):
+class RoIPool(Layer):
     def __init__(self, output_size, spatial_scale=1.0):
         super().__init__()
         self.output_size = output_size
@@ -182,7 +183,7 @@ class RoIPool(nn.Module):
                         self.spatial_scale)
 
 
-class PSRoIPool(nn.Module):
+class PSRoIPool(Layer):
     def __init__(self, output_size, spatial_scale=1.0):
         super().__init__()
         self.output_size = output_size
@@ -338,7 +339,7 @@ def deform_conv2d(x, offset, weight, bias=None, stride=1, padding=0,
     return out
 
 
-class DeformConv2D(nn.Module):
+class DeformConv2D(Layer):
     """The weight (out, in, kh, kw) from Uniform(+-sqrt(6 / fan_in)), fan_in
     = in * kh * kw, and a zero bias (none when bias_attr is False), built
     on `device`. groups and deformable_groups are accepted and not used,
