@@ -16,8 +16,10 @@ Phases, each of which makes the script exit non-zero if it fails:
      over sk 100, whose first 200 rows admit no key: finite everywhere,
      compared where a row has keys; GQA 8:1 at d64), the serving slice's
      prefill shape, the training slice's attention shape (also in fp16),
-     BERT-base's (b32, 12 heads of 64, s512, not causal) and the decode
-     leg's prefill (b8, 16 heads of 128, s128), with times (kernel,
+     BERT-base's (b32, 12 heads of 64, s512, not causal), Transformer-
+     base's (b32, 8 heads of 64, s128), ViT-B/16's (b64, 12 heads of 64,
+     s197, not causal: no multiple of a tile) and the decode leg's prefill
+     (b8, 16 heads of 128, s128), with times (kernel,
      plain version, and torch's scaled_dot_product_attention as a
      yardstick only) and the least time the card could take. Kernel and SDPA times are given
      twice: the median single call, host work included, and the device
@@ -84,7 +86,7 @@ Phases, each of which makes the script exit non-zero if it fails:
      add_request to the last token: speculative decode (depth 2, 3-grams)
      on phase 9's mix, whose streams must be phase 9's at decode_steps 4
      and 1, and on 8 greedy requests whose 512-token prompts tile one
-     5-token motif (128 new tokens), against the same engine without
+     5-token motif (64 new tokens), against the same engine without
      speculation; int8 and fp8_e4m3 pools at the bf16 pool's bytes, which
      must hold 1.9x its blocks, give first-chunk logits within
      QUANT_LOGITS_RTOL of the bf16 pool's and the same streams with and
@@ -112,14 +114,14 @@ Phases, each of which makes the script exit non-zero if it fails:
   12. load generation: llama_7b through ContinuousBatchingEngine at phase
      9's knobs (decode_steps 4, an admission queue of 64) under
      inference.loadgen.run_scenario, each of the six SCENARIOS at its own
-     distributions for 8 s of schedule on a fresh engine (shared_prefix
+     distributions for 6 s of schedule on a fresh engine (shared_prefix
      with the prefix cache, structured_output under an SLOScheduler whose
      ladder only the cost model's headroom moves, a rung a step each way;
      multi_adapter on a cold
      engine without a store, so loadgen installs the demo store). Every
      report must pass loadgen.check_report (the prefix hit rate and
      adapter loads where they apply), and no K1-K4 launch. Then chat at
-     5, 10, 20, 40 and 80 requests/s, 6 s each without draining: in every
+     5, 10 and 40 requests/s, 6 s each without draining: in every
      run slo_headroom must reach <= 0 no later than the timeline sample
      where shed passes 10%, and its median over the run must separate the
      rates: > 0 at the lowest rate (about half the saturated goodput_rps)
@@ -291,6 +293,37 @@ Phases, each of which makes the script exit non-zero if it fails:
      step the card's top scores within NMT_SCORE_ATOL of the CPU's totals
      of the same extensions, and the card's picks a near-tie in the CPU's
      own ranking where they differ (NMT_TIE_ATOL); no K1-K4 launch on (b).
+  21. a Vision Transformer and a diffusion U-Net, written as a user
+     writes them (nn.Layer of the port's layers and functionals, random
+     weights from seed(0), data from numpy seeds). (a) ViT-B/16 trained as
+     DeiT-B: AdamW (weight decay 0.05) under CosineAnnealingDecay, mixup
+     (lambda ~ Beta(0.8, 0.8) drawn with numpy), F.label_smooth(0.1) into a
+     soft-label cross_entropy, stochastic depth 0.1 by paddle.rand,
+     attention as one Linear(768, 2304) reshaped into
+     F.flash_attn_qkvpacked, bf16, b64 x 224^2, 1 + 8 steps: step ms,
+     images/s, MFU and its formula, the router's decision at (b768, s197,
+     d64), K1/K3/K4 launches a step (12 each where routed to the
+     kernels), a traced step by kernel class and busy share, peak memory;
+     its float32 twin at 2 layers, drop path and TF32 off, first loss and
+     gradient norm on the card within VIT_TWIN_LOSS_RTOL /
+     VIT_TWIN_GRAD_RTOL of the CPU's. (b) DDPM on CIFAR-10 (Ho et al.
+     2020: ch 128, ch_mult (1, 2, 2, 2), 2 blocks a level, attention at 16
+     x 16 through the dense path, GroupNorm(32), dropout 0.1, nearest x2
+     by F.interpolate, 35.7M parameters; T 1000, linear betas, epsilon MSE,
+     Adam(2e-4)), float32, b128 x 32^2, t by paddle.randint and noise by
+     paddle.randn, 1 + 4 steps, then 20 ancestral sampling steps at b16:
+     step ms, images/s, ms a sampling step, traced steps by kernel class
+     and busy shares, peak memory, no K1-K4 launch; its twin at ch_mult
+     (1, 2), dropout and TF32 off, b8: one training step's loss and
+     gradient norm and one sampling step's output on the card against the
+     CPU's. (c) every function the slice ported (tensor math, stat, random,
+     linalg and paddle.linalg, extras, the in-place family, the nn
+     functionals) once on CUDA on the CPU tests' kinds of input, against
+     the port's CPU result within NEW_OPS_RTOL of the largest |value|;
+     random draws by support and mean, decompositions by what is unique
+     (singular values and reconstructions, |R| and Q R, sorted
+     eigenvalues, P L U). Prints the phase's seconds.
+Each phase's seconds are printed as it ends, then those of phases 1-21.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -301,6 +334,7 @@ from __future__ import annotations
 import copy
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -391,6 +425,10 @@ BERT_ATTN = dict(b=32, h=12, kvh=12, sq=512, sk=512, d=64, causal=False)
 # and the cross-attention): batch 32, sequence 128, 8 heads of 64, no mask
 # and no causal flag
 MT_ATTN = dict(b=32, h=8, kvh=8, sq=128, sk=128, d=64, causal=False)
+# ViT-B/16's attention in phase 21: 64 images, 12 heads of 64 over 197
+# tokens (196 patches and the class token), no mask, not causal; 197 is no
+# multiple of any tile, so the padded rows must never be written
+VIT_ATTN = dict(b=64, h=12, kvh=12, sq=197, sk=197, d=64, causal=False)
 # bench.py's decode leg's prefill attention (phase 17): batch 8, prompt 128,
 # 16 heads of 128
 DECODE_PREFILL = dict(b=8, h=16, kvh=16, sq=128, sk=128, d=128, causal=True)
@@ -416,7 +454,7 @@ BASE_CASES = (
                        (100, 260, False)]]
     + [dict(b=2, h=32, kvh=8, sq=512, sk=512, d=128, causal=True),   # GQA
        dict(b=2, h=8, kvh=8, sq=256, sk=256, d=96, causal=True),     # pad
-       PREFILL, TRAIN_ATTN, BERT_ATTN, MT_ATTN])
+       PREFILL, TRAIN_ATTN, BERT_ATTN, MT_ATTN, VIT_ATTN])
 K1_CASES = BASE_CASES + FWD_EDGE_CASES + [DECODE_PREFILL]
 K2_CASES = (
     [dict(b=2, h=4, kvh=4, sq=sq, sk=sk, d=d, causal=c)
@@ -459,9 +497,9 @@ ENGINE_LOGITS_RTOL = 5e-2
 # the engine-knobs phase (after phase 9), on phase 9's model and knobs:
 # speculative decode at depth 2 over 3-grams; a second mix of 8 greedy
 # requests whose 512-token prompts tile one 5-token motif (bench.py's
-# decode A/B mix), 128 new tokens each
+# decode A/B mix), 64 new tokens each
 KNOB_SPEC = dict(speculative_decode=True, draft_depth=2, draft_ngram=3)
-MOTIF_REQUESTS, MOTIF_PROMPT, MOTIF_NEW = 8, 512, 128
+MOTIF_REQUESTS, MOTIF_PROMPT, MOTIF_NEW = 8, 512, 64
 # quantized pools at the bf16 pool's bytes must hold this many times its
 # blocks (int8: 4,096 payload + 64 scale bytes a token and head set,
 # against 8,192)
@@ -497,14 +535,15 @@ PREFIX_BUCKETS = (512,)
 # schedule at phase 9's knobs with a bounded admission queue (overload is
 # shed by backpressure, as the reference harness's engine sheds it), then
 # chat at each sweep rate without draining (5 requests/s is about half
-# the engine's saturated goodput_rps on the H100, 10 is about all of it);
+# the engine's saturated goodput_rps on the H100, 10 is about all of it,
+# 40 sheds);
 # the floors check_report takes for the shared_prefix and multi_adapter
 # scenarios are the reference CLI's defaults. A program's measured over
 # predicted cost must lie in COST_RATIO_BAND, the band the CPU tests hold
 # a prediction across prefill widths to
-LOADGEN_SECONDS = 8.0
+LOADGEN_SECONDS = 6.0
 LOADGEN_QUEUE = 64
-SWEEP_RATES, SWEEP_SECONDS = (5.0, 10.0, 20.0, 40.0, 80.0), 6.0
+SWEEP_RATES, SWEEP_SECONDS = (5.0, 10.0, 40.0), 6.0
 COST_RATIO_BAND = (0.2, 5.0)
 MIN_PREFIX_HIT_RATE, MIN_ADAPTER_LOADS = 0.5, 1
 # the predictor phase (13): the saved llama_7b runs phase 8's prompts; its
@@ -896,7 +935,7 @@ def phase_k1():
                      f"{case}")
         for name, shape in (("prefill", PREFILL), ("train", TRAIN_ATTN),
                             ("bert", BERT_ATTN), ("decode", DECODE_PREFILL),
-                            ("mt", MT_ATTN)):
+                            ("mt", MT_ATTN), ("vit", VIT_ATTN)):
             if case is shape:
                 records[name] = dict(
                     max_abs_err=max(err_out, err_lse), ms=ms,
@@ -1041,7 +1080,7 @@ def phase_k34():
             sys.exit(f"chip_smoke: K3/K4 disagree with the plain backward "
                      f"or do not repeat at {case}")
         timed = {id(TRAIN_ATTN): "train", id(BERT_ATTN): "bert",
-                 id(MT_ATTN): "mt"}
+                 id(MT_ATTN): "mt", id(VIT_ATTN): "vit"}
         if id(case) not in timed:
             continue
         shape = records.setdefault(timed[id(case)], {})
@@ -3926,40 +3965,1051 @@ def phase_mt():
     return {k: transformer[k] + lstm[k] for k in transformer}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 21: a Vision Transformer and a diffusion U-Net, written as a user
+# writes them against a package P (the port, or the JAX package in the
+# tests: tests/test_torch_vision_slice.py)
+# ---------------------------------------------------------------------------
+
+def vit(P, image, patch, dim, depth, heads, mlp, classes, drop_path):
+    """ViT (Dosovitskiy et al. 2021) as DeiT trains it (Touvron et al.
+    2021): patches by a strided convolution, a class token and learned
+    positions, pre-norm blocks (LayerNorm eps 1e-6) whose attention is one
+    Linear(dim, 3 dim) reshaped to (b, s, 3, heads, dim / heads) into
+    F.flash_attn_qkvpacked, a GELU MLP, stochastic depth rising linearly to
+    `drop_path` over the blocks (nn.Identity where it is 0), and a linear
+    head on the final norm of the class token."""
+    F = P.nn.functional
+
+    class DropPath(P.nn.Layer):
+        """Each sample's residual branch dropped with probability p, the
+        kept ones scaled by 1 / (1 - p)."""
+
+        def __init__(self, p):
+            super().__init__()
+            self.p = p
+
+        def forward(self, x):
+            if not self.training:
+                return x
+            keep = 1.0 - self.p
+            mask = P.floor(keep + P.rand([x.shape[0], 1, 1], dtype=x.dtype))
+            return x / keep * mask
+
+    class Block(P.nn.Layer):
+        def __init__(self, dp):
+            super().__init__()
+            self.norm1 = P.nn.LayerNorm(dim, epsilon=1e-6)
+            self.qkv = P.nn.Linear(dim, 3 * dim)
+            self.proj = P.nn.Linear(dim, dim)
+            self.norm2 = P.nn.LayerNorm(dim, epsilon=1e-6)
+            self.fc1 = P.nn.Linear(dim, mlp)
+            self.act = P.nn.GELU()
+            self.fc2 = P.nn.Linear(mlp, dim)
+            self.drop_path = DropPath(dp) if dp > 0 else P.nn.Identity()
+
+        def forward(self, x):
+            b, s = x.shape[0], x.shape[1]
+            qkv = P.reshape(self.qkv(self.norm1(x)),
+                            [b, s, 3, heads, dim // heads])
+            a, _ = F.flash_attn_qkvpacked(qkv)
+            x = x + self.drop_path(self.proj(P.reshape(a, [b, s, dim])))
+            return x + self.drop_path(
+                self.fc2(self.act(self.fc1(self.norm2(x)))))
+
+    class ViT(P.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            tokens = (image // patch) ** 2 + 1
+            init = P.nn.initializer.Normal(0.0, 0.02)
+            self.patch_embed = P.nn.Conv2D(3, dim, patch, stride=patch)
+            self.cls_token = self.create_parameter(
+                [1, 1, dim], default_initializer=init)
+            self.pos_embed = self.create_parameter(
+                [1, tokens, dim], default_initializer=init)
+            self.blocks = P.nn.LayerList(
+                [Block(drop_path * i / max(depth - 1, 1))
+                 for i in range(depth)])
+            self.norm = P.nn.LayerNorm(dim, epsilon=1e-6)
+            self.head = P.nn.Linear(dim, classes)
+
+        def forward(self, images):
+            x = self.patch_embed(images)
+            x = P.transpose(P.flatten(x, 2), [0, 2, 1])
+            cls = P.expand(self.cls_token, [x.shape[0], 1, dim])
+            x = P.concat([cls, x], 1) + self.pos_embed
+            for blk in self.blocks:
+                x = blk(x)
+            return self.head(self.norm(x)[:, 0])
+
+    return ViT()
+
+
+def vit_loss(P, model, images, labels, perm, lam, classes, smoothing):
+    """DeiT's objective on a mixup batch: images lam x + (1 - lam) x[perm],
+    targets the same mix of one-hot labels, smoothed by F.label_smooth,
+    under a soft-label cross-entropy."""
+    F = P.nn.functional
+    mixed = lam * images + (1.0 - lam) * P.gather(images, perm)
+    onehot = F.one_hot(labels, classes)
+    target = lam * onehot + (1.0 - lam) * P.gather(onehot, perm)
+    logits = model(mixed)
+    return F.cross_entropy(P.cast(logits, "float32"),
+                           F.label_smooth(target, epsilon=smoothing),
+                           soft_label=True)
+
+
+def vit_flops(model, batch, tokens, dim, depth):
+    """Training FLOPs of a step: 3 x 2 x (each Linear's and the patch
+    convolution's weights x the tokens that pass them + 2 s^2 d
+    multiply-adds of QK^T and PV per block), per image, times the batch."""
+    blocks = sum(p.weight.numel() for blk in model.blocks
+                 for p in (blk.qkv, blk.proj, blk.fc1, blk.fc2))
+    macs = (tokens * blocks + (tokens - 1) * model.patch_embed.weight.numel()
+            + model.head.weight.numel() + depth * 2 * tokens ** 2 * dim)
+    return 6 * macs * batch, macs
+
+
+def ddpm_unet(P, ch, ch_mult, num_res, attn_res, dropout, image):
+    """The DDPM noise predictor (Ho et al. 2020, App. B; diffusion_tf's
+    models/unet.py): a sinusoidal time embedding through two Linear layers
+    (4 ch, swish), residual blocks GroupNorm(32) -> swish -> 3x3 conv (+
+    the projected time embedding) -> GroupNorm(32) -> swish -> dropout ->
+    3x3 conv with a 1x1 shortcut where the width changes, one-head
+    self-attention blocks at the `attn_res` resolutions, strided 3x3
+    convolutions down and nearest x2 by F.interpolate then a 3x3
+    convolution up, `num_res` blocks a level down and num_res + 1 up, and
+    GroupNorm -> swish -> 3x3 conv to 3 channels."""
+    F = P.nn.functional
+
+    def norm(c):
+        return P.nn.GroupNorm(32, c)
+
+    def conv3(cin, cout, stride=1):
+        return P.nn.Conv2D(cin, cout, 3, stride=stride, padding=1)
+
+    class ResBlock(P.nn.Layer):
+        def __init__(self, cin, cout):
+            super().__init__()
+            self.norm1, self.conv1 = norm(cin), conv3(cin, cout)
+            self.temb = P.nn.Linear(4 * ch, cout)
+            self.norm2, self.conv2 = norm(cout), conv3(cout, cout)
+            self.dropout = P.nn.Dropout(dropout)
+            self.skip = (P.nn.Conv2D(cin, cout, 1) if cin != cout
+                         else P.nn.Identity())
+
+        def forward(self, x, temb):
+            h = self.conv1(F.swish(self.norm1(x)))
+            h = h + P.unsqueeze(self.temb(F.swish(temb)), [2, 3])
+            h = self.conv2(self.dropout(F.swish(self.norm2(h))))
+            return self.skip(x) + h
+
+    class AttnBlock(P.nn.Layer):
+        def __init__(self, c):
+            super().__init__()
+            self.norm = norm(c)
+            self.q, self.k = P.nn.Linear(c, c), P.nn.Linear(c, c)
+            self.v, self.proj = P.nn.Linear(c, c), P.nn.Linear(c, c)
+
+        def forward(self, x):
+            b, c, h, w = x.shape
+            t = P.transpose(P.reshape(self.norm(x), [b, c, h * w]),
+                            [0, 2, 1])
+            q, k, v = (P.unsqueeze(f(t), 2) for f in (self.q, self.k,
+                                                      self.v))
+            a = P.reshape(F.scaled_dot_product_attention(q, k, v),
+                          [b, h * w, c])
+            a = P.reshape(P.transpose(self.proj(a), [0, 2, 1]), [b, c, h, w])
+            return x + a
+
+    class UNet(P.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.temb1 = P.nn.Linear(ch, 4 * ch)
+            self.temb2 = P.nn.Linear(4 * ch, 4 * ch)
+            self.conv_in = conv3(3, ch)
+            self.down = P.nn.LayerList()
+            widths, c, res = [ch], ch, image
+            for i, m in enumerate(ch_mult):
+                for _ in range(num_res):
+                    self.down.append(ResBlock(c, ch * m))
+                    c = ch * m
+                    if res in attn_res:
+                        self.down.append(AttnBlock(c))
+                    widths.append(c)
+                if i != len(ch_mult) - 1:
+                    self.down.append(conv3(c, c, 2))
+                    widths.append(c)
+                    res //= 2
+            self.mid = P.nn.LayerList([ResBlock(c, c), AttnBlock(c),
+                                       ResBlock(c, c)])
+            self.up = P.nn.LayerList()
+            for i, m in reversed(list(enumerate(ch_mult))):
+                for _ in range(num_res + 1):
+                    self.up.append(ResBlock(c + widths.pop(), ch * m))
+                    c = ch * m
+                    if res in attn_res:
+                        self.up.append(AttnBlock(c))
+                if i != 0:
+                    self.up.append(conv3(c, c))
+                    res *= 2
+            self.norm_out, self.conv_out = norm(c), conv3(c, 3)
+
+        def time_embedding(self, t):
+            half = ch // 2
+            freq = P.exp(P.arange(half, dtype="float32")
+                         * (-math.log(10000.0) / (half - 1)))
+            arg = P.unsqueeze(P.cast(t, "float32"), 1) * P.unsqueeze(freq, 0)
+            emb = P.concat([P.sin(arg), P.cos(arg)], 1)
+            return self.temb2(F.swish(self.temb1(emb)))
+
+        def forward(self, x, t):
+            temb = self.time_embedding(t)
+            hs = [self.conv_in(x)]
+            h = hs[-1]
+            for layer in self.down:
+                if isinstance(layer, ResBlock):
+                    h = layer(h, temb)
+                elif isinstance(layer, AttnBlock):
+                    h = layer(h)
+                    hs[-1] = h
+                    continue
+                else:
+                    h = layer(h)
+                hs.append(h)
+            h = self.mid[2](self.mid[1](self.mid[0](h, temb)), temb)
+            for layer in self.up:
+                if isinstance(layer, ResBlock):
+                    h = layer(P.concat([h, hs.pop()], 1), temb)
+                elif isinstance(layer, AttnBlock):
+                    h = layer(h)
+                else:
+                    h = layer(F.interpolate(h, scale_factor=2,
+                                            mode="nearest"))
+            return self.conv_out(F.swish(self.norm_out(h)))
+
+    return UNet()
+
+
+def ddpm_schedule(steps, beta_1, beta_t):
+    """Ho et al.'s linear betas and the products DDPM's loss and sampler
+    read, float32 arrays of `steps` entries."""
+    betas = np.linspace(beta_1, beta_t, steps, dtype=np.float64)
+    alphas_bar = np.cumprod(1.0 - betas)
+    return {k: v.astype(np.float32) for k, v in dict(
+        betas=betas, sqrt_ab=np.sqrt(alphas_bar),
+        sqrt_1mab=np.sqrt(1.0 - alphas_bar),
+        recip_sqrt_a=1.0 / np.sqrt(1.0 - betas),
+        eps_coef=betas / np.sqrt(1.0 - alphas_bar),
+        sigma=np.sqrt(betas)).items()}
+
+
+def _at(P, table, t):
+    """table[t] as (b, 1, 1, 1)."""
+    return P.reshape(P.gather(table, t), [-1, 1, 1, 1])
+
+
+def ddpm_loss(P, model, x0, t, noise, sched):
+    """Ho et al.'s simplified objective: the MSE between the noise and
+    the model's prediction of it from sqrt(ab_t) x0 + sqrt(1 - ab_t) noise."""
+    x_t = _at(P, sched["sqrt_ab"], t) * x0 + _at(P, sched["sqrt_1mab"],
+                                                  t) * noise
+    return P.nn.functional.mse_loss(model(x_t, t), noise)
+
+
+def ddpm_sample_step(P, model, x, t, z, sched):
+    """One step of ancestral sampling (Ho et al., Algorithm 2, sigma_t^2 =
+    beta_t): 1 / sqrt(a_t) (x - beta_t / sqrt(1 - ab_t) eps) + sigma_t z,
+    with z zero at t = 0."""
+    eps = model(x, t)
+    mean = _at(P, sched["recip_sqrt_a"], t) * (
+        x - _at(P, sched["eps_coef"], t) * eps)
+    return mean + _at(P, sched["sigma"], t) * z
+
+
+
+# phase 21 (a): ViT-Base/16 (Dosovitskiy et al. 2021, Table 1) trained as
+# DeiT-B (Touvron et al. 2021, Table 9): AdamW, weight decay 0.05, lr
+# 5e-4 x batch / 512 under a cosine schedule over 300 epochs, label
+# smoothing 0.1, stochastic depth 0.1, mixup alpha 0.8, no dropout; bf16,
+# b64 a card, 1 + 8 steps. Its float32 twin at 2 layers and full widths,
+# drop path off, TF32 off, on the card and the CPU with the same weights
+# and batch: the same float32 math summed in other orders; the loss, about
+# ln(1000) = 6.9, moves by a few float32 roundings of it, the gradient
+# norm by a few more (sums over 8 x 197 tokens per weight)
+VIT = dict(image=224, patch=16, dim=768, depth=12, heads=12, mlp=3072,
+           classes=1000, drop_path=0.1)
+VIT_BATCH, VIT_STEPS, VIT_MIXUP, VIT_SMOOTHING = 64, 8, 0.8, 0.1
+VIT_LR, VIT_WD, VIT_EPOCHS = 5e-4 * 64 / 512, 0.05, 300
+VIT_TWIN_DEPTH, VIT_TWIN_BATCH = 2, 8
+VIT_TWIN_LOSS_RTOL, VIT_TWIN_GRAD_RTOL = 1e-4, 1e-3
+VIT_TOKENS = (224 // 16) ** 2 + 1
+# ViT-B/16's attention: 64 images, 12 heads of 64 over 197 tokens, no
+# mask, not causal (phases 3 and 5 hold K1 and K3/K4 at it)
+# (b) DDPM on CIFAR-10 (Ho et al. 2020, App. B; diffusion_tf's
+# scripts/run_cifar.py): ch 128, ch_mult (1, 2, 2, 2), 2 residual blocks a
+# level, attention at 16 x 16, dropout 0.1, T = 1000 linear betas 1e-4 to
+# 0.02, Adam(2e-4), batch 128 at 32 x 32, float32; 1 + 4 training steps,
+# then 20 ancestral sampling steps at batch 16. Its float32 twin at
+# ch_mult (1, 2) and full channel width, dropout off, TF32 off, batch 8,
+# on the card and the CPU: the loss (an MSE near 1) and the gradient norm
+# as (a)'s, and one sampling step's output within DDPM_TWIN_SAMPLE_RTOL of
+# the largest |value| (a few float32 roundings of the 3x3 convolutions'
+# sums)
+DDPM = dict(ch=128, ch_mult=(1, 2, 2, 2), num_res=2, attn_res=(16,),
+            dropout=0.1, image=32)
+DDPM_T, DDPM_BETAS, DDPM_LR = 1000, (1e-4, 0.02), 2e-4
+DDPM_BATCH, DDPM_STEPS = 128, 4
+DDPM_SAMPLE_BATCH, DDPM_SAMPLE_STEPS = 16, 20
+DDPM_TWIN_MULT, DDPM_TWIN_BATCH = (1, 2), 8
+DDPM_TWIN_LOSS_RTOL, DDPM_TWIN_GRAD_RTOL = 1e-4, 1e-3
+DDPM_TWIN_SAMPLE_RTOL = 1e-4
+# (c) the new ops on the card against the port's CPU result on the same
+# inputs: float32 results (TF32 off) are the same math in other orders
+# and algorithms (cuSOLVER against LAPACK, the card's special-function
+# series against the CPU's), relative to the largest |value|
+NEW_OPS_RTOL = 1e-4
+NEW_OPS_DRAWS = 100000
+
+
+def vit_batch(seed, batch, image, classes):
+    """Images N(0, 1) (normalized pixels), labels, a mixup permutation
+    and lambda ~ Beta(0.8, 0.8), from numpy's default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal((batch, 3, image, image)).astype(np.float32)
+    return (images, rng.integers(0, classes, batch), rng.permutation(batch),
+            float(rng.beta(VIT_MIXUP, VIT_MIXUP)))
+
+
+def phase_vit():
+    """(a) DeiT-B training; returns K1/K3/K4 launches over the timed
+    steps."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    pt.seed(0)
+    model = vit(pt, **VIT).to(torch.bfloat16)
+    sched = optimizer.lr.CosineAnnealingDecay(VIT_LR, VIT_EPOCHS)
+    opt = optimizer.AdamW(learning_rate=sched, weight_decay=VIT_WD,
+                          parameters=model.parameters())
+    images, labels, perm, lam = vit_batch(0, VIT_BATCH, VIT["image"],
+                                          VIT["classes"])
+    x = torch.tensor(images, device="cuda", dtype=torch.bfloat16)
+    y = torch.tensor(labels, device="cuda")
+    p = torch.tensor(perm, device="cuda")
+
+    def step():
+        loss = vit_loss(pt, model, x, y, p, lam, VIT["classes"],
+                        VIT_SMOOTHING)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        return loss.detach()
+
+    route = ar.route(VIT_BATCH * VIT["heads"], VIT_TOKENS, VIT_TOKENS,
+                     VIT["dim"] // VIT["heads"], torch.bfloat16, False,
+                     platform="cuda")
+    first = float(step())                     # warm-up
+    zero_flash_launches()                     # the path starts here
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = timed_steps(step, VIT_STEPS)
+    launches = train_llama.launch_counts()    # the path ends here
+    peak = torch.cuda.max_memory_allocated()
+    by_class = kernel_ms_by_class(step)
+    flops, macs = vit_flops(model, VIT_BATCH, VIT_TOKENS, VIT["dim"],
+                            VIT["depth"])
+    n_params = sum(q.numel() for q in model.parameters())
+    mfu = flops / (step_ms / 1e3) / BF16_FLOP_PER_S
+    per_step = {k: v // VIT_STEPS for k, v in launches.items()}
+    log(f"vit deit-b [{CARD}]: ViT-B/16, {n_params} params, b{VIT_BATCH} "
+        f"x 224^2 bf16, AdamW(wd {VIT_WD}) under CosineAnnealingDecay, "
+        f"mixup lambda {lam:.4f}, label smoothing {VIT_SMOOTHING}, drop "
+        f"path {VIT['drop_path']}; step {step_ms:.2f} ms ({VIT_STEPS} timed "
+        f"after 1), {VIT_BATCH / step_ms * 1e3:.1f} images/s, MFU "
+        f"{mfu:.4f} = {flops / 1e12:.4f} TFLOP a step [6 x ({macs / 1e9:.3f}"
+        f" G multiply-adds an image forward: weights x tokens + 2 s^2 d a "
+        f"block) x batch] / step s / {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    log(f"vit deit-b: router at the attention (bh={VIT_BATCH * VIT['heads']}"
+        f", s={VIT_TOKENS}, d64, not causal): fwd={route.fwd} "
+        f"bwd={route.bwd} source={route.source}; launches per step "
+        f"{per_step}")
+    log(f"vit deit-b, one traced step: {class_line(by_class)}; busy "
+        f"{sum(by_class.values()) / step_ms:.1%} of the timed steps' mean")
+    log(f"vit deit-b: losses {[first] + losses}")
+    fwd = route.fwd == "pallas"
+    bwd = fwd and route.bwd == "pallas"
+    depth = VIT["depth"]
+    want = {"flash_fwd": depth if fwd else 0,
+            "flash_bwd_dq": depth if bwd else 0,
+            "flash_bwd_dkv": depth if bwd else 0}
+    if not all(np.isfinite([first] + losses)):
+        sys.exit("chip_smoke: a ViT loss is not finite")
+    if per_step != want or any(v % VIT_STEPS for v in launches.values()):
+        sys.exit(f"chip_smoke: the ViT launched {launches} over {VIT_STEPS} "
+                 f"steps, expected {want} a step")
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def twin_check(name, out, loss_rtol, grad_rtol):
+    loss_err = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    norm_err = abs(out["cuda"][1] - out["cpu"][1]) / out["cpu"][1]
+    log(f"{name}: loss card {out['cuda'][0]:.7f} CPU {out['cpu'][0]:.7f} "
+        f"(rel err {loss_err:.3e}, tol {loss_rtol}); grad norm card "
+        f"{out['cuda'][1]:.7f} CPU {out['cpu'][1]:.7f} (rel err "
+        f"{norm_err:.3e}, tol {grad_rtol})")
+    if not (loss_err <= loss_rtol and norm_err <= grad_rtol):
+        sys.exit(f"chip_smoke: {name} on the card disagrees with the CPU")
+
+
+def grad_norm(model):
+    return float(torch.sqrt(sum(q.grad.double().square().sum()
+                                for q in model.parameters()
+                                if q.grad is not None)))
+
+
+def phase_vit_twin():
+    """(a)'s float32 twin at 2 layers and full widths, drop path off."""
+    pt.seed(0)
+    model = vit(pt, **dict(VIT, depth=VIT_TWIN_DEPTH, drop_path=0.0))
+    images, labels, perm, lam = vit_batch(1, VIT_TWIN_BATCH, VIT["image"],
+                                          VIT["classes"])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        m = model.to(dev)
+        loss = vit_loss(pt, m, torch.tensor(images, device=dev),
+                        torch.tensor(labels, device=dev),
+                        torch.tensor(perm, device=dev), lam, VIT["classes"],
+                        VIT_SMOOTHING)
+        loss.backward()
+        out[dev] = (float(loss.detach()), grad_norm(m))
+        m.clear_gradients()
+    twin_check(f"vit twin (float32, {VIT_TWIN_DEPTH} layers, d768, b"
+               f"{VIT_TWIN_BATCH}, drop path off, TF32 off, dense attention)",
+               out, VIT_TWIN_LOSS_RTOL, VIT_TWIN_GRAD_RTOL)
+
+
+def ddpm_tables(device):
+    return {k: torch.tensor(v, device=device) for k, v in
+            ddpm_schedule(DDPM_T, *DDPM_BETAS).items()}
+
+
+def phase_ddpm():
+    """(b) DDPM: 1 + 4 training steps at b128, then 20 ancestral sampling
+    steps at b16; returns the flash kernels' launches (none is on this
+    path: the attention's one head of 256 takes the dense path)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    pt.seed(0)
+    model = ddpm_unet(pt, **DDPM)
+    opt = optimizer.Adam(learning_rate=DDPM_LR,
+                         parameters=model.parameters())
+    sched = ddpm_tables("cuda")
+    x0 = torch.tensor(np.random.default_rng(2).uniform(
+        -1, 1, (DDPM_BATCH, 3, 32, 32)).astype(np.float32), device="cuda")
+
+    def step():
+        t = pt.randint(0, DDPM_T, [DDPM_BATCH])
+        noise = pt.randn([DDPM_BATCH, 3, 32, 32])
+        loss = ddpm_loss(pt, model, x0, t, noise, sched)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    first = float(step())
+    zero_flash_launches()                     # the path starts here
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, losses = timed_steps(step, DDPM_STEPS)
+    train_peak = torch.cuda.max_memory_allocated()
+    by_class = kernel_ms_by_class(step, resnet_class)
+    model.eval()
+    x = pt.randn([DDPM_SAMPLE_BATCH, 3, 32, 32])
+
+    def sample(x, n):
+        for i in range(n):
+            t = torch.full((DDPM_SAMPLE_BATCH,), DDPM_T - 1 - i,
+                           device="cuda")
+            x = ddpm_sample_step(pt, model, x, t, pt.randn(list(x.shape)),
+                                 sched)
+        return x
+
+    with torch.no_grad():
+        sample(x, 1)                          # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sample(x, DDPM_SAMPLE_STEPS)
+        torch.cuda.synchronize()
+        sample_ms = (time.perf_counter() - t0) * 1e3 / DDPM_SAMPLE_STEPS
+        sample_peak = torch.cuda.max_memory_allocated()
+        sample_class = kernel_ms_by_class(lambda: sample(x, 1),
+                                          resnet_class)
+    launches = train_llama.launch_counts()    # the path ends here
+    n_params = sum(q.numel() for q in model.parameters())
+    log(f"ddpm cifar10 [{CARD}]: U-Net {n_params} params (ch 128, ch_mult "
+        f"(1, 2, 2, 2), 2 blocks a level, attention at 16^2, dropout 0.1), "
+        f"b{DDPM_BATCH} x 32^2 float32, Adam({DDPM_LR}); train step "
+        f"{step_ms:.2f} ms ({DDPM_STEPS} timed after 1), "
+        f"{DDPM_BATCH / step_ms * 1e3:.1f} images/s, peak memory "
+        f"{train_peak / 2**30:.2f} GiB; losses {[first] + losses}")
+    log(f"ddpm, one traced train step: {class_line(by_class)}; busy "
+        f"{sum(by_class.values()) / step_ms:.1%} of the timed steps' mean")
+    log(f"ddpm sampling [{CARD}]: b{DDPM_SAMPLE_BATCH}, {DDPM_SAMPLE_STEPS} "
+        f"ancestral steps from t = {DDPM_T - 1}: {sample_ms:.3f} ms a step, "
+        f"peak memory {sample_peak / 2**30:.2f} GiB; one traced step: "
+        f"{class_line(sample_class)}; busy "
+        f"{sum(sample_class.values()) / sample_ms:.1%}; launches {launches}")
+    if not all(np.isfinite([first] + losses)):
+        sys.exit("chip_smoke: a DDPM loss is not finite")
+    if not (tuple(out.shape) == (DDPM_SAMPLE_BATCH, 3, 32, 32)
+            and bool(torch.isfinite(out).all())):
+        sys.exit("chip_smoke: DDPM sampling gave a wrong shape or a "
+                 "non-finite value")
+    if any(launches.values()):
+        sys.exit("chip_smoke: the DDPM path launched a flash kernel")
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ddpm_twin():
+    """(b)'s float32 twin at ch_mult (1, 2), dropout off: one training
+    step's loss and gradient norm, and one sampling step's output, on the
+    card against the CPU."""
+    pt.seed(0)
+    model = ddpm_unet(pt, **dict(DDPM, ch_mult=DDPM_TWIN_MULT, dropout=0.0))
+    rng = np.random.default_rng(3)
+    shape = (DDPM_TWIN_BATCH, 3, 32, 32)
+    x0 = rng.uniform(-1, 1, shape).astype(np.float32)
+    noise = rng.standard_normal(shape).astype(np.float32)
+    z = rng.standard_normal(shape).astype(np.float32)
+    t = rng.integers(0, DDPM_T, DDPM_TWIN_BATCH)
+    out, samples = {}, {}
+    for dev in ("cuda", "cpu"):
+        pt.set_device(dev)                    # where P.arange builds
+        m = model.to(dev)
+        m.train()
+        sched = ddpm_tables(dev)
+        loss = ddpm_loss(pt, m, torch.tensor(x0, device=dev),
+                         torch.tensor(t, device=dev),
+                         torch.tensor(noise, device=dev), sched)
+        loss.backward()
+        out[dev] = (float(loss.detach()), grad_norm(m))
+        m.clear_gradients()
+        m.eval()
+        with torch.no_grad():
+            samples[dev] = ddpm_sample_step(
+                pt, m, torch.tensor(noise, device=dev),
+                torch.tensor(t, device=dev), torch.tensor(z, device=dev),
+                sched).cpu()
+    pt.set_device("cuda")
+    twin_check(f"ddpm twin (float32, ch 128, ch_mult {DDPM_TWIN_MULT}, b"
+               f"{DDPM_TWIN_BATCH}, dropout off, TF32 off)", out,
+               DDPM_TWIN_LOSS_RTOL, DDPM_TWIN_GRAD_RTOL)
+    err = float((samples["cuda"] - samples["cpu"]).abs().max()
+                / samples["cpu"].abs().max())
+    log(f"ddpm twin sampling step: card against CPU {err:.3e} of the "
+        f"largest |value| (tol {DDPM_TWIN_SAMPLE_RTOL})")
+    if not err <= DDPM_TWIN_SAMPLE_RTOL:
+        sys.exit("chip_smoke: the DDPM sampling step on the card disagrees "
+                 "with the CPU")
+
+
+def new_op_inputs():
+    """The CPU tests' kinds of input, from numpy's default_rng(0)."""
+    r = np.random.default_rng(0)
+    f = lambda *s: r.standard_normal(s).astype(np.float32)
+    m = f(4, 4)
+    spd = (m @ m.T + 4 * np.eye(4)).astype(np.float32)
+    return dict(
+        X=f(3, 4), Y=f(3, 4), P=(r.random((3, 4)) * 2 + 0.1).astype(
+            np.float32),
+        U=(r.random((3, 4)) * 1.8 - 0.9).astype(np.float32),
+        G=(r.random((3, 4)) * 2 + 1.1).astype(np.float32),
+        I=r.integers(1, 9, (3, 4)), J=r.integers(1, 9, (3, 4)),
+        M=m, SPD=spd, L=np.linalg.cholesky(spd).astype(np.float32),
+        TALL=f(6, 3), B=f(4, 2), B6=f(6, 2), V=f(4), X3=f(2, 3, 4),
+        U3=f(5, 3), H=(r.random(200) * 4 - 1).astype(np.float32),
+        PTS=f(50, 2), IMG=f(2, 3, 8, 8), IMG5=f(1, 2, 5, 6), X4=f(2, 6, 5, 5),
+        X2=f(4, 6), Y2=f(4, 6), SEQ=f(2, 3, 7), VOL=f(1, 2, 4, 5, 6),
+        QKV=f(2, 9, 3, 2, 8), PACK=f(10, 2, 8), Q4=f(2, 2, 6, 8),
+        RNNT=f(2, 4, 3, 5), GRID=r.uniform(-1.2, 1.2, (2, 4, 5, 2)).astype(
+            np.float32),
+        LOW=(f(8, 2) @ f(2, 6)).astype(np.float32),
+        NANS=np.where(r.random((3, 4)) > 0.3, f(3, 4), np.nan).astype(
+            np.float32),
+        COS=np.tanh(f(4, 6)), LAB=np.array([2, 0, 5, 1]))
+
+
+_UNARY_DOMAIN = {
+    "acos": "U", "acosh": "G", "asin": "U", "atanh": "U", "digamma": "P",
+    "erfinv": "U", "lgamma": "P", "log": "P", "log10": "P", "log1p": "P",
+    "log2": "P", "reciprocal": "P", "rsqrt": "P", "sqrt": "P", "tan": "U",
+    "logit": "U", "gammaln": "P", "sinc": "X", "polygamma": "P",
+    "multigammaln": "G"}
+
+
+def new_op_specs(d):
+    """(family, name, callable(P-args) spec) of every function this slice
+    ported: each as (family, name, args, kwargs, how) with numpy arrays
+    among args, and how "value" (compared as it is), "random" (support and
+    moments) or a function giving the unique parts of a decomposition."""
+    T = lambda k: d[k]
+    specs = []
+    add = lambda fam, name, args, kw=None, how="value": specs.append(
+        (fam, name, args, kw or {}, how))
+    from paddle_tpu_torch.tensor import math as tmath
+    skip = {"matmul", "mm", "bmm", "einsum"}
+    binary = {"add", "subtract", "multiply", "divide", "floor_divide", "mod",
+              "remainder", "pow", "maximum", "minimum", "fmax", "fmin",
+              "atan2", "logaddexp", "hypot", "copysign", "nextafter",
+              "heaviside", "inner", "kron"}
+    special = {
+        "floor_mod": ([T("I"), T("J")], {}), "gcd": ([T("I"), T("J")], {}),
+        "lcm": ([T("I"), T("J")], {}), "ldexp": ([T("X"), T("I")], {}),
+        "outer": ([T("V"), T("V")], {}), "pow": ([T("P"), T("X")], {}),
+        "scale": ([T("X")], dict(scale=2.0, bias=0.5)),
+        "clip": ([T("X")], dict(min=-0.5, max=0.5)),
+        "lerp": ([T("X"), T("Y"), 0.3], {}),
+        "addmm": ([T("X"), T("X"), T("M")], dict(beta=0.5, alpha=2.0)),
+        "multiplex": ([[T("X"), T("Y")], np.array([[1], [0], [1]])], {}),
+        "nan_to_num": ([T("NANS")], {}), "count_nonzero": ([T("I")], {}),
+        "cumsum": ([T("X")], dict(axis=1)), "cumprod": ([T("X")],
+                                                        dict(dim=0)),
+        "cummax": ([np.round(T("X"))], dict(axis=1)),
+        "cummin": ([np.round(T("X"))], dict(axis=0)),
+        "trapezoid": ([T("X")], dict(dx=0.5)),
+        "cumulative_trapezoid": ([T("X")], {}),
+        "diff": ([T("X")], dict(axis=1)), "dot": ([T("X"), T("Y")], {}),
+        "isclose": ([T("X"), T("Y")], {}), "allclose": ([T("X"), T("X")],
+                                                        {}),
+        "increment": ([T("X")], {}),
+        "accuracy": ([T("X"), np.array([[1], [0], [3]])], dict(k=2)),
+        "nanmean": ([T("NANS")], dict(axis=1)), "nansum": ([T("NANS")], {}),
+        "logit": ([T("P") / 3], {}), "conj": ([T("X")], {}),
+    }
+    for name in tmath.__all__:
+        if name in skip:
+            continue
+        if name in special:
+            args, kw = special[name]
+        elif name in binary:
+            args, kw = [T("X"), T("P") if name in ("divide", "floor_divide",
+                                                   "mod", "remainder")
+                        else T("Y")], {}
+        else:
+            args, kw = [T(_UNARY_DOMAIN.get(name, "X"))], {}
+        add("math", name, args, kw)
+    for name, args, kw in [
+            ("std", [T("X")], {}), ("var", [T("X")], dict(axis=1)),
+            ("median", [T("X")], dict(axis=1)),
+            ("median", [T("X")], dict(axis=1, mode="min")),
+            ("nanmedian", [T("NANS")], dict(axis=1)),
+            ("quantile", [T("X")], dict(q=[0.1, 0.5], axis=1)),
+            ("nanquantile", [T("NANS")], dict(q=0.4, axis=1))]:
+        add("stat", name, args, kw)
+    n = NEW_OPS_DRAWS
+    ones = np.ones(n, np.float32)
+    for name, args, kw, support, mean in [
+            ("rand", [[n]], {}, (0, 1), 0.5), ("randn", [[n]], {}, None, 0.0),
+            ("standard_normal", [[n]], {}, None, 0.0),
+            ("normal", [1.0, 2.0, [n]], {}, None, 1.0),
+            ("uniform", [[n]], dict(min=2.0, max=4.0), (2, 4), 3.0),
+            ("randint", [3, 10, [n]], {}, (3, 10), 6.0),
+            ("randint_like", [ones, 0, 4], {}, (0, 4), 1.5),
+            ("randperm", [n], {}, (0, n), (n - 1) / 2),
+            ("bernoulli", [ones * 0.3], {}, (0, 1.01), 0.3),
+            ("poisson", [ones * 4], {}, (0, 100), 4.0),
+            ("standard_gamma", [ones * 2], {}, (0, 100), 2.0),
+            ("binomial", [ones * 10, ones * 0.4], {}, (0, 10.01), 4.0),
+            ("log_normal", [0.0, 0.5, [n]], {}, (0, 100), math.exp(0.125)),
+            ("multinomial", [np.array([0.2, 0.8], np.float32), n],
+             dict(replacement=True), (0, 2), 0.8),
+            ("gumbel_softmax", [np.zeros((n, 2), np.float32)], {}, (0, 1.01),
+             0.5),
+            ("normal_", [np.zeros(n, np.float32), 1.0, 0.5], {}, None, 1.0),
+            ("uniform_", [np.zeros(n, np.float32), -2.0, 2.0], {}, (-2, 2),
+             0.0),
+            ("bernoulli_", [np.zeros(n, np.float32), 0.25], {}, (0, 1.01),
+             0.25),
+            ("exponential_", [np.zeros(n, np.float32), 2.0], {}, (0, 100),
+             0.5),
+            ("log_normal_", [np.zeros(n, np.float32), 0.0, 0.5], {},
+             (0, 100), math.exp(0.125)),
+            ("geometric_", [np.zeros(n, np.float32), 0.25], {}, (1, 1000),
+             4.0),
+            ("cauchy_", [np.zeros(n, np.float32), 0.0, 1.0], {}, None, None)]:
+        add("random", name, args, kw, ("random", support, mean))
+    lin = [
+        ("t", [T("X")], {}), ("transpose_last2", [T("X3")], {}),
+        ("matrix_transpose", [T("X3")], {}),
+        ("norm", [T("X")], dict(p="fro")), ("norm", [T("X3")],
+                                            dict(p=1, axis=[1, 2])),
+        ("dist", [T("X"), T("Y")], dict(p=3)), ("cond", [T("SPD")], {}),
+        ("matrix_power", [T("M")], dict(n=3)),
+        ("matrix_rank", [T("LOW")], {}), ("det", [T("M")], {}),
+        ("slogdet", [T("M")], {}), ("inv", [T("SPD")], {}),
+        ("inverse", [T("SPD")], {}), ("pinv", [T("TALL")], {}),
+        ("solve", [T("SPD"), T("B")], {}),
+        ("triangular_solve", [T("L"), T("B")], dict(upper=False)),
+        ("cholesky", [T("SPD")], {}), ("cholesky_solve", [T("B"), T("L")],
+                                       {}),
+        ("svdvals", [T("TALL")], {}), ("eigvalsh", [T("SPD")], {}),
+        ("lstsq", [T("TALL"), T("B6")], {}),
+        ("multi_dot", [[T("X"), T("M"), T("M")]], {}),
+        ("cross", [T("U3"), T("U3")[::-1].copy()], {}),
+        ("histogram", [T("H")], dict(bins=7)),
+        ("histogramdd", [T("PTS")], dict(bins=3)),
+        ("bincount", [T("I").reshape(-1)], {}), ("mv", [T("M"), T("V")], {}),
+        ("corrcoef", [T("X")], {}), ("cov", [T("X")], {}),
+        ("vecdot", [T("X"), T("Y")], {}),
+        ("tensordot", [T("X3"), T("X").T.copy()], dict(axes=1)),
+        ("linalg.cholesky_inverse", [T("L")], {}),
+        ("linalg.matrix_norm", [T("X3")], dict(p="nuc")),
+        ("linalg.vector_norm", [T("X")], dict(p=3.0, axis=1)),
+        ("linalg.matrix_exp", [T("M") / 4], {})]
+    for name, args, kw in lin:
+        add("linalg", name, args, kw)
+    qr_a, tau = np.linalg.qr(T("TALL"), mode="raw")
+    hh = [qr_a.T.copy().astype(np.float32), tau.astype(np.float32)]
+    add("linalg", "householder_product", hh)
+    add("linalg", "linalg.ormqr", hh + [T("B6")])
+    recon = lambda u, s, v: u[..., :s.shape[-1]] @ torch.diag_embed(s) @ \
+        v[..., :s.shape[-1]].mT
+    for name, args, kw, unique in [
+            ("svd", [T("TALL")], {}, lambda o: [o[1], recon(*o)]),
+            ("qr", [T("TALL")], {}, lambda o: [o[1].abs(), o[0] @ o[1]]),
+            ("eigh", [T("SPD")], {}, lambda o: [
+                o[0], o[1] @ torch.diag(o[0]) @ o[1].T]),
+            ("eig", [T("M")], {}, lambda o: [torch.sort(o[0].real).values,
+                                             torch.sort(o[0].imag).values]),
+            ("eigvals", [T("M")], {}, lambda o: [torch.sort(o.real).values]),
+            ("lu", [T("M")], {}, lambda o: [
+                (lambda p, lo, up: p @ lo @ up)(*pt.lu_unpack(*o))]),
+            ("lu_unpack", list(torch.linalg.lu_factor(torch.tensor(T("M")))),
+             {}, lambda o: [o[0] @ o[1] @ o[2]]),
+            ("pca_lowrank", [T("LOW")], dict(q=2), lambda o: [
+                o[1], recon(*o)]),
+            ("linalg.svd_lowrank", [T("LOW")], dict(q=3),
+             lambda o: [recon(*o)])]:
+        add("linalg", name, args, kw, unique)
+    ext = [
+        ("add_n", [[T("X"), T("Y")]], {}), ("block_diag", [[T("M"), T("V")]],
+                                            {}),
+        ("broadcast_shape", [[3, 1, 4], [5, 1]], {}),
+        ("cartesian_prod", [[T("V"), T("V")]], {}),
+        ("cdist", [T("X"), T("Y")], {}), ("combinations", [T("V")], {}),
+        ("diag_embed", [T("X")], {}), ("frexp", [T("X") * 100], {}),
+        ("gammainc", [T("P"), T("G")], {}), ("gammaincc", [T("P"), T("G")],
+                                             {}),
+        ("gammaln", [T("P")], {}), ("histogram_bin_edges", [T("X")],
+                                    dict(bins=6)),
+        ("index_fill", [T("X"), np.array([0, 2]), 1, 9.0], {}),
+        ("isin", [T("I"), np.array([1, 3])], {}),
+        ("logcumsumexp", [T("X")], dict(axis=1)),
+        ("masked_scatter", [T("X"), T("X") > 0,
+                            np.arange(12, dtype=np.float32)], {}),
+        ("multigammaln", [T("G") + 2], dict(p=3)), ("pdist", [T("Y")], {}),
+        ("polygamma", [T("P")], dict(n=2)),
+        ("reduce_as", [np.stack([T("X"), T("X")]), T("X")[:1]], {}),
+        ("renorm", [T("X")], dict(p=2.0, axis=0, max_norm=1.0)),
+        ("reverse", [T("X")], dict(axis=1)), ("sgn", [T("X")], {}),
+        ("signbit", [T("X")], {}), ("sinc", [T("X")], {}),
+        ("take", [T("X"), np.array([0, 5, -1])], {}),
+        ("trace", [T("X")], {}), ("vander", [T("V")], {}),
+        ("as_strided", [T("X"), [2, 3], [1, 4]], dict(offset=1))]
+    for name, args, kw in ext:
+        add("extras", name, args, kw)
+    from paddle_tpu_torch import tensor as ptensor
+    for name in ptensor._INPLACE + ["where_"]:
+        base = name[:-1]
+        got = [s for s in specs if s[1] == base and s[4] == "value"]
+        if name == "where_":
+            args = [T("X") > 0, T("X"), T("Y")]
+            kw = {}
+        elif got:
+            args, kw = got[0][2], got[0][3]
+        elif base in ("equal", "not_equal", "greater_equal", "greater_than",
+                      "less_equal", "less_than"):
+            args, kw = [T("X"), T("Y")], {}
+        elif base.startswith(("bitwise", "logical")):
+            args, kw = ([T("I")] if base.endswith("not")
+                        else [T("I"), T("J")]), {}
+        elif base == "cast":
+            args, kw = [T("X"), "int64"], {}
+        elif base == "transpose":
+            args, kw = [T("X"), [1, 0]], {}
+        elif base in ("tril", "triu"):
+            args, kw = [T("M")], {}
+        elif base == "masked_fill":
+            args, kw = [T("X"), T("X") > 0, 2.0], {}
+        elif base == "index_add":
+            args, kw = [T("X"), np.array([0, 2]), 0, T("Y")[:2]], {}
+        elif base == "index_put":
+            args, kw = [T("X"), (np.array([0, 2]),), T("Y")[:2]], {}
+        elif base in ("put_along_axis", "scatter"):
+            idx = np.array([[1, 0, 2, 1]])
+            args, kw = ([T("X"), idx, T("Y")[:1], 0] if base ==
+                        "put_along_axis" else
+                        [T("X"), np.array([2, 0]), T("Y")[:2]]), {}
+        else:
+            raise SystemExit(f"chip_smoke: no input for {name}")
+        add("inplace", name, args, kw)
+    F = "nn.functional."
+    nn_specs = [
+        ("elu", [T("X2")], dict(alpha=0.7)), ("selu", [T("X2")], {}),
+        ("celu", [T("X2")], {}), ("softplus", [T("X2")], {}),
+        ("softshrink", [T("X2")], {}), ("hardshrink", [T("X2")], {}),
+        ("tanhshrink", [T("X2")], {}), ("hardtanh", [T("X2")], {}),
+        ("leaky_relu", [T("X2")], {}), ("thresholded_relu", [T("X2")], {}),
+        ("prelu", [T("X4"), np.linspace(.1, .6, 6).astype(np.float32)], {}),
+        ("rrelu", [T("X2")], {}), ("maxout", [T("X4")], dict(groups=3)),
+        ("glu", [T("X2")], {}), ("mish", [T("X2")], {}),
+        ("softsign", [T("X2")], {}), ("log_sigmoid", [T("X2")], {}),
+        ("sigmoid", [T("X2")], {}), ("relu_", [T("X2")], {}),
+        ("elu_", [T("X2")], {}), ("tanh_", [T("X2")], {}),
+        ("softmax_", [T("X2")], {}), ("hardtanh_", [T("X2")], {}),
+        ("leaky_relu_", [T("X2")], {}), ("thresholded_relu_", [T("X2")], {}),
+        ("dropout2d", [T("X4")], dict(training=False)),
+        ("dropout3d", [T("VOL")], dict(training=False)),
+        ("alpha_dropout", [T("X2")], dict(training=False)),
+        ("zeropad2d", [T("IMG5")], dict(padding=[1, 2, 0, 3])),
+        ("pad", [T("IMG5"), [1, 1, 2, 0]], dict(mode="reflect")),
+        ("one_hot", [T("LAB"), 7], {}),
+        ("sequence_mask", [np.array([1, 3, 0])], dict(maxlen=4)),
+        ("cosine_similarity", [T("X2"), T("Y2")], {}),
+        ("normalize", [T("X4")], {}),
+        ("label_smooth", [np.eye(6, dtype=np.float32)[T("LAB")]], {}),
+        ("bilinear", [T("X2")[:, :3].copy(), T("Y2")[:, :5].copy(),
+                      np.ones((2, 3, 5), np.float32)], {}),
+        ("unfold", [T("IMG")], dict(kernel_sizes=[3, 2], strides=2,
+                                    paddings=[1, 0, 2, 1])),
+        ("fold", [np.ones((2, 12, 16), np.float32)],
+         dict(output_sizes=[5, 5], kernel_sizes=2)),
+        ("interpolate", [T("IMG5")], dict(size=[7, 9])),
+        ("interpolate", [T("IMG")], dict(size=[3, 5], mode="bilinear")),
+        ("interpolate", [T("IMG5")], dict(size=[8, 10], mode="bicubic")),
+        ("interpolate", [T("IMG5")], dict(size=[8, 4], mode="bilinear",
+                                          align_corners=True)),
+        ("interpolate", [T("VOL")], dict(size=[3, 7, 4], mode="trilinear",
+                                         data_format="NCDHW")),
+        ("upsample", [T("IMG5")], dict(scale_factor=2)),
+        ("pixel_shuffle", [T("X4")[:, :4].copy()], dict(upscale_factor=2)),
+        ("pixel_unshuffle", [T("IMG")], dict(downscale_factor=2)),
+        ("channel_shuffle", [T("X4")], dict(groups=3)),
+        ("instance_norm", [T("X4")], {}), ("group_norm", [T("X4"), 3], {}),
+        ("local_response_norm", [T("X4"), 3], {}),
+        ("pairwise_distance", [T("X2"), T("Y2")], {}),
+        ("affine_grid", [np.array([[[0.9, 0.2, 0.1], [-0.1, 1.1, 0.05]]],
+                                  np.float32), [1, 3, 4, 5]], {}),
+        ("grid_sample", [T("IMG")[:, :, :6, :7].copy(), T("GRID")], {}),
+        ("grid_sample", [T("IMG")[:, :, :6, :7].copy(), T("GRID")],
+         dict(mode="nearest", padding_mode="reflection",
+              align_corners=False)),
+        ("fractional_max_pool2d", [T("IMG"), 3], dict(random_u=0.3)),
+        ("fractional_max_pool3d", [T("VOL"), [2, 3, 2]], dict(random_u=0.4)),
+        ("temporal_shift", [np.ones((6, 8, 2, 2), np.float32), 3], {}),
+        ("feature_alpha_dropout", [T("X4")], dict(training=False)),
+        ("multi_margin_loss", [T("COS"), T("LAB")], {}),
+        ("hsigmoid_loss", [T("X2"), T("LAB"), 6, np.ones((6, 6),
+                                                          np.float32)], {}),
+        ("flash_attn_qkvpacked", [T("QKV")], {}),
+        ("flash_attn_varlen_qkvpacked", [np.stack([T("PACK")] * 3, 1),
+                                         np.array([0, 3, 10], np.int32),
+                                         np.array([0, 3, 10], np.int32),
+                                         7, 7, 0.35], dict(causal=True)),
+        ("flash_attn_unpadded", [T("PACK"), T("PACK"), T("PACK"),
+                                 np.array([0, 3, 10], np.int32),
+                                 np.array([0, 3, 10], np.int32), 7, 7,
+                                 0.35], {}),
+        ("flashmask_attention", [T("QKV")[:, :6, 0].copy(),
+                                 T("QKV")[:, :6, 1].copy(),
+                                 T("QKV")[:, :6, 2].copy()],
+         dict(startend_row_indices=np.arange(4, 10, dtype=np.int32).reshape(
+             1, 1, 6, 1))),
+        ("margin_cross_entropy", [T("COS"), T("LAB")], {}),
+        ("class_center_sample", [T("LAB"), 20, 8], {}),
+        ("sparse_attention", [None, np.array([0, 1, 3, 4, 6, 7, 9],
+                                             np.int32),
+                              np.array([0, 0, 1, 2, 1, 3, 4, 2, 5],
+                                       np.int32), T("Q4"), T("Q4"),
+                              T("Q4")], {}),
+        ("rnnt_loss", [T("RNNT"), np.array([[1, 2], [3, 0]], np.int32),
+                       np.array([4, 3], np.int32),
+                       np.array([2, 1], np.int32)], {}),
+        ("adaptive_log_softmax_with_loss", [
+            T("X2"), np.array([0, 3, 5, 8]), np.ones((6, 4), np.float32),
+            [(np.ones((6, 3), np.float32) / 3, T("X2")[:3, :3].copy()),
+             (np.ones((6, 2), np.float32) / 2, T("Y2")[:2, :3].copy())],
+            [2, 5]], {})]
+    for name, args, kw in nn_specs:
+        add("nn", F + name, args, kw)
+    return specs
+
+
+def _on(v, dev):
+    """numpy arrays (in lists and tuples too) as tensors on `dev`."""
+    if isinstance(v, np.ndarray):
+        return torch.tensor(v, device=dev)
+    if isinstance(v, torch.Tensor):
+        return v.to(dev)
+    if isinstance(v, (list, tuple)):
+        return type(v)(_on(e, dev) for e in v)
+    if isinstance(v, dict):
+        return {k: _on(e, dev) for k, e in v.items()}
+    return v
+
+
+def _flat(out):
+    if isinstance(out, (list, tuple)):
+        return [t for o in out for t in _flat(o)]
+    return [out]
+
+
+def _resolve(path):
+    obj = pt
+    for part in path.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def _gap(a, b):
+    """(max |a - b| / max(1, max |b|), exact match needed) of two
+    outputs."""
+    if not isinstance(b, torch.Tensor):
+        return (0.0 if a == b else float("inf")), True
+    a = a.detach().cpu()
+    b = b.detach().cpu()
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return float("inf"), True
+    if not (b.is_floating_point() or b.is_complex()):
+        return (0.0 if torch.equal(a, b) else float("inf")), True
+    if a.numel() == 0:
+        return 0.0, False
+    same_nan = torch.equal(torch.isnan(a), torch.isnan(b))
+    a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+    scale = max(1.0, float(b.abs().max()))
+    gap = float((a - b).abs().max()) / scale
+    return (gap if same_nan else float("inf")), False
+
+
+def phase_new_ops():
+    """(c) every function this slice ported, once on CUDA on the CPU tests'
+    kinds of input, held against the port's CPU result: values as they
+    are, random draws by support and moments, decompositions by what is
+    unique."""
+    t0 = time.perf_counter()
+    d = new_op_inputs()
+    worst, held, problems = {}, {}, []
+    for fam, name, args, kw, how in new_op_specs(d):
+        fn = _resolve(name)
+        if isinstance(how, tuple):            # random
+            _, support, mean = how
+            pt.seed(0)
+            v = fn(*_on(args, "cuda"), **_on(kw, "cuda"))
+            v = v.detach().float().cpu().reshape(-1)
+            v = v[:len(v) // 2 * 2]
+            ok = torch.isfinite(v).all() or name == "cauchy_"
+            if support is not None:
+                ok = ok and bool(((v >= support[0]) & (v < support[1])).all())
+            if mean is not None and name != "randperm":
+                gap = abs(float(v.mean()) - mean)
+                ok = ok and gap <= 5 * max(float(v.std()), 1e-6) / math.sqrt(
+                    v.numel())
+            if name == "gumbel_softmax":
+                ok = ok and v.numel() == 2 * NEW_OPS_DRAWS
+            if name == "cauchy_":
+                ok = ok and abs(float(v.median())) < 0.05
+            err = 0.0 if ok else float("inf")
+        else:
+            outs = []
+            for dev in ("cuda", "cpu"):
+                out = fn(*_on(args, dev), **_on(kw, dev))
+                outs.append(how(out) if callable(how) else out)
+            err = 0.0
+            for a, b in zip(_flat(outs[0]), _flat(outs[1])):
+                gap, exact = _gap(a, b)
+                err = max(err, gap if not exact else (0.0 if gap == 0.0
+                                                      else float("inf")))
+        worst[fam] = max(worst.get(fam, 0.0), err)
+        held[fam] = held.get(fam, 0) + (err <= NEW_OPS_RTOL)
+        if not err <= NEW_OPS_RTOL:
+            problems.append(f"{fam} {name} {kw} ({err:.3e})")
+    torch.cuda.synchronize()
+    log(f"new ops on the card [{CARD}]: " + "; ".join(
+        f"{fam} {held[fam]} held, largest error {worst[fam]:.3e}"
+        for fam in worst) + f" (tol {NEW_OPS_RTOL} of the largest |value|; "
+        f"random draws by support and mean over {NEW_OPS_DRAWS}); "
+        f"{time.perf_counter() - t0:.1f} s")
+    if problems:
+        sys.exit(f"chip_smoke: new ops disagree with the CPU: {problems}")
+
+
+def phase_vision():
+    """Phase 21: a Vision Transformer and a diffusion U-Net on the card,
+    then the slice's new ops; each path's flash kernel launches summed."""
+    vit_launches = phase_vit()
+    phase_vit_twin()
+    ddpm_launches = phase_ddpm()
+    phase_ddpm_twin()
+    phase_new_ops()
+    return {k: vit_launches[k] + ddpm_launches[k] for k in vit_launches}
+
+
+def timed(label, fn, *args):
+    """fn(*args), logging its seconds as phase `label`'s."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
-    phase_device()
-    phase_build()
-    k1 = phase_k1()
-    k2 = phase_k2()
-    k34 = phase_k34()
-    decisions = phase_router()
-    phase_tiny_reference()
-    phase_tiny_train()
-    model = build_llama_7b()
-    serve = phase_slice(decisions["prefill"][0], model)
-    plain9, bf16_logits = phase_engine(model)
-    phase_knobs(model, plain9, bf16_logits)
-    phase_loadgen(model)
-    predictor = phase_predictor(model, decisions["prefill"][0])
+    t0 = time.perf_counter()
+    timed("1 (device)", phase_device)
+    timed("2 (build)", phase_build)
+    k1 = timed("3 (K1)", phase_k1)
+    k2 = timed("4 (K2)", phase_k2)
+    k34 = timed("5 (K3/K4)", phase_k34)
+    decisions = timed("6 (router)", phase_router)
+    timed("7 (tiny models, reference)", phase_tiny_reference)
+    timed("7 (tiny models, training)", phase_tiny_train)
+    model = timed("8 (llama_7b build)", build_llama_7b)
+    serve = timed("8 (serving slice)", phase_slice, decisions["prefill"][0],
+                  model)
+    plain9, bf16_logits = timed("9 (engine)", phase_engine, model)
+    timed("9b (engine knobs)", phase_knobs, model, plain9, bf16_logits)
+    timed("12 (loadgen)", phase_loadgen, model)
+    predictor = timed("13 (predictor)", phase_predictor, model,
+                      decisions["prefill"][0])
     del model
-    epilogue = phase_epilogue(decisions)
-    train = phase_train(decisions["train"][0])
-    bert, bert_ms = phase_bert(decisions["bert"][0])
-    gpt = phase_gpt()
-    resnet = phase_resnet()
-    decode = phase_decode()
-    zoo = phase_zoo()
-    hapi = phase_hapi(decisions["bert"][0], bert_ms)
-    mt = phase_mt()
+    epilogue = timed("10 (fused epilogue)", phase_epilogue, decisions)
+    train = timed("11 (training)", phase_train, decisions["train"][0])
+    bert, bert_ms = timed("14 (BERT)", phase_bert, decisions["bert"][0])
+    gpt = timed("15 (GPT)", phase_gpt)
+    resnet = timed("16 (ResNet-50)", phase_resnet)
+    decode = timed("17 (decode legs)", phase_decode)
+    zoo = timed("18 (vision zoo)", phase_zoo)
+    hapi = timed("19 (high-level API)", phase_hapi, decisions["bert"][0],
+                 bert_ms)
+    mt = timed("20 (machine translation)", phase_mt)
+    vision = timed("21 (ViT, DDPM, new ops)", phase_vision)
+    log(f"phases 1-21: {time.perf_counter() - t0:.1f} s")
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # K1 runs on the serving (bf16 and int8), predictor, training, BERT,
-    # GPT, decode, hapi BERT and Transformer-base paths, K3 and K4 on the
-    # training, BERT, hapi BERT and Transformer-base paths (the ResNet,
-    # vision-zoo, hapi ResNet and LeNet and LSTM seq2seq paths add none,
-    # counted all the same); their times are the Llama
+    # GPT, decode, hapi BERT, Transformer-base and ViT paths, K3 and K4 on
+    # the training, BERT, hapi BERT, Transformer-base and ViT paths (the
+    # ResNet, vision-zoo, hapi ResNet and LeNet, LSTM seq2seq and DDPM
+    # paths add none, counted all the same); their times are the Llama
     # training shape's (phases 3 and 5 print BERT's too). K2's are
     # the serving prefill shape's (no single library call computes it).
     # "ms" and "library_ms" are device times from back-to-back calls
@@ -3969,7 +5019,7 @@ def main():
                               + bert["flash_fwd"] + gpt
                               + resnet["flash_fwd"] + decode
                               + zoo["flash_fwd"] + hapi["flash_fwd"]
-                              + mt["flash_fwd"]),
+                              + mt["flash_fwd"] + vision["flash_fwd"]),
                     **{key: k1["train"][key] for key in keys}),
                dict(name="flash_fwd_rms_epilogue", route="cuda",
                     source=src + "fwd.cu", replaces=ref + "116",
@@ -3979,7 +5029,8 @@ def main():
                     replaces=ref + "198",
                     launches=(train["flash_bwd_dq"] + bert["flash_bwd_dq"]
                               + resnet["flash_bwd_dq"] + zoo["flash_bwd_dq"]
-                              + hapi["flash_bwd_dq"] + mt["flash_bwd_dq"]),
+                              + hapi["flash_bwd_dq"] + mt["flash_bwd_dq"]
+                              + vision["flash_bwd_dq"]),
                     **k34["train"]["dq"]),
                dict(name="flash_bwd_dkv", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "249",
@@ -3987,7 +5038,8 @@ def main():
                               + resnet["flash_bwd_dkv"]
                               + zoo["flash_bwd_dkv"]
                               + hapi["flash_bwd_dkv"]
-                              + mt["flash_bwd_dkv"]),
+                              + mt["flash_bwd_dkv"]
+                              + vision["flash_bwd_dkv"]),
                     **k34["train"]["dkv"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

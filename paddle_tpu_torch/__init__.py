@@ -11,6 +11,7 @@ __version__ = "0.1.0"
 
 from . import (amp, generation, io, metric, models, nn,  # noqa: E402
                optimizer, regularizer, tensor, text, vision)
+from . import linalg  # noqa: E402
 from . import hapi  # noqa: E402
 from .framework import (L1Decay, L2Decay, ParamAttr,  # noqa: E402
                         get_device, get_flags, load, save, seed, set_device,
@@ -23,4 +24,4 @@ __all__ = ["seed", "set_device", "get_device", "set_flags", "get_flags",
            "models", "generation", "optimizer", "nn", "amp", "io", "metric",
            "vision", "hapi", "callbacks", "regularizer", "Model", "summary",
            "flops", "save", "load", "ParamAttr", "L1Decay", "L2Decay",
-           "tensor", "text", "create_parameter"] + tensor.__all__
+           "tensor", "text", "create_parameter", "linalg"] + tensor.__all__

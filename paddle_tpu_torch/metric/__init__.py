@@ -4,6 +4,7 @@ python/paddle/metric/metrics.py).
 Every metric computes on the host in numpy, as the reference's does: a
 tensor is copied to the CPU first, float16/bfloat16 as float32.
 `Accuracy.compute` ranks the predictions with np.argsort(-p).
+`accuracy` is tensor.math's, re-exported as the reference does.
 """
 
 from __future__ import annotations
@@ -11,7 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["Metric", "Accuracy", "Precision", "Recall", "Auc"]
+from ..tensor.math import accuracy
+
+__all__ = ["Metric", "Accuracy", "Precision", "Recall", "Auc", "accuracy"]
 
 
 def _np(x):

@@ -1,7 +1,7 @@
 """Attention functionals. reference: paddle_tpu/nn/functional/attention.py
 (`_xla_attention` :27-45, `_expand_kv` :48, `_use_pallas` :65-91,
 `scaled_dot_product_attention` :94-132, `flash_attention` :135,
-`sdp_kernel` :205-218).
+`flash_attn_unpadded` :143-202, `sdp_kernel` :205-218).
 
 Layout (batch, seq, heads, head_dim). On a CUDA device without a mask the
 backend comes from `FLAGS_flash_attention_backend`: 'pallas' takes the
@@ -22,7 +22,8 @@ from ...framework import flags as _flags
 from ...framework.random import get_generator
 from ...ops.flash_attention import NEG_INF, flash_attention_bshd, kernel_takes
 
-__all__ = ["scaled_dot_product_attention", "flash_attention", "sdp_kernel"]
+__all__ = ["scaled_dot_product_attention", "flash_attention",
+           "flash_attn_unpadded", "sdp_kernel"]
 
 
 def _expand_kv(k, v, num_heads):
@@ -115,6 +116,51 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
     nn/functional/attention.py:135)."""
     out = scaled_dot_product_attention(query, key, value, dropout_p=dropout,
                                        is_causal=causal, training=training)
+    return out, None
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
+                        causal=False, return_softmax=False, *,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """Varlen attention over packed (total_tokens, heads, head_dim) rows,
+    sequence b holding rows cu_seqlens[b]:cu_seqlens[b + 1]. As the
+    reference, the dense path: the rows are gathered into (batch,
+    max_seqlen) blocks, each query sees its own sequence's keys (with
+    `causal`, bottom-right aligned per sequence: query i of a sequence
+    with lq queries and lk keys sees keys j <= i + lk - lq), and the
+    outputs go back to the packed rows. Returns (out, None)."""
+    dropout_p = dropout if training else 0.0
+    mq, mk = int(max_seqlen_q), int(max_seqlen_k)
+    dev = query.device
+    cq, ck = cu_seqlens_q.long(), cu_seqlens_k.long()
+    tq, tk = query.shape[0], key.shape[0]
+    len_q, len_k = cq[1:] - cq[:-1], ck[1:] - ck[:-1]
+    iq = cq[:-1, None] + torch.arange(mq, device=dev)[None]
+    ik = ck[:-1, None] + torch.arange(mk, device=dev)[None]
+    valid_q = torch.arange(mq, device=dev)[None] < len_q[:, None]
+    valid_k = torch.arange(mk, device=dev)[None] < len_k[:, None]
+    qb = query[iq.clamp(0, tq - 1)]
+    kb = key[ik.clamp(0, tk - 1)]
+    vb = value[ik.clamp(0, tk - 1)]
+    logits = torch.einsum("bqhd,bkhd->bhqk", qb.float(), kb.float()) * scale
+    mask = valid_q[:, None, :, None] & valid_k[:, None, None, :]
+    if causal:
+        off = (len_k - len_q)[:, None, None, None]
+        mask = mask & (torch.arange(mq, device=dev)[:, None] + off
+                       >= torch.arange(mk, device=dev)[None, :])
+    logits = logits.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(logits, -1).masked_fill(~mask, 0.0)
+    if dropout_p > 0.0:
+        keep = torch.empty_like(probs).bernoulli_(
+            1.0 - dropout_p, generator=get_generator(dev)) > 0
+        probs = torch.where(keep, probs / (1.0 - dropout_p), 0.0)
+    outb = torch.einsum("bhqk,bkhd->bqhd", probs.to(value.dtype), vb)
+    out = torch.zeros_like(query)
+    rows = valid_q.reshape(-1)
+    out = out.index_put((iq.reshape(-1)[rows],),
+                        outb.reshape(-1, *outb.shape[2:])[rows])
     return out, None
 
 

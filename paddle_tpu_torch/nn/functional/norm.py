@@ -1,5 +1,9 @@
 """Normalization functionals. reference: paddle_tpu/nn/functional/norm.py
-(`batch_norm` :19-76, `layer_norm` :78-98, `rms_norm` :101-112)."""
+(all of it: `batch_norm` :19-76, `layer_norm` :78-98, `rms_norm`
+:101-112, `instance_norm`, `group_norm` and `local_response_norm`
+:115-186). Group and instance norm take their statistics as the
+reference's jnp.mean and jnp.var do (summed in float32, rounded to the
+input's dtype) and normalize in the input's dtype."""
 
 from __future__ import annotations
 
@@ -8,7 +12,8 @@ import torch
 from ...amp import _cast
 from ...framework.dtypes import rounded
 
-__all__ = ["batch_norm", "layer_norm", "rms_norm"]
+__all__ = ["batch_norm", "layer_norm", "rms_norm", "instance_norm",
+           "group_norm", "local_response_norm"]
 
 
 def batch_norm(x, running_mean, running_var, weight=None, bias=None,
@@ -93,3 +98,65 @@ def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     if weight is not None:
         out = out * weight
     return out
+
+
+def _normalize(g, dims, eps):
+    """(g - mean) * rsqrt(var + eps) over `dims`, the statistics summed in
+    float32 and rounded to g's dtype."""
+    var, mean = torch.var_mean(g.float(), dim=dims, keepdim=True,
+                               correction=0)
+    return (g - mean.to(g.dtype)) * torch.rsqrt(var.to(g.dtype) + eps)
+
+
+def _affine(out, weight, bias, shape):
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW", name=None):
+    """Each sample's channels normalized over their spatial axes. The
+    running statistics are accepted and not used, as the reference does."""
+    x, weight, bias = _cast("instance_norm", x, weight, bias)
+    first = data_format.startswith("NC")
+    dims = tuple(range(2, x.dim())) if first else tuple(range(1, x.dim() - 1))
+    shape = [1] * x.dim()
+    shape[1 if first else -1] = x.shape[1 if first else -1]
+    return _affine(_normalize(x, dims, eps), weight, bias, shape).to(x.dtype)
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    """Each sample's channels in `num_groups` groups, each normalized over
+    its channels and the spatial axes; NCHW or channels-last."""
+    x, weight, bias = _cast("group_norm", x, weight, bias)
+    shape = [1] * x.dim()
+    if data_format == "NCHW" or x.dim() == 2:
+        n, c = x.shape[:2]
+        g = x.reshape((n, num_groups, c // num_groups) + x.shape[2:])
+        dims = tuple(range(2, g.dim()))
+        shape[1] = c
+    else:
+        n, c = x.shape[0], x.shape[-1]
+        g = x.reshape(x.shape[:-1] + (num_groups, c // num_groups))
+        dims = tuple(range(1, g.dim() - 2)) + (g.dim() - 1,)
+        shape[-1] = c
+    out = _normalize(g, dims, epsilon).reshape(x.shape)
+    return _affine(out, weight, bias, shape).to(x.dtype)
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    """x / (k + alpha * s)^beta, s the sum of squares over `size`
+    neighbouring channels (the reference's sum, not torch's mean)."""
+    ch = 1 if data_format.startswith("NC") else x.dim() - 1
+    moved = torch.movedim(x * x, ch, -1)
+    lo = (size - 1) // 2
+    padded = torch.nn.functional.pad(moved, (lo, size - 1 - lo))
+    n = moved.shape[-1]
+    s = torch.stack([padded[..., i:i + n] for i in range(size)], -1).sum(-1)
+    return x / (k + alpha * torch.movedim(s, -1, ch)) ** beta

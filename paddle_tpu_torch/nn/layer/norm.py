@@ -1,7 +1,8 @@
 """Normalization layers. reference: paddle_tpu/nn/layer/norm.py
 (`_BatchNormBase` :18-40, `BatchNorm`/`BatchNorm1D/2D/3D` :43-57,
-`LayerNorm` :80, `RMSNorm` :99, `SpectralNorm` :168). `SyncBatchNorm` is
-not ported."""
+`LayerNorm` :80, `RMSNorm` :99, `GroupNorm` :112, `InstanceNorm1D/2D/3D`
+:130-157, `LocalResponseNorm` :160, `SpectralNorm` :168). `SyncBatchNorm`
+waits for the distributed modules."""
 
 from __future__ import annotations
 
@@ -14,7 +15,9 @@ from .common import _param
 from .layers import Layer
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-           "LayerNorm", "RMSNorm", "SpectralNorm"]
+           "LayerNorm", "RMSNorm", "GroupNorm", "InstanceNorm1D",
+           "InstanceNorm2D", "InstanceNorm3D", "LocalResponseNorm",
+           "SpectralNorm"]
 
 
 class _BatchNormBase(Layer):
@@ -105,6 +108,68 @@ class RMSNorm(Layer):
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self.epsilon)
+
+
+class GroupNorm(Layer):
+    """F.group_norm over `num_groups` groups of `num_channels`; weight ones
+    and bias zeros (left out when False)."""
+
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, dtype="float32", device=None):
+        super().__init__()
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self.weight = _param(weight_attr, Constant(1.0), (num_channels,),
+                             dtype, device)
+        self.bias = _param(bias_attr, Constant(0.0), (num_channels,), dtype,
+                           device)
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self._epsilon, self.weight,
+                            self.bias, self._data_format)
+
+
+class _InstanceNormBase(Layer):
+    """F.instance_norm in NCHW-style layout (the reference's forward passes
+    no data_format), weight ones and bias zeros (left out when False)."""
+
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, dtype="float32", device=None):
+        super().__init__()
+        self._epsilon = epsilon
+        self.weight = _param(weight_attr, Constant(1.0), (num_features,),
+                             dtype, device)
+        self.bias = _param(bias_attr, Constant(0.0), (num_features,), dtype,
+                           device)
+
+    def forward(self, x):
+        return F.instance_norm(x, weight=self.weight, bias=self.bias,
+                               eps=self._epsilon)
+
+
+class InstanceNorm1D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm2D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm3D(_InstanceNormBase):
+    pass
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.args = (size, alpha, beta, k, data_format)
+
+    def forward(self, x):
+        return F.local_response_norm(x, *self.args)
 
 
 class SpectralNorm(Layer):
