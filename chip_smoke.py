@@ -323,7 +323,31 @@ Phases, each of which makes the script exit non-zero if it fails:
      random draws by support and mean, decompositions by what is unique
      (singular values and reconstructions, |R| and Q R, sorted
      eigenvalues, P L U). Prints the phase's seconds.
-Each phase's seconds are printed as it ends, then those of phases 1-21.
+  22. second-order gradients, the slice's modules written as a user
+     writes them: LlamaForCausalLM at llama_1.3b's width and depth
+     (train_llama.llama_ladder()[0]'s config) in bf16, random weights
+     from seed(0), one sequence of 2048 tokens from a seeded generator
+     (the smallest batch the router sends to K1 if not b1). The LM loss
+     backward through loss.backward() (K1 once a layer, K3 and K4 once a
+     layer where routed), then g = paddle_tpu_torch.grad(loss, params,
+     create_graph=True) (K1 once a layer, no K3/K4: the dense forward's
+     backward) and Hessian-vector products Hv = grad(sum(g . v)) (K3/K4
+     once a layer each, the first order through K1's node) timed with
+     device.Event: a random unit v, a second one u for symmetry
+     (|u.Hv - v.Hu| / (|u| |Hv|) within HVP_SYMMETRY_TOL) and
+     HVP_POWER_STEPS steps of power iteration printing the Rayleigh
+     quotient; g within HVP_FIRST_ORDER_RTOL (relative L2) of
+     loss.backward()'s, Hv within HVP_DENSE_RTOL of Hv with
+     FLAGS_flash_attention_backend=xla (no launch); every value finite;
+     peak memory from device.cuda. Then amp.debugging's checker on the
+     card (a NaN placed into a layer's activation raises naming the op,
+     sqrt at zero raises in the backward; off, no scan), the device API
+     (a stream, events, set_stream, the memory counters), and the
+     slice's functions once on CUDA against the CPU (fft, signal, the
+     audio features, the fp8 GEMM with the path each case took, and
+     autograd's vjp/jvp/jacobian/hessian through sdpa's kernel branch,
+     which must launch K1) within SLICE_TOLS.
+Each phase's seconds are printed as it ends, then those of phases 1-22.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -4899,16 +4923,23 @@ def _gap(a, b):
     return (gap if same_nan else float("inf")), False
 
 
-def phase_new_ops():
+def phase_new_ops(specs=None, tols=None, label="new ops"):
     """(c) every function this slice ported, once on CUDA on the CPU tests'
     kinds of input, held against the port's CPU result: values as they
     are, random draws by support and moments, decompositions by what is
-    unique."""
+    unique. `specs` (new_op_specs' form; a name is a path in the port or
+    a function) default to phase 21's; `tols` maps a family to its
+    tolerance (NEW_OPS_RTOL by default). Returns (family, name, kwargs,
+    error) of every spec."""
     t0 = time.perf_counter()
-    d = new_op_inputs()
-    worst, held, problems = {}, {}, []
-    for fam, name, args, kw, how in new_op_specs(d):
-        fn = _resolve(name)
+    if specs is None:
+        specs = new_op_specs(new_op_inputs())
+    tols = tols or {}
+    worst, held, problems, rows = {}, {}, [], []
+    for fam, name, args, kw, how in specs:
+        fn = name if callable(name) else _resolve(name)
+        name = getattr(name, "__name__", name)
+        tol = tols.get(fam, NEW_OPS_RTOL)
         if isinstance(how, tuple):            # random
             _, support, mean = how
             pt.seed(0)
@@ -4937,18 +4968,20 @@ def phase_new_ops():
                 gap, exact = _gap(a, b)
                 err = max(err, gap if not exact else (0.0 if gap == 0.0
                                                       else float("inf")))
+        rows.append((fam, name, kw, err))
         worst[fam] = max(worst.get(fam, 0.0), err)
-        held[fam] = held.get(fam, 0) + (err <= NEW_OPS_RTOL)
-        if not err <= NEW_OPS_RTOL:
-            problems.append(f"{fam} {name} {kw} ({err:.3e})")
+        held[fam] = held.get(fam, 0) + (err <= tol)
+        if not err <= tol:
+            problems.append(f"{fam} {name} {kw} ({err:.3e} > {tol})")
     torch.cuda.synchronize()
-    log(f"new ops on the card [{CARD}]: " + "; ".join(
-        f"{fam} {held[fam]} held, largest error {worst[fam]:.3e}"
-        for fam in worst) + f" (tol {NEW_OPS_RTOL} of the largest |value|; "
-        f"random draws by support and mean over {NEW_OPS_DRAWS}); "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"{label} on the card [{CARD}]: " + "; ".join(
+        f"{fam} {held[fam]} held, largest error {worst[fam]:.3e} (tol "
+        f"{tols.get(fam, NEW_OPS_RTOL)})" for fam in worst)
+        + " of the largest |value| (at least 1); random draws by support "
+        f"and mean over {NEW_OPS_DRAWS}; {time.perf_counter() - t0:.1f} s")
     if problems:
-        sys.exit(f"chip_smoke: new ops disagree with the CPU: {problems}")
+        sys.exit(f"chip_smoke: {label} disagree with the CPU: {problems}")
+    return rows
 
 
 def phase_vision():
@@ -4960,6 +4993,446 @@ def phase_vision():
     phase_ddpm_twin()
     phase_new_ops()
     return {k: vit_launches[k] + ddpm_launches[k] for k in vit_launches}
+
+
+# -- phase 22: second-order gradients on llama_1.3b -------------------------
+# llama_ladder()[0]'s config (24 layers, hidden 2048, 16 heads of 128,
+# vocab 32000) in bf16, random weights from seed(0), one sequence of 2048
+# tokens: bench.py's b8 cut to b1, as the dense second-order graph holds
+# b x 16 x 2048^2 float32 scores a layer (the smallest batch the router
+# sends to K1 if it does not send b1)
+HVP_SEQ = 2048
+HVP_POWER_STEPS = 4
+# bf16 gradients: the create_graph backward (the dense forward's) against
+# K3/K4's, relative L2 over all parameters
+HVP_FIRST_ORDER_RTOL = 3e-2
+# Hv through K1's forward against Hv with the dense backend forced
+HVP_DENSE_RTOL = 5e-2
+# |u.Hv - v.Hu| / (|u| |Hv|)
+HVP_SYMMETRY_TOL = 5e-2
+# the slice's functions on the card against the CPU, of the largest |value|
+# (at least 1): float32 transforms as phase 21's; the dB features take
+# log10 of float32 spectra; the fp8 GEMM rounds float32 sums that differ
+# in their last bits (cuBLASLt's order against the CPU's) to its output
+# dtype, so a value may land one step of that dtype away, up to 2^-10
+# (fp16) or 2^-7 (bf16) of the largest value; the transforms of attention
+# run in bf16 through K1 and the dense second order on the card, the
+# CPU's dense bf16 path
+SLICE_TOLS = {"fft": NEW_OPS_RTOL, "signal": NEW_OPS_RTOL,
+              "audio": NEW_OPS_RTOL, "audio dB": 1e-3,
+              "fp8 gemm fp16": 2.0 ** -10, "fp8 gemm bf16": 2.0 ** -7,
+              "autograd": 5e-2}
+
+
+def hvp_batch(cfg):
+    """The smallest batch from 1 whose attention the router sends to K1,
+    and its decision."""
+    heads = cfg.num_attention_heads
+    d = cfg.hidden_size // heads
+    for b in range(1, 9):
+        dec = ar.route(b * heads, HVP_SEQ, HVP_SEQ, d, torch.bfloat16, True,
+                       platform="cuda")
+        if dec.fwd == "pallas":
+            return b, dec
+    sys.exit("chip_smoke: the router sends no batch of llama_1.3b's "
+             "attention at s2048 to K1")
+
+
+def dot(a, b):
+    """sum over tensors of a . b, in float32."""
+    return sum(float((x.detach().float() * y.detach().float()).sum())
+               for x, y in zip(a, b))
+
+
+def rel_l2(a, b):
+    """|a - b| / |b| over lists of tensors, in float32."""
+    num = sum(float((x.detach().float() - y.detach().float()).pow(2).sum())
+              for x, y in zip(a, b))
+    return math.sqrt(num / dot(b, b))
+
+
+def unit_direction(params, seed):
+    """A random direction of the parameters' shapes and dtypes, of unit
+    norm, from a CUDA generator seeded with `seed`."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    v = [torch.randn(p.shape, generator=gen, device="cuda",
+                     dtype=torch.float32) for p in params]
+    norm = math.sqrt(dot(v, v))
+    return [(x / norm).to(p.dtype) for x, p in zip(v, params)]
+
+
+def kernel_launches():
+    return dict(flash_fwd=fa.flash_fwd_launches,
+                flash_bwd_dq=fa.flash_bwd_dq_launches,
+                flash_bwd_dkv=fa.flash_bwd_dkv_launches)
+
+
+def phase_hvp():
+    """Hessian-vector products of llama_1.3b's LM loss through
+    paddle_tpu_torch.grad(create_graph=True), as PyHessian takes them:
+    the forward through K1 on every layer, the create_graph backward
+    through the dense forward's (no K3/K4), each product through it and
+    through K1's first-order backward (K3/K4 as routed); power iteration
+    for the top eigenvalue.
+    Returns the launches of its main path (the ordinary and the
+    create_graph runs and the products)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = pt.device
+    name, cfg, *_ = train_llama.llama_ladder()[0]
+    n_layers = cfg.num_hidden_layers
+    batch, dec = hvp_batch(cfg)
+    log(f"hvp {name}: router at (bh {batch * cfg.num_attention_heads}, "
+        f"s{HVP_SEQ}, d{cfg.hidden_size // cfg.num_attention_heads}, bf16, "
+        f"causal): fwd={dec.fwd} bwd={dec.bwd} [{dec.source}] "
+        f"{dec.provenance}")
+    pt.seed(0)
+    t0 = time.perf_counter()
+    model = pt.models.LlamaForCausalLM(cfg, device="cuda")
+    params = list(model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (batch, HVP_SEQ), generator=gen,
+                        device="cuda")
+    torch.cuda.synchronize()
+    log(f"hvp {name}: {model.num_params()} params, b{batch} s{HVP_SEQ}, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    problems = []
+
+    def expect(what, got, want):
+        if got != want:
+            problems.append(f"{what}: launched {got}, expected {want}")
+
+    # the ordinary first order: K1 forward, K3/K4 backward
+    zero_flash_launches()
+    loss0, _ = model(ids, labels=ids)
+    loss0.backward()
+    launches = kernel_launches()
+    bwd = dec.bwd == "pallas"
+    expect("loss.backward()", launches,
+           dict(flash_fwd=n_layers, flash_bwd_dq=n_layers if bwd else 0,
+                flash_bwd_dkv=n_layers if bwd else 0))
+    g0 = [p.grad for p in params]
+    for p in params:
+        p.grad = None
+
+    # the create_graph path: K1 forward, the dense forward's backward
+    dev.cuda.reset_max_memory_allocated()
+    zero_flash_launches()
+    loss, _ = model(ids, labels=ids)
+    expect("forward", kernel_launches(),
+           dict(flash_fwd=n_layers, flash_bwd_dq=0, flash_bwd_dkv=0))
+    g = pt.grad(loss, params, create_graph=True)
+    expect("grad(create_graph=True)", kernel_launches(),
+           dict(flash_fwd=n_layers, flash_bwd_dq=0, flash_bwd_dkv=0))
+    for k, n in kernel_launches().items():
+        launches[k] += n
+    first_gap = rel_l2(g, g0)
+    # each product differentiates g, whose graph reads the attention
+    # output: that first-order term goes back through K1's node, K3/K4 as
+    # routed; the dense forward's backward takes the rest
+    zero_flash_launches()
+    del g0
+    hvp_ms = []
+
+    def hvp(v):
+        start, end = dev.Event(enable_timing=True), dev.Event(
+            enable_timing=True)
+        start.record()
+        hv = pt.grad(sum((gi * vi).sum() for gi, vi in zip(g, v)), params,
+                     retain_graph=True)
+        end.record()
+        end.synchronize()
+        hvp_ms.append(start.elapsed_time(end))
+        return hv
+
+    v0 = unit_direction(params, 1)
+    hv0 = hvp(v0)
+    u = unit_direction(params, 2)
+    hu = hvp(u)
+    sym = abs(dot(u, hv0) - dot(v0, hu)) / math.sqrt(dot(hv0, hv0))
+    del u, hu
+    rayleigh, v, hv = [], v0, hv0
+    for step in range(HVP_POWER_STEPS):
+        if step:
+            hv = hvp(v)
+        rayleigh.append(dot(v, hv))
+        log(f"hvp {name}: power step {step + 1}: Rayleigh quotient "
+            f"{rayleigh[-1]:.6e}, |Hv| {math.sqrt(dot(hv, hv)):.6e}")
+        norm = math.sqrt(dot(hv, hv))
+        v = [x / norm for x in hv]
+    per = n_layers * len(hvp_ms) if bwd else 0
+    expect("the products", kernel_launches(),
+           dict(flash_fwd=0, flash_bwd_dq=per, flash_bwd_dkv=per))
+    for k, n in kernel_launches().items():
+        launches[k] += n
+    peak = dev.cuda.max_memory_allocated()
+    finite = all(math.isfinite(x) for x in rayleigh + [
+        float(loss0.detach()), float(loss.detach())])
+    finite = finite and all(bool(torch.isfinite(x).all()) for x in hv0)
+    del g, loss, hv, v
+    gc.collect()
+
+    # Hv with the dense backend forced: no kernel launch
+    pt.set_flags({"FLAGS_flash_attention_backend": "xla"})
+    try:
+        zero_flash_launches()
+        loss_d, _ = model(ids, labels=ids)
+        g = pt.grad(loss_d, params, create_graph=True)
+        hv_d = pt.grad(sum((gi * vi).sum() for gi, vi in zip(g, v0)),
+                       params)
+        expect("dense backend", kernel_launches(),
+               dict(flash_fwd=0, flash_bwd_dq=0, flash_bwd_dkv=0))
+    finally:
+        pt.set_flags({"FLAGS_flash_attention_backend": "auto"})
+    dense_gap = rel_l2(hv0, hv_d)
+    finite = finite and math.isfinite(float(loss_d.detach()))
+    del g, hv_d, hv0, v0
+    log(f"hvp {name} [{CARD}]: loss {float(loss0.detach()):.6f} "
+        f"({float(loss_d.detach()):.6f} dense); first order through "
+        f"create_graph against loss.backward() rel L2 {first_gap:.3e} (tol "
+        f"{HVP_FIRST_ORDER_RTOL}); Hv through K1 against the dense backend "
+        f"rel L2 {dense_gap:.3e} (tol {HVP_DENSE_RTOL}); symmetry "
+        f"{sym:.3e} (tol {HVP_SYMMETRY_TOL}); ms per HVP "
+        + ", ".join(f"{t:.1f}" for t in hvp_ms)
+        + f" (median {statistics.median(hvp_ms):.1f}); peak memory "
+        f"{peak / 2**30:.2f} GiB (create_graph graph and products); "
+        f"launches {launches}")
+    if not finite:
+        problems.append("a loss, a Rayleigh quotient or Hv is not finite")
+    if not first_gap <= HVP_FIRST_ORDER_RTOL:
+        problems.append(f"first order rel L2 {first_gap:.3e}")
+    if not dense_gap <= HVP_DENSE_RTOL:
+        problems.append(f"Hv against the dense backend rel L2 "
+                        f"{dense_gap:.3e}")
+    if not sym <= HVP_SYMMETRY_TOL:
+        problems.append(f"symmetry {sym:.3e}")
+    del model, params, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        sys.exit(f"chip_smoke: phase 22 failed: {problems}")
+    return launches
+
+
+def phase_nan_checker():
+    """amp.debugging's checker on the card: a NaN placed into one layer's
+    activation raises in the forward and names the op; sqrt at zero
+    raises in the backward, which the autograd engine runs on its own
+    thread; with the checker off no dispatch mode is in and the same
+    forward runs unscanned."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+    dbg = amp.debugging
+    pt.seed(0)
+    lin1 = pt.nn.Linear(256, 256, device="cuda")
+    lin2 = pt.nn.Linear(256, 256, device="cuda")
+    x = torch.randn(64, 256, device="cuda")
+    poison = torch.ones(64, 256, device="cuda")
+    poison[3, 7] = float("nan")
+
+    def forward():
+        return lin2(lin1(x) * poison)
+
+    def backward():
+        h = torch.relu(lin1(x)).detach().requires_grad_(True)
+        torch.sqrt(h).sum().backward()
+
+    caught = {}
+    dbg.enable_tensor_checker(dbg.TensorCheckerConfig(enable=True))
+    try:
+        for label, fn in (("forward", forward), ("backward", backward)):
+            try:
+                fn()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                caught[label] = str(e)
+    finally:
+        dbg.disable_tensor_checker()
+    out = forward()
+    off = _get_current_dispatch_mode() is None and bool(
+        torch.isnan(out).any())
+    checked_ms = dbg.check_layer_numerics(lambda: time_ms(
+        lambda: lin2(lin1(x)), reps=10, warmup=2))()
+    plain_ms = time_ms(lambda: lin2(lin1(x)), reps=10, warmup=2)
+    log(f"nan checker [{CARD}]: forward: {caught.get('forward')}; "
+        f"backward: {caught.get('backward')}; off: no mode, NaN passed "
+        f"{off}; two Linear(256) on b64 {checked_ms:.3f} ms scanned, "
+        f"{plain_ms:.3f} ms off")
+    if "aten.mul" not in caught.get("forward", "") or \
+            "NaN or Inf" not in caught.get("backward", "") or not off:
+        sys.exit("chip_smoke: the NaN/Inf checker did not catch the forward "
+                 "or the backward NaN on the card, or stayed on")
+
+
+def _feature(name, **kw):
+    """audio.features.<name>(**kw) built on the signal's device, applied."""
+    def run(x):
+        return getattr(pt.audio.features, name)(device=x.device, **kw)(x)
+    run.__name__ = f"audio.features.{name}"
+    return run
+
+
+def _fp8_gemm(x, y, bias=None, **kw):
+    """linalg.fp8_fp8_half_gemm_fused on e4m3 copies of float32 x and y;
+    records the path the card's call took."""
+    before = dict(pt.linalg.FP8_GEMM_PATHS)
+    out = pt.linalg.fp8_fp8_half_gemm_fused(
+        x.to(torch.float8_e4m3fn), y.to(torch.float8_e4m3fn), bias, **kw)
+    if x.is_cuda:
+        FP8_PATHS.append(next(k for k, n in pt.linalg.FP8_GEMM_PATHS.items()
+                              if n > before[k]))
+    return out
+
+
+FP8_PATHS = []
+
+
+def _sdpa(x, k, v):
+    return PF.scaled_dot_product_attention(x, k, v, is_causal=True)
+
+
+def _attn_vjp(q, k, v):
+    return pt.autograd.vjp(lambda x: _sdpa(x, k, v), q)
+
+
+def _attn_jvp(q, k, v):
+    return pt.autograd.jvp(lambda x: _sdpa(x, k, v), q, torch.ones_like(q))
+
+
+def _attn_jacobian(q, k, v):
+    return pt.autograd.jacobian(lambda x: _sdpa(x, k, v).float().sum(-1), q)
+
+
+def _attn_hessian(q, k, v):
+    return pt.autograd.hessian(
+        lambda x: _sdpa(x, k, v).float().pow(2).sum(), q)
+
+
+def slice_op_specs():
+    """(family, name, args, kwargs, how) of this slice's functions, in
+    phase_new_ops' form, on inputs from numpy's default_rng(0)."""
+    r = np.random.default_rng(0)
+    f = lambda *s: r.standard_normal(s).astype(np.float32)  # noqa: E731
+    real, sig = f(4, 6, 8), f(2, 4000)
+    cplx = (f(4, 6, 8) + 1j * f(4, 6, 8)).astype(np.complex64)
+    win = np.hanning(257)[:-1].astype(np.float32)
+    specs = [("fft", "fft." + n, [x], kw, "value") for n, x, kw in [
+        ("fft", cplx, {}), ("ifft", cplx, dict(norm="ortho")),
+        ("rfft", real, dict(n=12)), ("irfft", cplx, {}), ("hfft", cplx, {}),
+        ("ihfft", real, {}), ("fft2", cplx, {}), ("rfftn", real, {}),
+        ("irfftn", cplx, {}), ("hfftn", cplx, {}), ("ihfft2", real, {}),
+        ("fftshift", real, {})]]
+    spec = pt.signal.stft(torch.as_tensor(sig), 256, 64,
+                          window=torch.as_tensor(win)).numpy()
+    specs += [("signal", "signal.frame", [sig], dict(frame_length=256,
+                                                      hop_length=64), "value"),
+              ("signal", "signal.overlap_add", [f(2, 256, 30)],
+               dict(hop_length=64), "value"),
+              ("signal", "signal.stft", [sig, 256, 64],
+               dict(window=win), "value"),
+              ("signal", "signal.istft", [spec, 256, 64],
+               dict(window=win, length=4000), "value")]
+    specs += [("audio", _feature("Spectrogram", n_fft=512), [sig], {},
+               "value"),
+              ("audio", _feature("MelSpectrogram", sr=16000, n_fft=512),
+               [sig], {}, "value"),
+              ("audio dB", _feature("LogMelSpectrogram", sr=16000,
+                                    n_fft=512, top_db=80.0), [sig], {},
+               "value"),
+              ("audio dB", _feature("MFCC", sr=16000, n_mfcc=40,
+                                    n_fft=512), [sig], {}, "value")]
+    # 2-D sizes of 16s take cuBLASLt's fp8 product; the others, and a
+    # batch, the float32 product of the upcast operands
+    for x, y, kw in [
+            (f(256, 512), f(512, 128), {}),
+            (f(256, 512), f(128, 512), dict(bias=f(128), transpose_y=True,
+                                            activation_type="gelu",
+                                            scale=0.25)),
+            (f(512, 64), f(512, 128), dict(transpose_x=True,
+                                           activation_type="relu",
+                                           output_dtype="bfloat16")),
+            (f(100, 72), f(72, 40), {}),
+            (f(3, 64, 64), f(3, 64, 32), {})]:
+        bias = kw.pop("bias", None)
+        fam = "fp8 gemm " + ("bf16" if kw.get("output_dtype") == "bfloat16"
+                             else "fp16")
+        specs.append((fam, _fp8_gemm, [x, y, bias], kw, "value"))
+    q, kv = f(1, 256, 2, 64), f(1, 256, 2, 64)
+    bf = lambda a: torch.as_tensor(a).to(torch.bfloat16)  # noqa: E731
+    small = [bf(q[:, :16]), bf(kv[:, :16]), bf(kv[:, :16] * 0.5)]
+    for fn, args in ((_attn_vjp, [bf(q), bf(kv), bf(kv * 0.5)]),
+                     (_attn_jvp, [bf(q), bf(kv), bf(kv * 0.5)]),
+                     (_attn_jacobian, small), (_attn_hessian, small)):
+        specs.append(("autograd", fn, args, {}, "value"))
+    return specs
+
+
+def phase_slice_ops():
+    """This slice's functions on the card against the CPU, the transforms
+    of attention through sdpa's kernel branch (the backend forced to the
+    kernels): K1 must launch."""
+    FP8_PATHS.clear()
+    zero_flash_launches()
+    pt.set_flags({"FLAGS_flash_attention_backend": "pallas"})
+    try:
+        rows = phase_new_ops(slice_op_specs(), SLICE_TOLS,
+                             label="the second-order slice's functions")
+    finally:
+        pt.set_flags({"FLAGS_flash_attention_backend": "auto"})
+    launches = kernel_launches()
+    fp8 = [r for r in rows if r[0].startswith("fp8 gemm")]
+    log("fp8 gemm on the card: " + "; ".join(
+        f"case {i} {kw}: {path}, error {err:.3e}"
+        for i, ((_, _, kw, err), path) in enumerate(zip(fp8, FP8_PATHS))))
+    log(f"autograd transforms through sdpa's kernel branch: launches "
+        f"{launches}")
+    if launches["flash_fwd"] == 0 or "scaled_mm" not in FP8_PATHS:
+        sys.exit("chip_smoke: the transforms did not reach K1, or no fp8 "
+                 "case took cuBLASLt's product")
+
+
+def phase_device_api():
+    """paddle_tpu_torch.device on the card: a product queued on a stream
+    of its own under stream_guard, events recorded and waited on, the
+    current stream set and restored, the memory counters."""
+    D = pt.device
+    x = torch.randn(2048, 2048, device="cuda")
+    x @ x                                   # cuBLAS's set-up, off the clock
+    D.synchronize()
+    side = D.Stream()
+    side.wait_stream(D.current_stream())
+    start = D.Event(enable_timing=True)
+    with D.stream_guard(side):
+        start.record(side)
+        y = x @ x
+        done = side.record_event(D.Event(enable_timing=True))
+    D.current_stream().wait_event(done)
+    same = bool(torch.equal(y, x @ x))
+    side.synchronize()
+    prev = D.set_stream(side)
+    switched = D.current_stream().stream == side.stream
+    D.set_stream(prev)
+    D.synchronize()
+    mem = [D.cuda.memory_allocated(), D.cuda.max_memory_allocated(),
+           D.cuda.memory_reserved(), D.cuda.max_memory_reserved()]
+    log(f"device api [{CARD}]: a 2048^2 float32 product on a side stream "
+        f"{start.elapsed_time(done):.3f} ms by its events, equal to the "
+        f"default stream's {same}, set_stream {switched}, queries "
+        f"{side.query()} {done.query()}; allocated/peak/reserved/peak "
+        f"reserved {[f'{m / 2**30:.2f} GiB' for m in mem]}")
+    if not (same and switched and side.query() and done.query()
+            and 0 < mem[0] <= mem[1] <= mem[3] and mem[0] <= mem[2]):
+        sys.exit("chip_smoke: paddle_tpu_torch.device misbehaves on the "
+                 "card")
+
+
+def phase_second_order():
+    """Phase 22: Hessian-vector products on llama_1.3b, the NaN/Inf
+    checker, the device API and the slice's functions on the card."""
+    launches = phase_hvp()
+    phase_nan_checker()
+    phase_device_api()
+    phase_slice_ops()
+    return launches
 
 
 def timed(label, fn, *args):
@@ -5000,14 +5473,16 @@ def main():
                  bert_ms)
     mt = timed("20 (machine translation)", phase_mt)
     vision = timed("21 (ViT, DDPM, new ops)", phase_vision)
-    log(f"phases 1-21: {time.perf_counter() - t0:.1f} s")
+    hvp = timed("22 (second order, llama_1.3b)", phase_second_order)
+    log(f"phases 1-22: {time.perf_counter() - t0:.1f} s")
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # K1 runs on the serving (bf16 and int8), predictor, training, BERT,
-    # GPT, decode, hapi BERT, Transformer-base and ViT paths, K3 and K4 on
-    # the training, BERT, hapi BERT, Transformer-base and ViT paths (the
+    # GPT, decode, hapi BERT, Transformer-base, ViT and Hessian-vector
+    # paths, K3 and K4 on the training, BERT, hapi BERT, Transformer-base,
+    # ViT and Hessian-vector (its ordinary backward) paths (the
     # ResNet, vision-zoo, hapi ResNet and LeNet, LSTM seq2seq and DDPM
     # paths add none, counted all the same); their times are the Llama
     # training shape's (phases 3 and 5 print BERT's too). K2's are
@@ -5019,7 +5494,8 @@ def main():
                               + bert["flash_fwd"] + gpt
                               + resnet["flash_fwd"] + decode
                               + zoo["flash_fwd"] + hapi["flash_fwd"]
-                              + mt["flash_fwd"] + vision["flash_fwd"]),
+                              + mt["flash_fwd"] + vision["flash_fwd"]
+                              + hvp["flash_fwd"]),
                     **{key: k1["train"][key] for key in keys}),
                dict(name="flash_fwd_rms_epilogue", route="cuda",
                     source=src + "fwd.cu", replaces=ref + "116",
@@ -5030,7 +5506,8 @@ def main():
                     launches=(train["flash_bwd_dq"] + bert["flash_bwd_dq"]
                               + resnet["flash_bwd_dq"] + zoo["flash_bwd_dq"]
                               + hapi["flash_bwd_dq"] + mt["flash_bwd_dq"]
-                              + vision["flash_bwd_dq"]),
+                              + vision["flash_bwd_dq"]
+                              + hvp["flash_bwd_dq"]),
                     **k34["train"]["dq"]),
                dict(name="flash_bwd_dkv", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "249",
@@ -5039,7 +5516,8 @@ def main():
                               + zoo["flash_bwd_dkv"]
                               + hapi["flash_bwd_dkv"]
                               + mt["flash_bwd_dkv"]
-                              + vision["flash_bwd_dkv"]),
+                              + vision["flash_bwd_dkv"]
+                              + hvp["flash_bwd_dkv"]),
                     **k34["train"]["dkv"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

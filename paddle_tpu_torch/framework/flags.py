@@ -6,7 +6,8 @@ A flag's value comes from its default, or from the environment variable
 Only the flags the port reads are defined. Of the reference's side effects
 on set (`_apply_side_effect`, :47-65), the two that configure the port's
 own modules are kept: `observability` turns the observability layer on or
-off and `fault_injection` arms the fault harness; those that configure JAX
+off, `fault_injection` arms the fault harness and `check_nan_inf` starts
+or stops the NaN/Inf checker (amp/debugging.py); those that configure JAX
 have no counterpart here.
 """
 
@@ -54,6 +55,9 @@ def _apply_side_effect(name, value):
             enable()
         else:
             disable()
+    elif name in ("check_nan_inf", "check_nan_inf_level"):
+        from ..amp import debugging
+        debugging._sync_checker()
     elif name == "fault_injection":
         from ..resilience import faults
         faults.arm_spec(value)   # "" disarms; bad specs raise here
@@ -94,6 +98,10 @@ define_flag("attention_router", "auto",
 define_flag("attention_ledger_path", "",
             "path of the attention-backend ledger ('' = the "
             "attention_ledger.json shipped next to ops/attention_router.py)")
+# the NaN/Inf checker (reference: flags.py:109-110; amp/debugging.py)
+define_flag("check_nan_inf", False, "scan every aten op's floating outputs "
+            "for NaN/Inf, backward ops included (amp/debugging.py)")
+define_flag("check_nan_inf_level", 0, "0: raise on a NaN/Inf; >0: warn")
 # observability and resilience (reference: flags.py:131-133)
 define_flag("observability", False, "runtime observability layer (paddle_tpu.observability): metrics registry + span tracing + SLO telemetry; off = zero-cost no-op fast path")
 define_flag("flight_recorder_dir", "", "directory flight-recorder postmortem dumps land in ('' = the tempdir); read from the environment by observability/recorder.py so standalone loads see it too")

@@ -12,7 +12,26 @@ applied as coeff * p, L1Decay included.
 
 from __future__ import annotations
 
-__all__ = ["ParamAttr", "L1Decay", "L2Decay"]
+import torch
+
+from .dtypes import convert_dtype
+
+__all__ = ["ParamAttr", "L1Decay", "L2Decay", "Parameter"]
+
+
+class Parameter(torch.nn.Parameter):
+    """paddle.Parameter (EagerParamBase): a torch Parameter made from data
+    as Paddle makes one, (data, dtype, name, trainable); the name lands on
+    `param_name`, as a layer's do (nn/layer/layers.py)."""
+
+    def __new__(cls, data=None, dtype=None, name=None, trainable=True):
+        t = data.detach() if isinstance(data, torch.Tensor) else \
+            torch.as_tensor(data)
+        if dtype is not None:
+            t = t.to(convert_dtype(dtype))
+        p = super().__new__(cls, t, requires_grad=trainable)
+        p.param_name = name
+        return p
 
 
 class ParamAttr:

@@ -12,7 +12,8 @@ import contextlib
 
 import torch
 
-__all__ = ["seed", "get_generator", "generator_scope"]
+__all__ = ["seed", "get_generator", "generator_scope", "get_rng_state",
+           "set_rng_state", "get_cuda_rng_state", "set_cuda_rng_state"]
 
 _SEED = [0]
 _GENERATORS: dict = {}
@@ -43,6 +44,39 @@ def get_generator(device) -> torch.Generator:
         gen.manual_seed(_SEED[0])
         _GENERATORS[dev] = gen
     return gen
+
+
+def get_rng_state(*, device=None):
+    """paddle.get_rng_state: the seed and the torch state of every
+    generator made so far (or of `device`'s alone), to hand back to
+    `set_rng_state`. The reference's state is its key and counter
+    (framework/random.py:104-109)."""
+    devs = list(_GENERATORS) if device is None else [_key(device)]
+    return {"seed": _SEED[0], "whole": device is None,
+            "states": {d: get_generator(d).get_state() for d in devs}}
+
+
+def set_rng_state(state) -> None:
+    """Restore a `get_rng_state`: each generator it holds draws on from
+    where it stood. A whole state also restarts every other generator
+    from its seed, as `seed` would."""
+    _SEED[0] = state["seed"]
+    if state["whole"]:
+        _GENERATORS.clear()
+    for dev, st in state["states"].items():
+        gen = torch.Generator(device=dev)
+        gen.set_state(st)
+        _GENERATORS[dev] = gen
+
+
+def get_cuda_rng_state():
+    """get_rng_state of the CUDA generators made so far."""
+    return {"seed": _SEED[0], "whole": False,
+            "states": {d: g.get_state() for d, g in _GENERATORS.items()
+                       if d.type == "cuda"}}
+
+
+set_cuda_rng_state = set_rng_state
 
 
 @contextlib.contextmanager

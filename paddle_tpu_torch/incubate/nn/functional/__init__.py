@@ -143,12 +143,13 @@ def swiglu(x, y=None, name=None):
 def fused_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                 is_causal=False, training=True, **kw):
     """scaled_dot_product_attention, whose backend (flash kernels or dense)
-    ops/attention_router picks per shape. Attention dropout is not
-    ported: a dropout_p > 0 in training raises."""
-    if training and dropout_p > 0.0:
-        raise NotImplementedError("attention dropout is not ported")
+    ops/attention_router picks per shape. With dropout_p > 0 in training
+    the dense path drops probabilities, drawn from the port's generator
+    of the tensors' device, as nn.functional's does."""
     return scaled_dot_product_attention(q, k, v, attn_mask=attn_mask,
-                                        is_causal=is_causal)
+                                        dropout_p=dropout_p,
+                                        is_causal=is_causal,
+                                        training=training)
 
 
 def fused_attention_rms_epilogue(q, k, v, residual, norm_weight,

@@ -5,7 +5,9 @@
 
 Layout (batch, seq, heads, head_dim). On a CUDA device without a mask the
 backend comes from `FLAGS_flash_attention_backend`: 'pallas' takes the
-flash kernels (`flash_attention_bshd`), 'xla' the dense torch math, and
+flash kernels (`flash_attention_bshd_higher_order`: K1, then K3/K4 or the
+dense remat as routed, and under create_graph=True the dense forward's
+backward, so gradients can be taken again), 'xla' the dense torch math, and
 'auto' asks ops/attention_router for this shape. A mask, a dtype or head
 dim the kernels do not take (under any backend), or a tensor off CUDA
 takes the dense math, as the reference takes it off a TPU. So does
@@ -20,7 +22,8 @@ import torch
 from ...amp import _cast
 from ...framework import flags as _flags
 from ...framework.random import get_generator
-from ...ops.flash_attention import NEG_INF, flash_attention_bshd, kernel_takes
+from ...ops.flash_attention import (NEG_INF, flash_attention_bshd_higher_order,
+                                   kernel_takes)
 
 __all__ = ["scaled_dot_product_attention", "flash_attention",
            "flash_attn_unpadded", "sdp_kernel"]
@@ -96,7 +99,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             dtype=query.dtype, causal=is_causal, device=query.device):
         query, key, value = _cast("flash_attention_pallas", query, key,
                                   value)
-        return flash_attention_bshd(query, key, value, causal=is_causal)
+        # second-order gradients through the kernel branch differentiate
+        # the dense forward again (the reference's `_ho_fwd`, :105-120)
+        return flash_attention_bshd_higher_order(query, key, value,
+                                                 causal=is_causal)
     query, key, value, attn_mask = _cast("scaled_dot_product_attention",
                                          query, key, value, attn_mask)
     k, v = _expand_kv(key, value, query.shape[2])

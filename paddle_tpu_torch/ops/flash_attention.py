@@ -26,12 +26,11 @@ its 'auto' mode, ops/attention_router) picks.
 from __future__ import annotations
 
 import torch
-from torch.autograd.function import once_differentiable
 
 from ..framework import flags as _flags
 
-__all__ = ["flash_attention_bshd", "flash_attention_rms_epilogue_bshd",
-           "kernel_takes", "NEG_INF"]
+__all__ = ["flash_attention_bshd", "flash_attention_bshd_higher_order",
+           "flash_attention_rms_epilogue_bshd", "kernel_takes", "NEG_INF"]
 
 NEG_INF = -1e30
 
@@ -418,11 +417,35 @@ def _bwd_mode(q, k, causal):
     return mode
 
 
+_TWICE = (b"flash_attention_bshd: trying to differentiate twice through "
+          b"K3/K4, whose backward is first order only. For higher-order "
+          b"gradients call nn.functional.scaled_dot_product_attention, whose "
+          b"kernel branch differentiates a dense forward again, or set "
+          b"FLAGS_flash_attention_backend=xla")
+
+
+def _first_order_only(bwd):
+    """torch's `once_differentiable` with a message that names the way
+    out: the backward runs without a graph, and under create_graph=True its
+    gradients carry a node that raises when they are differentiated
+    again, as the reference's engine raises (framework/core.py:444-450)."""
+    def wrapper(ctx, *grads):
+        with torch.no_grad():
+            outs = bwd(ctx, *grads)
+        if not torch.is_grad_enabled() or not any(
+                g.requires_grad for g in grads):
+            return outs
+        err = torch._C._functions.DelayedError(_TWICE, len(outs))
+        return err(*[None if o is None else o.detach().requires_grad_()
+                     for o in outs])
+    return wrapper
+
+
 class _FlashAttention(torch.autograd.Function):
     """K1 forward; K3/K4 or the dense rematerialised backward: the
     counterpart of the reference's `custom_vjp` `_flash_attention_bhsd`.
-    The backward is first-order only (`once_differentiable`); the
-    reference's higher-order path is not ported. Under
+    The backward is first-order only: its gradients, taken with
+    create_graph=True, raise when differentiated again. Under
     `torch.utils.checkpoint` the forward runs again in the backward pass,
     which launches K1 again."""
 
@@ -434,8 +457,7 @@ class _FlashAttention(torch.autograd.Function):
         return out
 
     @staticmethod
-    @once_differentiable
-    def backward(ctx, g):
+    def first_order(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
         g = g.contiguous()
         if _bwd_mode(q, k, ctx.causal) == "xla":
@@ -445,6 +467,33 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv = _flash_bwd_bhsd(q, k, v, out, lse, g, ctx.causal,
                                          ctx.scale, ctx.q_per_kv)
         return dq, dk, dv, None, None, None
+
+    backward = staticmethod(_first_order_only(first_order.__func__))
+
+
+class _FlashAttentionHigherOrder(_FlashAttention):
+    """The same forward (K1, the same saved tensors); a backward that can
+    be differentiated again: the counterpart of the reference's
+    `_ho_fwd`, the dense forward that its sdpa kernel branch records
+    (nn/functional/attention.py:105-120) and its engine differentiates
+    under create_graph=True (framework/core.py:396-450). Without
+    create_graph the backward is `_FlashAttention`'s, bit for bit (K3/K4
+    or the dense remat, as routed); with it, torch.autograd.grad of the
+    dense forward `_xla_attention_bhsd`, recomputed from the saved q, k
+    and v with its graph kept, so no K3/K4 launch."""
+
+    @staticmethod
+    def backward(ctx, g):
+        if not torch.is_grad_enabled():
+            return _FlashAttention.first_order(ctx, g)
+        q, k, v, _, _ = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        out = _xla_attention_bhsd(q, k, v, ctx.causal, ctx.scale,
+                                  ctx.q_per_kv)
+        grads = iter(torch.autograd.grad(
+            out, [t for t, n in zip((q, k, v), need) if n], g,
+            create_graph=True))
+        return tuple(next(grads) if n else None for n in need) + (None,) * 3
 
 
 def _to_bhsd(x, dp):
@@ -463,7 +512,7 @@ def _check_heads(h, kvh):
 def flash_attention_bshd(q, k, v, causal=False, scale=None):
     """Paddle's flash_attention layout: q (b, sq, h, d), k/v (b, sk, kvh, d)
     with kvh dividing h (GQA: kv heads are never expanded) -> (b, sq, h, d).
-    Differentiable in q, k and v (first order).
+    Differentiable in q, k and v (first order: a second order raises).
 
     The softmax scale defaults to 1/sqrt(d) of the true d. The head dim is
     zero-padded to the kernel's sizes (d <= 64 -> 64, d <= 128 -> 128; so
@@ -475,6 +524,21 @@ def flash_attention_bshd(q, k, v, causal=False, scale=None):
     d > 128) take the dense backend, differentiated by torch autograd, as
     the reference takes any dtype and head dim; CPU tensors take the
     kernels' plain versions at any head dim."""
+    return _bshd(_FlashAttention, q, k, v, causal, scale)
+
+
+def flash_attention_bshd_higher_order(q, k, v, causal=False, scale=None):
+    """flash_attention_bshd whose gradients can be differentiated again
+    (`_FlashAttentionHigherOrder`): the forward and the first order are
+    flash_attention_bshd's; under create_graph=True the backward is the
+    dense forward's. scaled_dot_product_attention's kernel branch calls
+    it, as the reference's sdpa alone registers the dense higher-order
+    forward; flash_attention_bshd itself stays first order."""
+    return _bshd(_FlashAttentionHigherOrder, q, k, v, causal, scale)
+
+
+def _bshd(fn, q, k, v, causal, scale):
+    """flash_attention_bshd through the autograd Function `fn`."""
     b, sq, h, d = q.shape
     _check_heads(h, k.shape[2])
     dp = _padded_dim(d)
@@ -485,9 +549,8 @@ def flash_attention_bshd(q, k, v, causal=False, scale=None):
                                   _to_bhsd(v, d), causal, scale,
                                   h // k.shape[2])
         return out.reshape(b, h, sq, d).transpose(1, 2)
-    out = _FlashAttention.apply(_to_bhsd(q, dp), _to_bhsd(k, dp),
-                                _to_bhsd(v, dp), causal, scale,
-                                h // k.shape[2])
+    out = fn.apply(_to_bhsd(q, dp), _to_bhsd(k, dp), _to_bhsd(v, dp),
+                   causal, scale, h // k.shape[2])
     out = out.reshape(b, h, sq, dp).transpose(1, 2)
     return out[..., :d] if dp != d else out
 

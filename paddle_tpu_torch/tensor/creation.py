@@ -15,7 +15,7 @@ import numpy as np
 import torch
 
 from ..framework.device import resolve_device
-from ..framework.dtypes import convert_dtype
+from ..framework.dtypes import convert_dtype, default_float
 
 __all__ = [
     "to_tensor", "zeros", "zeros_like", "ones", "ones_like", "full",
@@ -26,8 +26,11 @@ __all__ = [
 ]
 
 
-def _dtype(dtype, default=torch.float32):
-    return default if dtype is None else convert_dtype(dtype)
+def _dtype(dtype, default=None):
+    """`dtype`, else `default`, else the default float dtype."""
+    if dtype is not None:
+        return convert_dtype(dtype)
+    return default_float() if default is None else default
 
 
 def _shape(shape):
@@ -51,7 +54,8 @@ def _place(place):
 
 def to_tensor(data, dtype=None, place=None, stop_gradient=True):
     """A tensor holding `data` (a tensor, an array, a list or a scalar) on
-    `place`. Without `dtype`, Python and numpy floats become float32 and
+    `place`. Without `dtype`, Python and numpy floats take the default
+    float dtype (float32 unless set_default_dtype says otherwise) and
     integers int64; a tensor keeps its dtype. Gradients flow to a floating
     result when `stop_gradient` is False."""
     if isinstance(data, torch.Tensor):
@@ -60,7 +64,7 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
     else:
         arr = np.asarray(data)
         if dtype is None and arr.dtype.kind == "f":
-            arr = arr.astype(np.float32)
+            dtype = default_float()
         elif dtype is None and arr.dtype.kind in "iu":
             arr = arr.astype(np.int64)
         t = torch.as_tensor(arr, device=_place(place))
@@ -124,7 +128,7 @@ def arange(start=0, end=None, step=1, dtype=None, name=None, *,
     if dtype is None:
         ints = all(isinstance(v, (int, np.integer)) for v in (start, end,
                                                                 step))
-        dtype = torch.int64 if ints else torch.float32
+        dtype = torch.int64 if ints else default_float()
     return torch.arange(start, end, step, dtype=convert_dtype(dtype),
                         device=resolve_device(device))
 

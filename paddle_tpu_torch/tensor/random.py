@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..framework.device import resolve_device
-from ..framework.dtypes import convert_dtype
+from ..framework.dtypes import convert_dtype, default_float
 from ..framework.random import get_generator
 
 __all__ = [
@@ -35,7 +35,7 @@ def _shape(shape):
 
 
 def _dtype(dtype):
-    return torch.float32 if dtype is None else convert_dtype(dtype)
+    return default_float() if dtype is None else convert_dtype(dtype)
 
 
 def _gen(device):

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import paddle_tpu as paddle
 from paddle_tpu.incubate.nn import functional as JIF
 from paddle_tpu.ops.pallas import flash_attention as jfa
+from paddle_tpu_torch.framework import random as pt_random
 from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.ops import attention_router as ar
 from paddle_tpu_torch.ops import flash_attention as fa
@@ -239,6 +240,51 @@ def test_fused_dot_product_attention_matches_reference():
         *(torch.as_tensor(x) for x in (q, k, v)), is_causal=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref._data),
                                rtol=F32_TOL, atol=F32_TOL)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        IF.fused_dot_product_attention(
-            *(torch.as_tensor(x) for x in (q, k, v)), dropout_p=0.1)
+    # attention dropout is passed on, as the reference passes it: without
+    # training it is no dropout
+    T = [torch.as_tensor(x) for x in (q, k, v)]
+    ref = JIF.fused_dot_product_attention(
+        *(paddle.Tensor(_j(x)) for x in (q, k, v)), dropout_p=0.5,
+        is_causal=True, training=False)
+    got = IF.fused_dot_product_attention(*T, dropout_p=0.5, is_causal=True,
+                                         training=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref._data),
+                               rtol=F32_TOL, atol=F32_TOL)
+
+
+# dropout's draws are torch's, so it is held to the reference by its rate
+# and scale: the share of dropped probabilities within DROP_SIGMAS binomial
+# standard deviations of p, and every kept one scaled by 1 / (1 - p); the
+# mean output over DROP_DRAWS draws within DROP_SIGMAS standard errors
+# (each element's own, over the draws) of the output without dropout
+DROP_P, DROP_DRAWS, DROP_SIGMAS = 0.5, 256, 5.0
+
+
+def test_fused_dot_product_attention_dropout_rate_and_scale():
+    """With v the identity (sk = d = 16 keys), each output row is the
+    row's probabilities, so the draws show the mask itself."""
+    rs = np.random.RandomState(11)
+    b, s, h = 2, 16, 2
+    q, k = _rand(rs, b, s, h, s), _rand(rs, b, s, h, s)
+    v = np.broadcast_to(np.eye(s, dtype=np.float32)[None, :, None],
+                        (b, s, h, s)).copy()
+    def ref(p):
+        return np.asarray(jax.jit(lambda *a: JIF.fused_dot_product_attention(
+            *(paddle.Tensor(x) for x in a), dropout_p=p)._data)(q, k, v))
+    probs = ref(0.0)
+    reps = lambda x: torch.as_tensor(x).repeat(DROP_DRAWS, 1, 1, 1)
+    gen = torch.Generator().manual_seed(0)
+    with pt_random.generator_scope(gen):
+        got = IF.fused_dot_product_attention(reps(q), reps(k), reps(v),
+                                             dropout_p=DROP_P)
+    got = got.numpy().reshape(DROP_DRAWS, b, s, h, s)
+    for out in (got, ref(DROP_P)[None]):
+        dropped = out == 0
+        n = dropped.size
+        assert abs(dropped.mean() - DROP_P) <= DROP_SIGMAS * np.sqrt(
+            DROP_P * (1 - DROP_P) / n)
+        kept = np.broadcast_to(probs / (1 - DROP_P), out.shape)[~dropped]
+        np.testing.assert_allclose(out[~dropped], kept, rtol=F32_TOL,
+                                   atol=F32_TOL)
+    sem = got.std(0) / np.sqrt(DROP_DRAWS)
+    assert (np.abs(got.mean(0) - probs) <= DROP_SIGMAS * sem + 1e-6).all()
