@@ -347,7 +347,41 @@ Phases, each of which makes the script exit non-zero if it fails:
      audio features, the fp8 GEMM with the path each case took, and
      autograd's vjp/jvp/jacobian/hessian through sdpa's kernel branch,
      which must launch K1) within SLICE_TOLS.
-Each phase's seconds are printed as it ends, then those of phases 1-22.
+  23. graphs, 2:4 sparsity, the MoE layer and distribution, the models
+     written as a user writes them on the port's API, random data from
+     seed(0). (a) GraphSAGE-mean (geometric.send_u_recv) and GCN
+     (sparse.matmul on the symmetric-normalised CSR adjacency with self
+     loops) at ogbn-arxiv's size (Hu et al. 2020: 169,343 nodes,
+     1,166,243 edges made symmetric, 128 features, 40 classes; the graph
+     drawn with numpy), OGB's arxiv baselines (3 layers, hidden 256,
+     BatchNorm1D, dropout 0.5, Adam at 0.01, float32), 1 + 10 full-batch
+     steps each: step ms, edges/s, peak memory, a traced step by kernel
+     class (gathers, scatter/index-add, GEMMs, sorts, elementwise) and
+     the busy share; losses finite, the first update lowering the loss,
+     the first step's logits and loss (dropout off) within GRAPH_CPU_RTOL
+     of the CPU's at full size; then two GraphSAGE mini-batches of 1,024
+     seeds, fanouts [15, 10, 5], through sample_neighbors and
+     reindex_graph on the host (host ms to sample against device ms to
+     step; the sampler's contract on the first hop). (b) bert_base at
+     bench.py's b32 s512 bf16 through train_bert's TrainStep, pruned 2:4
+     by incubate.asp.prune_model (the NSP head excluded) with asp.decorate
+     around its AdamW, 1 + 4 steps: every pruned weight at density 0.5
+     and check_sparsity true after the steps, no mask on the embeddings
+     and norms, the card's masks equal to the CPU's for the same weights
+     (ties at the boundary counted), K1, K3 and K4 once a layer a step as
+     routed, finite losses; the step's ms beside phase 14's. (c)
+     incubate's MoELayer at Mixtral-8x7B's block width (d_model 4096, 8
+     SwiGLU experts of 14336, top-2, GShardGate), bf16, 4,096 tokens,
+     forward and backward: ms, peak memory, executed against useful TFLOP
+     (the dense form runs every expert on every token), the aux loss, the
+     bf16 output against a float32 twin on the first 512 tokens (those
+     whose top-2 experts agree) within MOE_BF16_RTOL. (d) the slice's
+     functions (distribution, sparse and sparse.nn with a SubmConv3D,
+     geometric, incubate's segment, graph and fused softmax ops,
+     LookAhead/ModelAverage steps, SwitchGate, asp.create_mask) once on
+     CUDA against the CPU within SLICE17_TOLS, draws by support and mean;
+     incubate.autotune.set_config round trips.
+Each phase's seconds are printed as it ends, then those of phases 1-23.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -1348,17 +1382,22 @@ def resnet_class(name):
                 None) or profile_train._classify(name)
 
 
-def kernel_ms_by_class(fn, classify=profile_train._classify, kernels=None):
+def kernel_ms_by_class(fn, classify=profile_train._classify, kernels=None,
+                       census=None):
     """{kernel class: summed device ms} of fn() under torch.profiler, by
     default the classes of tools/profile_train.py (the flash kernels,
     matrix products, copies, elementwise, reductions, other). With a list
     as `kernels`, (device ms, launches, name) of every kernel is appended
-    to it."""
+    to it. With a dict as `census`, it gets the trace's kernel records
+    ("kernels") and its host-side kernel launch calls ("launches"); a
+    trace with fewer records than launches lost kernels, and says so."""
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     out = {}
+    census = {"kernels": 0, "launches": 0} if census is None else census
+    census.update(kernels=0, launches=0)
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
             cls = classify(e.key)
@@ -1367,6 +1406,13 @@ def kernel_ms_by_class(fn, classify=profile_train._classify, kernels=None):
             out[cls] = out.get(cls, 0.0) + ms
             if kernels is not None:
                 kernels.append((ms, e.count, e.key))
+            if not e.key.startswith(("Memcpy", "Memset")):
+                census["kernels"] += e.count
+        elif "LaunchKernel" in e.key:
+            census["launches"] += e.count
+    if census["kernels"] < census["launches"]:
+        log(f"trace: {census['kernels']} kernel records of "
+            f"{census['launches']} launch calls: it lost kernels")
     return out
 
 
@@ -5435,6 +5481,854 @@ def phase_second_order():
     return launches
 
 
+# phase 23 (a): graph learning at ogbn-arxiv's size (Hu et al. 2020, OGB:
+# 169,343 nodes, 1,166,243 directed edges made symmetric, 128 features, 40
+# classes; its year split trains on 90,941 nodes), the graph drawn from
+# seed(0) with numpy; OGB's arxiv baselines: 3 layers, hidden 256,
+# BatchNorm1D, dropout 0.5, Adam at lr 0.01, float32
+ARXIV = dict(nodes=169343, edges=1166243, features=128, classes=40,
+             train=90941)
+GRAPH = dict(layers=3, hidden=256, dropout=0.5, lr=0.01)
+GRAPH_STEPS = 10
+# mini-batch GraphSAGE: seeds a batch and the fanout of each hop
+SAGE_SEEDS = 1024
+SAGE_FANOUTS = (15, 10, 5)
+
+
+def arxiv_graph(nodes, edges, features, classes, train, seed=0):
+    """A random graph of `edges` undirected edges (no self loops, both
+    directions stored: 2 x edges directed ones), node features N(0, 1),
+    labels the argmax of the features times a random projection (a signal
+    to fit), and a random training split; numpy from `seed`."""
+    r = np.random.default_rng(seed)
+    src = r.integers(0, nodes, edges)
+    dst = (src + r.integers(1, nodes, edges)) % nodes
+    x = r.standard_normal((nodes, features), dtype=np.float32)
+    proj = r.standard_normal((features, classes), dtype=np.float32)
+    labels = (x @ proj).argmax(1)
+    train_idx = np.sort(r.permutation(nodes)[:train])
+    return dict(src=np.concatenate([src, dst]), dst=np.concatenate([dst, src]),
+                x=x, labels=labels, train_idx=train_idx, nodes=nodes)
+
+
+def gcn_adjacency(src, dst, n):
+    """The symmetric-normalised adjacency with self loops, D^-1/2 (A + I)
+    D^-1/2, as CSR rows by destination: (crows, cols, values) in numpy, a
+    duplicate edge counted twice."""
+    loops = np.arange(n)
+    rows = np.concatenate([dst, loops])
+    cols = np.concatenate([src, loops])
+    deg = np.bincount(rows, minlength=n).astype(np.float32)
+    inv = deg ** -0.5
+    order = np.argsort(rows, kind="stable")
+    rows, cols = rows[order], cols[order]
+    crows = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=n))])
+    return crows, cols, (inv[rows] * inv[cols]).astype(np.float32)
+
+
+def csc_graph(src, dst, n):
+    """(row, colptr) of the graph stored by destination: the sources of
+    node v's in-edges are row[colptr[v]:colptr[v + 1]]."""
+    order = np.argsort(dst, kind="stable")
+    colptr = np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=n))])
+    return src[order], colptr
+
+
+def graph_sage(P, in_dim, hidden, classes, layers, dropout):
+    """GraphSAGE-mean as OGB's arxiv baseline writes it (PyG's SAGEConv: a
+    Linear of the neighbours' mean plus a bias-free Linear of the node
+    itself), BatchNorm1D, ReLU and dropout between layers; the mean
+    through geometric.send_u_recv. forward(x, blocks) takes each layer's
+    (src, dst, destination count); the destinations are the first rows of
+    that layer's input."""
+    dims = [in_dim] + [hidden] * (layers - 1) + [classes]
+
+    class GraphSAGE(P.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.lin_l = P.nn.LayerList([P.nn.Linear(a, b) for a, b in
+                                         zip(dims, dims[1:])])
+            self.lin_r = P.nn.LayerList([
+                P.nn.Linear(a, b, bias_attr=False)
+                for a, b in zip(dims, dims[1:])])
+            self.norms = P.nn.LayerList([P.nn.BatchNorm1D(hidden)
+                                         for _ in range(layers - 1)])
+
+        def forward(self, x, blocks):
+            for i, (src, dst, n) in enumerate(blocks):
+                agg = P.geometric.send_u_recv(x, src, dst, reduce_op="mean",
+                                              out_size=n)
+                x = self.lin_l[i](agg) + self.lin_r[i](x[:n])
+                if i < layers - 1:
+                    x = P.nn.functional.relu(self.norms[i](x))
+                    x = P.nn.functional.dropout(x, dropout,
+                                                training=self.training)
+            return x
+
+    return GraphSAGE()
+
+
+def gcn(P, in_dim, hidden, classes, layers, dropout):
+    """GCN as OGB's arxiv baseline writes it (Kipf and Welling: A_hat X W
+    + b), BatchNorm1D, ReLU and dropout between layers; A_hat X through
+    sparse.matmul on the normalised CSR adjacency."""
+    dims = [in_dim] + [hidden] * (layers - 1) + [classes]
+
+    class GCN(P.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.lins = P.nn.LayerList([
+                P.nn.Linear(a, b, bias_attr=False)
+                for a, b in zip(dims, dims[1:])])
+            self.biases = P.nn.ParameterList([
+                self.create_parameter([b], is_bias=True) for b in dims[1:]])
+            self.norms = P.nn.LayerList([P.nn.BatchNorm1D(hidden)
+                                         for _ in range(layers - 1)])
+
+        def forward(self, x, adj):
+            for i, lin in enumerate(self.lins):
+                x = P.sparse.matmul(adj, lin(x)) + self.biases[i]
+                if i < layers - 1:
+                    x = P.nn.functional.relu(self.norms[i](x))
+                    x = P.nn.functional.dropout(x, dropout,
+                                                training=self.training)
+            return x
+
+    return GCN()
+
+
+def sample_blocks(P, row, colptr, seeds, fanouts):
+    """A GraphSAGE mini-batch as PGL builds one: hop by hop from the seeds,
+    sample_neighbors then reindex_graph (the hop's nodes first, then the
+    new neighbours). Returns the layers' (src, dst, destination count),
+    the outermost hop first, and the nodes of the last hop: each layer's
+    destinations are the first rows of its input."""
+    nodes, hops = seeds, []
+    for k in fanouts:
+        nbrs, cnt = P.geometric.sample_neighbors(row, colptr, nodes,
+                                                 sample_size=k)
+        src, dst, out_nodes = P.geometric.reindex_graph(nodes, nbrs, cnt)
+        hops.append((src, dst, len(nodes)))
+        nodes = out_nodes
+    return hops[::-1], nodes
+
+
+def graph_loss(P, logits, labels, train_idx):
+    """Cross-entropy over the training nodes."""
+    return P.nn.functional.cross_entropy(P.gather(logits, train_idx),
+                                         P.gather(labels, train_idx))
+
+
+# phase 23 (c): Mixtral-8x7B's MoE block (Jiang et al. 2024: d_model 4096,
+# 8 SwiGLU experts of 14336, top-2) through incubate's MoELayer with a
+# GShardGate, bf16, 4,096 tokens, forward and backward
+MOE = dict(d_model=4096, ffn=14336, experts=8, top_k=2, tokens=4096)
+MOE_CHECK_TOKENS = 512
+# the bf16 block against a float32 copy of the same weights on the first
+# MOE_CHECK_TOKENS tokens whose top-2 experts agree: relative L2
+MOE_BF16_RTOL = 3e-2
+
+
+def swiglu_expert(P, d_model, ffn):
+    """A Mixtral expert: down(silu(gate(x)) * up(x)), no biases."""
+    class SwiGLU(P.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.gate_proj = P.nn.Linear(d_model, ffn, bias_attr=False)
+            self.up_proj = P.nn.Linear(d_model, ffn, bias_attr=False)
+            self.down_proj = P.nn.Linear(ffn, d_model, bias_attr=False)
+
+        def forward(self, x):
+            return self.down_proj(P.nn.functional.silu(self.gate_proj(x))
+                                  * self.up_proj(x))
+
+    return SwiGLU()
+
+
+def moe_block(P, d_model, ffn, experts, top_k):
+    """incubate's MoELayer of `experts` SwiGLU experts behind a GShardGate
+    (its load-balancing loss on gate.loss)."""
+    moe = P.incubate.distributed.models.moe
+    return moe.MoELayer(d_model, [swiglu_expert(P, d_model, ffn)
+                                  for _ in range(experts)],
+                        gate=moe.GShardGate(d_model, experts, top_k=top_k),
+                        top_k=top_k)
+
+
+# phase 23 (a): float32 logits and loss of the first step on the card
+# against the CPU's at full size (dropout off, BatchNorm on batch
+# statistics): neighbour sums by atomic index-adds on the card against
+# the CPU's sequential ones, and GEMMs in other orders, relative to the
+# largest |logit|
+GRAPH_CPU_RTOL = 1e-4
+GRAPH_CLASSES = (("gathers", ("indexselect", "index_select", "gather",
+                              "index_elementwise")),
+                 ("scatter/index-add", ("indexfunc", "index_add", "scatter",
+                                        "indexing_backward", "put_")),
+                 ("GEMMs", ("gemm", "nvjet", "xmma", "cutlass", "sm90_",
+                            "gemv")),
+                 ("sorts", ("sort", "radix")),
+                 ("elementwise", ("elementwise",)))
+# (b) ASP: BERT-base pruned 2:4, decorated AdamW, 1 + 4 steps
+ASP_STEPS = 4
+ASP_EXCLUDED = ["nsp_head"]          # the 2-wide NSP classifier's groups pad
+# (d) the slice's functions on the card against the CPU, of the largest
+# |value| (at least 1): float32 closed forms and gathers as phase 21's;
+# the sums of message passing and sparse products are atomic on the card
+SLICE17_TOLS = {"distribution": NEW_OPS_RTOL, "sparse": NEW_OPS_RTOL,
+                "geometric": NEW_OPS_RTOL, "incubate": NEW_OPS_RTOL}
+
+
+def graph_class(name):
+    low = name.lower()
+    return next((cls for cls, keys in GRAPH_CLASSES
+                 if any(k in low for k in keys)), None) or "other"
+
+
+def graph_models(g, adj):
+    """(name, builder(dropout), its graph argument, directed edges a layer
+    reads) of phase 23's two models."""
+    n = g["nodes"]
+    src = torch.as_tensor(g["src"], device="cuda")
+    dst = torch.as_tensor(g["dst"], device="cuda")
+    w = dict(in_dim=ARXIV["features"], hidden=GRAPH["hidden"],
+             classes=ARXIV["classes"], layers=GRAPH["layers"])
+    return [("graphsage", lambda p: graph_sage(pt, dropout=p, **w),
+             [(src, dst, n)] * GRAPH["layers"], len(g["src"])),
+            ("gcn", lambda p: gcn(pt, dropout=p, **w), adj,
+             adj.nnz())]
+
+
+def graph_cpu_check(build, state, graph, x, y, idx, cpu_graph):
+    """The first step's logits and loss with dropout off on the card and
+    on the CPU, from the same weights: (logit error of the largest
+    |logit|, loss relative error)."""
+    outs = []
+    for dev, gr in (("cuda", graph), ("cpu", cpu_graph)):
+        pt.set_device(dev)
+        try:
+            model = build(0.0)
+        finally:
+            pt.set_device("cuda")
+        model.set_state_dict({k: v.to(dev) for k, v in state.items()})
+        with torch.no_grad():
+            logits = model(x.to(dev), gr)
+            loss = graph_loss(pt, logits, y.to(dev), idx.to(dev))
+        outs.append((logits.cpu(), float(loss)))
+        del model
+    (lc, fc), (lh, fh) = outs
+    return (float((lc - lh).abs().max() / lh.abs().max()),
+            abs(fc - fh) / abs(fh))
+
+
+def graph_minibatch(model, opt, g, x, y, row, colptr):
+    """Two GraphSAGE mini-batches of SAGE_SEEDS seeds (fanouts
+    SAGE_FANOUTS, sample_neighbors then reindex_graph on the host):
+    (host ms to sample, device ms to step, losses, nodes and edges per
+    batch); fails if the first hop breaks the sampler's contract."""
+    rng = np.random.default_rng(1)
+    host_ms, dev_ms, losses, sizes = [], [], [], []
+    for b in range(2):
+        seeds = torch.as_tensor(rng.choice(g["nodes"], SAGE_SEEDS,
+                                           replace=False))
+        t0 = time.perf_counter()
+        blocks, nodes = sample_blocks(pt, row, colptr, seeds, SAGE_FANOUTS)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        if b == 0:
+            check_sampled_hop(row, colptr, seeds, g)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        cuda_blocks = [(s.cuda(), d.cuda(), n) for s, d, n in blocks]
+        nodes_c, seeds_c = nodes.cuda(), seeds.cuda()
+        start.record()
+        logits = model(x[nodes_c], cuda_blocks)
+        loss = pt.nn.functional.cross_entropy(logits, y[seeds_c])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        end.record()
+        end.synchronize()
+        dev_ms.append(start.elapsed_time(end))
+        losses.append(float(loss.detach()))
+        sizes.append((len(nodes), sum(len(s) for s, _, _ in blocks)))
+    return host_ms, dev_ms, losses, sizes
+
+
+def check_sampled_hop(row, colptr, seeds, g):
+    """sample_neighbors' contract on the seeds' hop, with edge ids: each
+    pick an in-edge of its seed (row[eid] the neighbour), no edge twice
+    for a seed, min(deg, fanout) picks a seed; and sample_size -1 takes
+    every in-edge."""
+    k = SAGE_FANOUTS[0]
+    eids = torch.arange(len(row))
+    nbrs, cnt, picked = pt.geometric.sample_neighbors(
+        row, colptr, seeds, sample_size=k, eids=eids, return_eids=True)
+    cp, s = colptr.numpy(), seeds.numpy()
+    deg = cp[s + 1] - cp[s]
+    owner = np.repeat(s, cnt.numpy())
+    e = picked.numpy()
+    ok = (np.array_equal(cnt.numpy(), np.minimum(deg, k))
+          and np.array_equal(row.numpy()[e], nbrs.numpy())
+          and bool(((e >= cp[owner]) & (e < cp[owner + 1])).all())
+          and len(np.unique(owner * len(row) + e)) == len(e))
+    _, all_cnt = pt.geometric.sample_neighbors(row, colptr, seeds)
+    ok = ok and np.array_equal(all_cnt.numpy(), deg)
+    if not ok:
+        sys.exit("chip_smoke: sample_neighbors broke its contract on the "
+                 "arxiv-sized graph")
+
+
+def phase_graph():
+    """(a) in a fresh process (graph_learning): traced late in this long
+    process, the graph steps lost kernel records (337-346 of GraphSAGE's
+    383 launch calls, by kernel_ms_by_class's census)."""
+    code = ("import torch, chip_smoke as c\n"
+            f"c.CARD = {CARD!r}\n"
+            "torch.backends.cuda.matmul.allow_tf32 = False\n"
+            "torch.backends.cudnn.allow_tf32 = False\n"
+            "c.graph_learning()\n")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    sys.stdout.write(out.stdout)
+    sys.stdout.flush()
+    if out.returncode:
+        sys.exit(f"chip_smoke: phase 23 (a) failed:\n{out.stderr[-3000:]}")
+
+
+def graph_learning():
+    """GraphSAGE-mean and GCN at ogbn-arxiv's size, full batch, then
+    mini-batch GraphSAGE."""
+    t0 = time.perf_counter()
+    g = arxiv_graph(**ARXIV)
+    crows, cols, vals = gcn_adjacency(g["src"], g["dst"], g["nodes"])
+    n = g["nodes"]
+    adj = pt.sparse.sparse_csr_tensor(crows, cols, vals, [n, n],
+                                      place="cuda")
+    adj_cpu = pt.sparse.sparse_csr_tensor(crows, cols, vals, [n, n],
+                                          place="cpu")
+    x = torch.as_tensor(g["x"], device="cuda")
+    y = torch.as_tensor(g["labels"], device="cuda")
+    idx = torch.as_tensor(g["train_idx"], device="cuda")
+    log(f"graph: ogbn-arxiv's size, {n} nodes, {len(g['src'])} directed "
+        f"edges ({ARXIV['edges']} made symmetric), {ARXIV['features']} "
+        f"features, {ARXIV['classes']} classes, {len(g['train_idx'])} "
+        f"training nodes; GCN adjacency {adj.nnz()} entries with self "
+        f"loops; built in {time.perf_counter() - t0:.2f} s")
+    sage = None
+    for name, build, graph, edges in graph_models(g, adj):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        pt.seed(0)
+        model = build(GRAPH["dropout"])
+        state = {k: v.detach().clone() for k, v in
+                 model.state_dict().items()}
+        opt = pt.optimizer.Adam(GRAPH["lr"], parameters=model.parameters())
+
+        def step(i):
+            loss = graph_loss(pt, model(x, graph), y, idx)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+
+        losses, _, warm_s, dt = train_llama.time_steps(step, GRAPH_STEPS,
+                                                       torch.device("cuda"))
+        step_ms = dt / GRAPH_STEPS * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        census = {}
+        by_class = kernel_ms_by_class(lambda: step(0), graph_class,
+                                      census=census)
+        cpu_graph = ([(s.cpu(), d.cpu(), k) for s, d, k in graph]
+                     if name == "graphsage" else adj_cpu)
+        t1 = time.perf_counter()
+        logit_err, loss_err = graph_cpu_check(build, state, graph, x, y,
+                                              idx, cpu_graph)
+        cpu_s = time.perf_counter() - t1
+        edges_per_s = GRAPH["layers"] * edges / (step_ms / 1e3)
+        lost = ("" if census["kernels"] >= census["launches"] else
+                ": it lost kernels, its shares are not reliable")
+        log(f"graph {name} [{CARD}]: {sum(p.numel() for p in model.parameters())}"
+            f" params, float32, 1 + {GRAPH_STEPS} full-batch steps "
+            f"(warm-up {warm_s:.2f} s): step {step_ms:.2f} ms, "
+            f"{edges_per_s / 1e6:.1f} M edges/s ({GRAPH['layers']} layers x "
+            f"{edges} edges a step), peak memory {peak / 2**30:.2f} GiB; "
+            f"one traced step ({census['kernels']} kernel records of "
+            f"{census['launches']} launch calls{lost}): "
+            f"{class_line(by_class)}; busy "
+            f"{sum(by_class.values()) / step_ms:.1%} of the timed steps' "
+            f"mean; losses {[round(v, 6) for v in losses]}")
+        log(f"graph {name}: first step against the CPU at full size "
+            f"(dropout off): logits {logit_err:.3e} of the largest |logit|,"
+            f" loss rel {loss_err:.3e} (tol {GRAPH_CPU_RTOL}); CPU "
+            f"{cpu_s:.1f} s")
+        if not all(math.isfinite(v) for v in losses):
+            sys.exit(f"chip_smoke: a {name} loss is not finite")
+        if not losses[1] < losses[0]:
+            sys.exit(f"chip_smoke: {name}'s first update did not lower the "
+                     "loss")
+        if not (logit_err <= GRAPH_CPU_RTOL and loss_err <= GRAPH_CPU_RTOL):
+            sys.exit(f"chip_smoke: {name}'s first step on the card "
+                     "disagrees with the CPU")
+        if name == "graphsage":
+            sage = (model, opt)
+        else:
+            del model, opt
+    row, colptr = (torch.as_tensor(a) for a in csc_graph(
+        g["src"], g["dst"], n))
+    host_ms, dev_ms, losses, sizes = graph_minibatch(*sage, g, x, y, row,
+                                                     colptr)
+    log(f"graph graphsage mini-batch [{CARD}]: {SAGE_SEEDS} seeds, fanouts "
+        f"{list(SAGE_FANOUTS)}: (nodes, edges) {sizes}; host ms to sample "
+        f"{[round(v, 2) for v in host_ms]} against device ms to step "
+        f"{[round(v, 3) for v in dev_ms]}; losses "
+        f"{[round(v, 6) for v in losses]}; sampler contract held")
+    if not all(math.isfinite(v) for v in losses):
+        sys.exit("chip_smoke: a mini-batch GraphSAGE loss is not finite")
+
+
+def asp_weights(model):
+    """{name: weight} of the layers prune_model(model) would mask."""
+    out = {}
+    for path, sub in model.named_sublayers():
+        if isinstance(sub, (pt.nn.Linear, pt.nn.Conv2D)) and \
+                path not in ASP_EXCLUDED:
+            out[path + ".weight"] = sub.weight
+    return out
+
+
+def mask_ties(w, n=2, m=4):
+    """Per group of m (along the last axis), whether its n-th and (n+1)-th
+    largest |w| are equal: where two sorts may keep different entries."""
+    a = w.detach().float().abs().reshape(-1, m).sort(1, descending=True)[0]
+    return a[:, n - 1] == a[:, n]
+
+
+def phase_asp_bert(decision, phase14_ms):
+    """(b) BERT-base at bench.py's b32 s512 bf16, pruned 2:4 by
+    asp.prune_model (the NSP head excluded), asp.decorate around
+    TrainStep's AdamW, 1 + ASP_STEPS steps; returns the flash launches."""
+    asp = pt.incubate.asp
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, batch, seq, _, dtype = train_bert.bench_config("cuda")
+    n_layers = cfg.num_hidden_layers
+    torch.cuda.reset_peak_memory_stats()
+    train = train_bert.TrainStep(cfg, batch, seq, dtype, "cuda")
+    before = {k: w.detach().cpu() for k, w in
+              asp_weights(train.model).items()}
+    t0 = time.perf_counter()
+    asp.set_excluded_layers(ASP_EXCLUDED)
+    try:
+        densities = asp.prune_model(train.model, n=2, m=4)
+    finally:
+        asp.reset_excluded_layers()
+    torch.cuda.synchronize()
+    prune_ms = (time.perf_counter() - t0) * 1e3
+    train.opt = asp.decorate(train.opt)
+    params = dict(train.model.named_parameters())
+    masks = {k: p._asp_mask for k, p in params.items()
+             if getattr(p, "_asp_mask", None) is not None}
+    # groups whose card mask differs from the CPU's; of those, the ones
+    # without a tie at the boundary, where the two must agree
+    groups = mism = ties = untied = 0
+    for k, w in before.items():
+        cpu = asp.create_mask(w).reshape(-1, 4)
+        card = masks[k].cpu().reshape(-1, 4)
+        tie = mask_ties(w)
+        differ = (cpu != card).any(1)
+        groups += cpu.shape[0]
+        mism += int(differ.sum())
+        ties += int(tie.sum())
+        untied += int((differ & ~tie).sum())
+    del before
+    zero_flash_launches()                      # the path starts here
+    losses, per_step, warm_s, dt = train_llama.time_steps(
+        train.step, ASP_STEPS, torch.device("cuda"))
+    launches = train_llama.launch_counts()     # the path ends here
+    step_ms = dt / ASP_STEPS * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    after = {k: (asp.calculate_density(params[k]),
+                 asp.check_sparsity(params[k].detach()),
+                 bool((params[k].detach()[masks[k] == 0] == 0).all()))
+             for k in masks}
+    unmasked_carry = [k for k, p in params.items()
+                      if ("embeddings" in k or "norm" in k)
+                      and hasattr(p, "_asp_mask")]
+    log(f"asp bert_base 2:4 [{CARD}]: {len(densities)} layers pruned "
+        f"({sum(m.numel() for m in masks.values())} weights, NSP head "
+        f"excluded) in {prune_ms:.1f} ms on the card; masks against the "
+        f"CPU's for the same weights: {mism} of {groups} groups differ, "
+        f"{untied} of them without a tie, {ties} groups tie at the "
+        f"boundary; b{batch} s{seq} {dtype}, "
+        f"1 + {ASP_STEPS} decorated AdamW steps: step {step_ms:.2f} ms "
+        f"against phase 14's dense {phase14_ms:.2f} ms "
+        f"({step_ms - phase14_ms:+.2f} ms), peak memory "
+        f"{peak / 2**30:.2f} GiB; losses {losses}; launches per step "
+        f"{per_step[-1]}")
+    fwd = decision.fwd == "pallas"
+    bwd = fwd and decision.bwd == "pallas"
+    want = {"flash_fwd": n_layers if fwd else 0,
+            "flash_bwd_dq": n_layers if bwd else 0,
+            "flash_bwd_dkv": n_layers if bwd else 0}
+    problems = []
+    if not all(math.isfinite(v) for v in losses):
+        problems.append("a loss is not finite")
+    if any(s != want for s in per_step):
+        problems.append(f"launches per step {per_step}, expected {want}")
+    if untied:
+        problems.append(f"{untied} mask groups without a tie differ from "
+                        "the CPU's")
+    if any(abs(d - 0.5) > 1e-6 or not ok or not zero
+           for d, ok, zero in after.values()):
+        problems.append("a pruned weight lost its 2:4 pattern")
+    if any(abs(d - 0.5) > 1e-6 for d in densities.values()):
+        problems.append("a pruned density is not 0.5")
+    if unmasked_carry:
+        problems.append(f"unpruned parameters carry masks: {unmasked_carry}")
+    del train, masks, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if problems:
+        sys.exit(f"chip_smoke: phase 23 (b) failed: {problems}")
+    return launches
+
+
+def phase_moe():
+    """(c) incubate's MoELayer at Mixtral-8x7B's block width with a
+    GShardGate, bf16, MOE["tokens"] tokens, forward and backward."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    d, ffn, e, k, t = (MOE[key] for key in ("d_model", "ffn", "experts",
+                                            "top_k", "tokens"))
+    pt.seed(0)
+    block = moe_block(pt, d, ffn, e, k).to(torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    # the input requires its gradient, as a block's inside a model does
+    x = torch.randn(t, d, generator=gen, device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    params = block.parameters()
+
+    def fwd_bwd():
+        out = block(x)
+        (out.float().pow(2).mean() + block.gate.loss.float()).backward()
+        for p in params + [x]:
+            p.grad = None
+        return out.detach()
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = fwd_bwd()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    aux = float(block.gate.loss.detach())
+    # three products per expert and the gate's, each once forward and
+    # twice backward (dX and dW: x requires its gradient)
+    executed = 3 * 2 * t * d * ffn * e * 3 + 3 * 2 * t * d * e
+    useful = executed * k / e
+    best = min(ms) / 1e3
+    # the float32 twin on the first MOE_CHECK_TOKENS tokens
+    c = MOE_CHECK_TOKENS
+    with torch.no_grad():
+        xc = x[:c].detach()
+        half = block(xc).float()
+        topi16 = torch.topk(block.gate(xc), k, -1).indices
+        twin = copy.deepcopy(block).float()
+        full = twin(xc.float())
+        topi32 = torch.topk(twin.gate(xc.float()), k, -1).indices
+        same = (topi16.sort(-1)[0] == topi32.sort(-1)[0]).all(-1)
+        err = float((half[same] - full[same]).norm() / full[same].norm())
+    del twin
+    finite = bool(torch.isfinite(out).all()) and math.isfinite(aux)
+    log(f"moe mixtral-8x7b block [{CARD}]: d_model {d}, {e} SwiGLU experts "
+        f"of {ffn}, top-{k}, GShardGate, bf16, {t} tokens, forward and "
+        f"backward: ms {[round(v, 3) for v in ms]}, peak memory "
+        f"{peak / 2**30:.2f} GiB; {executed / 1e12:.2f} TFLOP executed, "
+        f"{useful / 1e12:.2f} useful (the dense form runs every expert on "
+        f"every token: {e / k:.0f}x), {executed / best / 1e12:.1f} TFLOP/s "
+        f"executed, {useful / best / 1e12:.1f} useful; aux loss {aux:.6f}; "
+        f"bf16 against a float32 twin on the first {c} tokens: "
+        f"{int(same.sum())} with the same top-{k} experts, rel L2 "
+        f"{err:.3e} over them (tol {MOE_BF16_RTOL})")
+    del block, x, out, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not finite or not err <= MOE_BF16_RTOL or int(same.sum()) < c // 2:
+        sys.exit("chip_smoke: the MoE block is not finite or its bf16 "
+                 "output disagrees with float32")
+
+
+def _called(path, method=None, nparams=None, **mkw):
+    """A spec function: pt.<path>(*args[:nparams]) then, with `method`,
+    its method (or property) on the remaining args; sparse results
+    densified."""
+    def run(*args):
+        fn = _resolve(path)
+        if method is None:
+            out = fn(*args)
+        else:
+            obj = fn(*args[:nparams])
+            attr = getattr(obj, method)
+            out = attr(*args[nparams:], **mkw) if callable(attr) else attr
+        return out.to_dense() if hasattr(out, "to_dense") else out
+    run.__name__ = path + (f".{method}" if method else "")
+    return run
+
+
+def _sparse_op(name, *extra, csr=False, **kw):
+    """pt.sparse.<name> on a COO (or CSR) tensor built from (indices,
+    values[, shape]) arrays, then any further array args; densified."""
+    def run(idx, vals, *rest):
+        sp = pt.sparse.sparse_coo_tensor(idx, vals, SPARSE_SHAPE)
+        if csr:
+            sp = sp.to_sparse_csr()
+        out = getattr(pt.sparse, name)(sp, *rest, *extra, **kw)
+        return out.to_dense() if hasattr(out, "to_dense") else out
+    run.__name__ = f"sparse.{name}" + ("(csr)" if csr else "")
+    return run
+
+
+def _subm_conv(idx, feats, weight, bias):
+    conv = pt.sparse.nn.SubmConv3D(3, 4, 3, padding=1, device=feats.device)
+    conv.set_state_dict({"_conv.weight": weight, "_conv.bias": bias})
+    sp = pt.sparse.sparse_coo_tensor(idx, feats, [2, 4, 4, 4, 3])
+    out = conv(sp)
+    return [out.indices(), out.values()]
+
+
+def _optimizer_walk(wrapper):
+    """A parameter through 6 SGD steps toward a target inside
+    incubate.LookAhead or ModelAverage; returns its final value."""
+    def run(w0, target):
+        p = torch.nn.Parameter(w0.clone())
+        sgd = pt.optimizer.SGD(0.1, parameters=[p])
+        la = pt.incubate.LookAhead(sgd, alpha=0.4, k=3) if \
+            wrapper == "LookAhead" else None
+        ma = pt.incubate.ModelAverage(0.15, parameters=[p]) if la is None \
+            else None
+        for _ in range(6):
+            ((p - target) ** 2).sum().backward()
+            (la or sgd).step()
+            sgd.clear_grad()
+            if ma is not None:
+                ma.step()
+        if ma is None:
+            return p.detach()
+        with ma.apply():
+            return p.detach().clone()
+    run.__name__ = f"incubate.{wrapper}"
+    return run
+
+
+def _switch_gate(x, weight, bias):
+    gate = pt.incubate.distributed.models.moe.SwitchGate(
+        x.shape[-1], weight.shape[-1], device=x.device)
+    gate.set_state_dict({"gate.weight": weight, "gate.bias": bias})
+    gate.eval()
+    return gate(x)
+
+
+SPARSE_SHAPE = [6, 5]
+
+
+def slice17_op_specs():
+    """(family, name, args, kwargs, how) of the graph, sparsity, MoE and
+    distribution slice's functions, in phase_new_ops' form, on inputs from
+    numpy's default_rng(0)."""
+    r = np.random.default_rng(0)
+    f = lambda *s: r.standard_normal(s).astype(np.float32)  # noqa: E731
+    pos = lambda *s: r.uniform(0.5, 2.5, s).astype(np.float32)  # noqa
+    unit = lambda *s: r.uniform(0.1, 0.9, s).astype(np.float32)  # noqa
+    specs = []
+    add = lambda fam, fn, args, kw=None, how="value": specs.append(  # noqa
+        (fam, fn, args, kw or {}, how))
+    # distribution: log_prob, entropy, cdf/icdf, KL, and draws by support
+    # and moments
+    dist = [("Normal", [f(4), pos(4)], f(4), ["log_prob", "entropy", "cdf"]),
+            ("Beta", [pos(4), pos(4)], unit(4), ["log_prob", "entropy"]),
+            ("Gamma", [pos(4), pos(4)], pos(4), ["log_prob", "entropy"]),
+            ("StudentT", [pos(4) + 2, f(4), pos(4)], f(4),
+             ["log_prob", "entropy"]),
+            ("Laplace", [f(4), pos(4)], unit(4), ["log_prob", "icdf"]),
+            ("ContinuousBernoulli", [unit(4)], unit(4),
+             ["log_prob", "entropy", "cdf"]),
+            ("Binomial", [np.array([5.0, 8.0, 3.0, 9.0], np.float32),
+                          unit(4)], np.float32([2, 8, 0, 4]),
+             ["log_prob", "entropy"]),
+            ("Poisson", [pos(4) * 2], np.float32([0, 2, 7, 1]),
+             ["log_prob", "entropy"]),
+            ("Categorical", [f(3, 5)], np.array([0, 4, 2]),
+             ["log_prob", "entropy"]),
+            ("Dirichlet", [pos(2, 3)], np.float32([[0.2, 0.3, 0.5],
+                                                   [0.6, 0.1, 0.3]]),
+             ["log_prob", "entropy"])]
+    for name, params, value, methods in dist:
+        for m in methods:
+            args = params + ([] if m == "entropy" else [value])
+            add("distribution", _called("distribution." + name, m,
+                                        len(params)), args)
+    cov = np.float32([[2.0, 0.6, 0.1], [0.6, 1.0, 0.2], [0.1, 0.2, 0.5]])
+    add("distribution", _called("distribution.MultivariateNormal",
+                                "log_prob", 2), [f(3), cov, f(2, 3)])
+    for name, p, q in [("Normal", [f(3), pos(3)], [f(3), pos(3)]),
+                       ("Gamma", [pos(3), pos(3)], [pos(3), pos(3)]),
+                       ("Beta", [pos(3), pos(3)], [pos(3), pos(3)]),
+                       ("Dirichlet", [pos(3)], [pos(3)]),
+                       ("Categorical", [f(2, 4)], [f(2, 4)])]:
+        def kl(*a, name=name, k=len(p)):
+            cls = getattr(pt.distribution, name)
+            return pt.distribution.kl_divergence(cls(*a[:k]), cls(*a[k:]))
+        kl.__name__ = f"distribution.kl({name})"
+        add("distribution", kl, p + q)
+    n = NEW_OPS_DRAWS
+    for name, params, support, mean in [
+            ("Normal", [1.0, 2.0], None, 1.0),
+            ("Gamma", [3.0, 2.0], (0, 100), 1.5),
+            ("Beta", [2.0, 3.0], (0, 1.01), 0.4),
+            ("StudentT", [6.0, 1.0, 2.0], None, 1.0),
+            ("Laplace", [1.0, 2.0], None, 1.0),
+            ("Gumbel", [1.0, 2.0], None, 1.0 + 2 * 0.5772156649),
+            ("Poisson", [4.0], (0, 100), 4.0),
+            ("Binomial", [10.0, 0.4], (0, 10.01), 4.0),
+            ("Bernoulli", [0.3], (0, 1.01), 0.3)]:
+        def draw(*a, name=name):
+            return getattr(pt.distribution, name)(*a).sample([n])
+        draw.__name__ = f"distribution.{name}.sample"
+        add("distribution", draw, [np.array(v, np.float32) for v in params],
+            {}, ("random", support, mean))
+    # sparse and sparse.nn
+    idx = np.array([[0, 1, 1, 3, 2, 0, 5, 4, 1], [2, 0, 4, 3, 1, 4, 0, 2, 0]])
+    vals = f(9)
+    for name, extra in [("coalesce", []), ("sin", []), ("relu6", []),
+                        ("sum", []), ("transpose", [[1, 0]]),
+                        ("reshape", [[5, 6]])]:
+        add("sparse", _sparse_op(name, *extra), [idx, vals])
+    add("sparse", _sparse_op("matmul"), [idx, vals, f(5, 7)])
+    add("sparse", _sparse_op("matmul", csr=True), [idx, vals, f(5, 7)])
+    add("sparse", _sparse_op("mv"), [idx, vals, f(5)])
+    add("sparse", _sparse_op("add", csr=True), [idx, vals, f(6, 5)])
+    add("sparse", _sparse_op("multiply"), [idx, vals, f(6, 5)])
+    add("sparse", lambda i, v, d: pt.sparse.mask_as(
+        d, pt.sparse.sparse_coo_tensor(i, v, SPARSE_SHAPE)).to_dense(),
+        [idx, vals, f(6, 5)])
+    add("sparse", lambda i, v, a, b: pt.sparse.masked_matmul(
+        a, b, pt.sparse.sparse_coo_tensor(i, v, SPARSE_SHAPE)).to_dense(),
+        [idx, vals, f(6, 8), f(8, 5)])
+    add("sparse", lambda i, v: pt.sparse.nn.functional.softmax(
+        pt.sparse.sparse_coo_tensor(i, v, SPARSE_SHAPE)).to_dense(),
+        [idx, vals])
+    band = np.array([(i, j) for i in range(8) for j in range(8)
+                     if abs(i - j) <= 2]).T
+    add("sparse", lambda i, v, q, k_, v_: pt.sparse.nn.functional.attention(
+        q, k_, v_, pt.sparse.sparse_coo_tensor(i, v, [8, 8])),
+        [band, np.ones(band.shape[1], np.float32), f(8, 16), f(8, 16),
+         f(8, 16)])
+    sites = np.array([[0, 0, 0, 1, 1, 1, 0], [0, 1, 3, 0, 2, 3, 2],
+                      [1, 2, 0, 1, 1, 2, 3], [0, 3, 1, 2, 0, 3, 3]])
+    add("sparse", _subm_conv, [sites, f(7, 3), f(4, 3, 3, 3, 3) / 9,
+                               f(4)])
+    # geometric
+    src = r.integers(0, 30, 200)
+    dst = r.integers(0, 30, 200)
+    x = f(30, 16)
+    for op in ("sum", "mean", "max", "min"):
+        add("geometric", "geometric.send_u_recv", [x, src, dst],
+            dict(reduce_op=op, out_size=32))
+    add("geometric", "geometric.send_ue_recv", [x, f(200, 16), src, dst],
+        dict(message_op="mul", reduce_op="mean"))
+    add("geometric", "geometric.send_uv", [x, x, src, dst],
+        dict(message_op="sub"))
+    add("geometric", "geometric.segment_max", [x, np.sort(dst[:30] // 3)])
+    order = np.argsort(dst, kind="stable")
+    colptr = np.concatenate([[0], np.cumsum(np.bincount(dst, minlength=30))])
+    add("geometric", "geometric.sample_neighbors",
+        [src[order], colptr, np.arange(0, 30, 3)])
+    add("geometric", "geometric.reindex_graph",
+        [np.array([5, 9, 2]), np.array([9, 7, 7, 3, 5, 11, 2]),
+         np.array([2, 4, 1])])
+    # incubate
+    seg = np.array([0, 0, 2, 2, 3, 5, 5, 5])
+    for pool in ("sum", "mean", "max", "min"):
+        add("incubate", f"incubate.segment_{pool}", [f(8, 4), seg])
+    add("incubate", "incubate.graph_send_recv", [x, src, dst],
+        dict(pool_type="max", out_size=30))
+    add("incubate", "incubate.softmax_mask_fuse",
+        [f(2, 4, 8, 8), np.where(r.random((2, 1, 8, 8)) > 0.3, 0.0,
+                                 -1e4).astype(np.float32)])
+    add("incubate", "incubate.softmax_mask_fuse_upper_triangle",
+        [f(2, 4, 8, 8)])
+    add("incubate", "incubate.identity_loss", [f(5, 3)],
+        dict(reduction="mean"))
+    add("incubate", _optimizer_walk("LookAhead"), [f(6), f(6)])
+    add("incubate", _optimizer_walk("ModelAverage"), [f(6), f(6)])
+    add("incubate", _switch_gate, [f(16, 8), f(8, 4) / 3, f(4)])
+    add("incubate", lambda w: pt.incubate.asp.create_mask(w), [f(32, 64)])
+    return specs
+
+
+def autotune_round_trips():
+    """incubate.autotune.set_config as a dict, a JSON file and None, each
+    read back through get_config and status; then tuning left off."""
+    at = pt.incubate.autotune
+    saved = at.get_config()
+    results = []
+    try:
+        at.set_config({"kernel": {"enable": True, "tuning_range": [1, 3]}})
+        results.append(at.status()["enabled"]
+                       and at.get_config()["kernel"]["tuning_range"]
+                       == [1, 3])
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "tune.json")
+            with open(path, "w") as fh:
+                json.dump({"kernel": {"enable": False},
+                           "layout": {"enable": True}}, fh)
+            at.set_config(path)
+        results.append(not at.status()["enabled"]
+                       and at.get_config()["layout"]["enable"])
+        at.set_config(None)
+        results.append(all(v["enable"] for v in at.get_config().values()))
+    finally:
+        at._config = saved
+        pt.ops.autotune.disable_autotune()
+    log(f"autotune round trips (dict, JSON file, None): {results}; "
+        f"the flash kernels' compiled tiles {fa.TILE_CANDIDATES}")
+    if not all(results):
+        sys.exit("chip_smoke: incubate.autotune.set_config did not round "
+                 "trip")
+
+
+def phase_graph_sparsity(decision, phase14_ms):
+    """Phase 23: graph learning at ogbn-arxiv's size, 2:4-pruned BERT-base
+    through K1/K3/K4, the Mixtral MoE block, and the slice's functions on
+    the card against the CPU. Returns the flash launches of (b), its only
+    path through the kernels."""
+    t0 = time.perf_counter()
+    phase_graph()
+    log(f"phase 23 (a): {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    launches = phase_asp_bert(decision, phase14_ms)
+    log(f"phase 23 (b): {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    phase_moe()
+    log(f"phase 23 (c): {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    phase_new_ops(slice17_op_specs(), SLICE17_TOLS,
+                  label="the graph, sparsity, MoE and distribution slice's "
+                        "functions")
+    autotune_round_trips()
+    log(f"phase 23 (d): {time.perf_counter() - t1:.1f} s")
+    return launches
+
+
 def timed(label, fn, *args):
     """fn(*args), logging its seconds as phase `label`'s."""
     t0 = time.perf_counter()
@@ -5474,15 +6368,18 @@ def main():
     mt = timed("20 (machine translation)", phase_mt)
     vision = timed("21 (ViT, DDPM, new ops)", phase_vision)
     hvp = timed("22 (second order, llama_1.3b)", phase_second_order)
-    log(f"phases 1-22: {time.perf_counter() - t0:.1f} s")
+    sparse = timed("23 (graphs, 2:4 sparsity, MoE, distribution)",
+                   phase_graph_sparsity, decisions["bert"][0], bert_ms)
+    log(f"phases 1-23: {time.perf_counter() - t0:.1f} s")
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # K1 runs on the serving (bf16 and int8), predictor, training, BERT,
-    # GPT, decode, hapi BERT, Transformer-base, ViT and Hessian-vector
-    # paths, K3 and K4 on the training, BERT, hapi BERT, Transformer-base,
-    # ViT and Hessian-vector (its ordinary backward) paths (the
+    # GPT, decode, hapi BERT, Transformer-base, ViT, Hessian-vector and
+    # 2:4-pruned BERT paths, K3 and K4 on the training, BERT, hapi BERT,
+    # Transformer-base, ViT, Hessian-vector (its ordinary backward) and
+    # 2:4-pruned BERT paths (the graph and MoE paths launch none; the
     # ResNet, vision-zoo, hapi ResNet and LeNet, LSTM seq2seq and DDPM
     # paths add none, counted all the same); their times are the Llama
     # training shape's (phases 3 and 5 print BERT's too). K2's are
@@ -5495,7 +6392,7 @@ def main():
                               + resnet["flash_fwd"] + decode
                               + zoo["flash_fwd"] + hapi["flash_fwd"]
                               + mt["flash_fwd"] + vision["flash_fwd"]
-                              + hvp["flash_fwd"]),
+                              + hvp["flash_fwd"] + sparse["flash_fwd"]),
                     **{key: k1["train"][key] for key in keys}),
                dict(name="flash_fwd_rms_epilogue", route="cuda",
                     source=src + "fwd.cu", replaces=ref + "116",
@@ -5507,7 +6404,8 @@ def main():
                               + resnet["flash_bwd_dq"] + zoo["flash_bwd_dq"]
                               + hapi["flash_bwd_dq"] + mt["flash_bwd_dq"]
                               + vision["flash_bwd_dq"]
-                              + hvp["flash_bwd_dq"]),
+                              + hvp["flash_bwd_dq"]
+                              + sparse["flash_bwd_dq"]),
                     **k34["train"]["dq"]),
                dict(name="flash_bwd_dkv", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "249",
@@ -5517,7 +6415,8 @@ def main():
                               + hapi["flash_bwd_dkv"]
                               + mt["flash_bwd_dkv"]
                               + vision["flash_bwd_dkv"]
-                              + hvp["flash_bwd_dkv"]),
+                              + hvp["flash_bwd_dkv"]
+                              + sparse["flash_bwd_dkv"]),
                     **k34["train"]["dkv"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Carry weights from the JAX package's Llama, BERT, GPT and vision models
-(every family of vision/models), its fused layers and its quantized
-models, to the port's.
+(every family of vision/models), its fused layers, its quantized models,
+its MoE layer and gates and sparse.nn's BatchNorm and 3-D convolutions, to
+the port's.
 
 Parameter names and layouts are the same in both packages, so a reference
 state dict, as numpy arrays, maps onto the port key for key:
@@ -32,7 +33,13 @@ configuration outright (a MobileNet's or ShuffleNet's scale, DenseNet's
 depth), the candidate configurations are built in turn and the first the
 state fits is taken, or else the closest one, so that the check names the
 missing, unexpected or misshapen keys. A MobileNet's scale is one of
-MOBILENET_SCALES, or for V1 the one its last block's width shows.
+MOBILENET_SCALES, or for V1 the one its last block's width shows. A
+MoELayer's state is its gate (`gate.gate.weight`/`bias`) and its experts
+(`experts.i.*`, each with expert 0's keys and shapes); a gate's alone is
+`gate.weight`/`bias`; sparse.nn's BatchNorm keeps the dense one as `_bn`
+and its Conv3D and SubmConv3D the dense NDHWC convolution as `_conv`
+(weight (out, in, kd, kh, kw)). ASP masks are not carried: they are
+rebuilt from a pruned model's weights.
 """
 
 from __future__ import annotations
@@ -355,6 +362,44 @@ def _inception_v3_shapes(np_state) -> dict:
                   num_classes=_classes(np_state, "fc.weight"))
 
 
+def _moe_shapes(np_state) -> dict:
+    """An incubate MoELayer: its gate (`gate.gate`, a Linear(d_model, E))
+    and E experts, each holding expert 0's keys and shapes."""
+    d, e = _shape(np_state, "gate.gate.weight")
+    shapes = {"gate.gate.weight": (d, e), "gate.gate.bias": (e,)}
+    first = {k[len("experts.0."):]: _shape(np_state, k) for k in np_state
+             if k.startswith("experts.0.")}
+    for i in range(e):
+        shapes.update({f"experts.{i}.{k}": s for k, s in first.items()})
+    return shapes
+
+
+def _gate_shapes(np_state) -> dict:
+    """A MoE gate alone (Naive, GShard or Switch): a Linear(d_model, E)."""
+    from .incubate.distributed.models.moe import NaiveGate
+    d, e = _shape(np_state, "gate.weight")
+    return _built(NaiveGate, d_model=d, num_expert=e)
+
+
+def _sparse_bn_shapes(np_state) -> dict:
+    """sparse.nn.BatchNorm: the dense BatchNorm1D as `_bn`."""
+    from .sparse.nn import BatchNorm
+    return _built(BatchNorm, num_features=_shape(np_state, "_bn._mean")[0])
+
+
+def _sparse_conv_shapes(np_state) -> dict:
+    """sparse.nn.Conv3D or SubmConv3D: the dense convolution as `_conv`
+    (weight (out, in, kd, kh, kw), the bias if the state has one)."""
+    from .sparse.nn import SubmConv3D
+    w = _shape(np_state, "_conv.weight")
+    if len(w) != 5:
+        raise ValueError(f"_conv.weight: reference shape {w} is no 3-D "
+                         "convolution's")
+    return _built(SubmConv3D, in_channels=w[1], out_channels=w[0],
+                  kernel_size=w[2:],
+                  bias_attr=None if "_conv.bias" in np_state else False)
+
+
 # each family by the key prefix of its models' states; the vision models'
 # keys have no prefix, so each of those by a key only its states hold
 _FAMILIES = {"llama.": _llama_shapes, "bert.": _bert_shapes,
@@ -367,7 +412,10 @@ _KEYED = {"layer1.0.conv1.weight": _resnet_shapes,
           "blocks.0.layers.0.conv1.weight": _densenet_shapes,
           "stages.0.0.branch1.0.weight": _shufflenet_shapes,
           "i3a.b1.conv.weight": _googlenet_shapes,
-          "blocks.0.b1.conv.weight": _inception_v3_shapes}
+          "blocks.0.b1.conv.weight": _inception_v3_shapes,
+          "gate.gate.weight": _moe_shapes, "gate.weight": _gate_shapes,
+          "_bn._mean": _sparse_bn_shapes,
+          "_conv.weight": _sparse_conv_shapes}
 
 
 def _reference_shapes(np_state) -> dict:

@@ -43,6 +43,10 @@ flash_bwd_dkv_launches = 0
 
 _KERNEL_DTYPES = (torch.bfloat16, torch.float16)
 _KERNEL_HEAD_DIMS = (64, 128)
+# the (query rows, keys) tile the kernels are compiled for
+# (csrc/flash_attention_fwd.cu BM/BN, templated on D, BF16 and EPI only):
+# one, so there is nothing for ops/autotune to choose among yet
+TILE_CANDIDATES = ((128, 128),)
 
 
 def kernel_takes(dtype, head_dim) -> bool:

@@ -57,7 +57,7 @@ def test_import_loads_no_jax_and_no_reference(code):
     assert _loaded_after(code) == []
 
 
-@pytest.mark.parametrize("sub", [
+SUBPACKAGES = [
     "observability", "resilience", "profiler", "inference",
     "inference.serving", "inference.drafting", "inference.adapters",
     "inference.scheduler", "inference.prefix_cache", "ops.paged_attention",
@@ -67,11 +67,48 @@ def test_import_loads_no_jax_and_no_reference(code):
     "tools.train_bert", "generation", "convert", "vision.models",
     "nn.functional.conv", "nn.functional.pooling", "nn.layer.conv",
     "nn.layer.pooling", "tensor", "tools.train_resnet", "quantization",
-    "incubate.nn.layer", "incubate.nn.functional", "tools.bench_decode"])
-def test_serving_subpackages_load_no_jax_and_no_reference(sub):
-    """The serving engine's subpackages, each imported alone: copies of
+    "incubate.nn.layer", "incubate.nn.functional", "tools.bench_decode",
+    "sparse", "sparse.nn", "geometric", "distribution", "incubate.asp",
+    "incubate.autotune", "incubate.distributed.models.moe", "ops.autotune"]
+
+
+@pytest.fixture(scope="module")
+def first_loads():
+    """One fresh interpreter imports each of SUBPACKAGES in turn and
+    records, for each, the foreign modules that appeared during its import
+    (under "<start>", those loaded before the first): a subpackage is
+    charged with what it, or anything it is the first to import, loads."""
+    probe = (
+        "import importlib, json, sys\n"
+        "def foreign():\n"
+        "    return {m for m in sys.modules if m == 'jax' or m.startswith("
+        "('jax.', 'jaxlib', 'ml_dtypes')) or m == 'paddle_tpu' or "
+        "m.startswith('paddle_tpu.')}\n"
+        "seen = foreign()\n"
+        "out = {'<start>': sorted(seen)}\n"
+        f"for sub in {SUBPACKAGES!r}:\n"
+        "    try:\n"
+        "        importlib.import_module('paddle_tpu_torch.' + sub)\n"
+        "    except Exception as e:\n"
+        "        out[sub] = ['import failed: ' + repr(e)]\n"
+        "        continue\n"
+        "    now = foreign()\n"
+        "    out[sub] = sorted(now - seen)\n"
+        "    seen = now\n"
+        "print(json.dumps(out))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("sub", SUBPACKAGES)
+def test_serving_subpackages_load_no_jax_and_no_reference(sub, first_loads):
+    """Each subpackage, imported in turn in one interpreter: copies of
     jax-free reference modules must not reach back into the reference."""
-    assert _loaded_after(f"import paddle_tpu_torch.{sub}") == []
+    assert first_loads["<start>"] == []
+    assert first_loads[sub] == []
 
 
 @pytest.mark.parametrize("path", sorted(

@@ -74,7 +74,13 @@ def test_the_walk_covers_the_ported_surface():
               "cross_entropy", "AdamW", "LayerList", "XavierUniform",
               "LlamaConfig", "seed", "fused_rotary_position_embedding",
               "weight_quantize", "QAT", "FusedMultiTransformer",
-              "block_multihead_attention", "WeightOnlyGenerator"):
+              "block_multihead_attention", "WeightOnlyGenerator",
+              # the graph, sparsity, MoE and distribution slice
+              "sparse_coo_tensor", "masked_matmul", "SubmConv3D",
+              "send_u_recv", "sample_neighbors", "prune_model", "decorate",
+              "MoELayer", "GShardGate", "set_config",
+              "LookAhead", "graph_khop_sampler", "MultivariateNormal",
+              "kl_divergence", "StickBreakingTransform"):
         assert n in names, n
     assert len(_PAIRS) > 400
 

@@ -16,8 +16,7 @@ ROADMAP = (Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
 
 # name -> how ROADMAP.md names the item that ports it
 MISSING = {
-    "distribution": "`distribution`", "sparse": "`sparse`",
-    "geometric": "`geometric`", "static": "`static`", "utils": "`utils`",
+    "static": "`static`", "utils": "`utils`",
     "hub": "`hub`", "onnx": "`onnx`", "sysconfig": "`sysconfig`",
     "version": "`version`",                 # Queue 1 item 2
     "distributed": "`distributed/`",
