@@ -381,7 +381,41 @@ Phases, each of which makes the script exit non-zero if it fails:
      LookAhead/ModelAverage steps, SwitchGate, asp.create_mask) once on
      CUDA against the CPU within SLICE17_TOLS, draws by support and mean;
      incubate.autotune.set_config round trips.
-Each phase's seconds are printed as it ends, then those of phases 1-23.
+  24. the framework plumbing and the process layer of distributed. (a) a
+     hubconf.py written to a temporary directory; hub.list and hub.load
+     build LlamaForCausalLM at llama_1.3b's widths and full depth
+     (train_llama.llama_ladder()[0]: hidden 2048, 16 heads of 128, 24
+     layers), bf16, random weights from seed(0); greedy generate of
+     PLUMB_NEW tokens after PLUMB_SEQ-token prompts (the smallest batch
+     whose prefill the router sends to K1);
+     static.save_inference_model(layer=model, input_spec=) at the
+     prompts' shape, load_inference_model, one run of the loaded program
+     on the prompts, whose logits must be within PREDICTOR_LOGITS_RTOL of
+     the model's forward before saving and which must launch K1 once a
+     layer, and a model of other weights (seed 1) given the loaded state:
+     its greedy tokens, generated under the port's Profiler, must equal
+     the model's before saving, each prefill must launch K1 at least once
+     a layer, and the events export_protobuf wrote, read back, must hold a
+     K1 kernel record. Prints the save, load and generate seconds and peak
+     memory, taken while (e) and (f) run beside them.
+     (b) a static.nn program (conv2d, batch_norm, fc, layer_norm) under
+     program_guard, built on the CPU and on the card, the registry carried
+     over by name: the card's output within STATIC_NN_RTOL of the CPU's;
+     static.save/load round-trips the card's program; cond, while_loop
+     and scan on CUDA tensors. (c) utils.cpp_extension.load builds a C++
+     op written to a temporary file with g++ and calls it on CUDA
+     tensors (the result on the card, equal to 2x + y). (d)
+     utils.run_check, version.show and the version queries, sysconfig,
+     and an NCCL request for more ranks than cards refused. (e) the
+     port's launcher starts two ranks with --backend gloo on the one card
+     running tools/collective_drill.py on CUDA tensors: both exit 0 and
+     every value is the reference drill's (tests/two_proc_worker.py). (f)
+     `python -m paddle_tpu_torch.tools.loadgen --scenario chat --seed 0
+     --dashboard` exits 0 and renders the dashboard. (e) and (f) are
+     subprocesses that run beside (a)-(d).
+Phases 9, 9b and 13 run llama_7b at SERVING_DEPTH of its 32 layers (full
+width), after phase 12, which runs at full depth beside phase 8.
+Each phase's seconds are printed as it ends, then those of phases 1-24.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -401,6 +435,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -547,9 +582,10 @@ ENGINE_SAMPLED_AT = (2, 5, 10, 13)      # 4 sampled requests, 2 a wave
 # the engine's first-chunk logits against the dense model forward, both in
 # bf16 on the card: the engine's paged attention takes f32 scores over the
 # bf16 pool, the forward takes K1 or dense attention, and every product and
-# residual add of 32 layers rounds to bf16 on both sides in another order,
-# so each logit may differ by a few bf16 steps of the largest logit (2^-8
-# relative): |err| <= ENGINE_LOGITS_RTOL * max|logit|
+# residual add of every layer (SERVING_DEPTH of llama_7b's) rounds to bf16
+# on both sides in another order, so each logit may differ by a few bf16
+# steps of the largest logit (2^-8 relative): |err| <= ENGINE_LOGITS_RTOL *
+# max|logit|. Measured on an H100: 1.28e-2 at 8 layers, 1.75e-2 at 32
 ENGINE_LOGITS_RTOL = 5e-2
 
 # the engine-knobs phase (after phase 9), on phase 9's model and knobs:
@@ -725,8 +761,16 @@ NMT_BATCH, NMT_LEN, NMT_STEPS = 128, 50, 4
 NMT_DECODE_BATCH, NMT_BEAM, NMT_MAX_STEPS = 32, 10, 100
 NMT_SCORE_ATOL, NMT_TIE_ATOL = 1e-4, 1e-4
 
+# phases 9, 9b and 13 run llama_7b at this depth (full width), phases 8
+# and 12 at its full 32 layers. These three phases take about 8 s a layer
+# on an H100 at 700 W (101-120 s at 8 layers, 308.7 s at 32), so 16 layers
+# put the whole script near 600-750 s, below 1,000 s even with the 27 %
+# spread seen between two whole runs of one tree; 24 would not be
+SERVING_DEPTH = 16
+
 # the card's name and power limit as nvidia-smi gives them (phase 1)
 CARD = "not read"
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 def log(*args):
@@ -6329,12 +6373,405 @@ def phase_graph_sparsity(decision, phase14_ms):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the framework plumbing and the process layer of distributed
+# ---------------------------------------------------------------------------
+
+PLUMB_SEQ, PLUMB_NEW = 512, 32
+# (b): the static.nn program on the card against the same program on the
+# CPU, float32 with TF32 off, relative to the largest |value|
+STATIC_NN_RTOL = 1e-4
+STATIC_NN_SHAPE = (8, 3, 32, 32)
+K1_KERNEL = "flash_fwd_kernel"
+HUBCONF = '''\
+"""A hub repository of one entry point: llama_1.3b (tools/train_llama.py's
+llama_ladder()[0]) with random weights."""
+
+import paddle_tpu_torch as pt
+from paddle_tpu_torch.tools import train_llama
+
+
+def llama_1p3b(seed=0, device="cuda"):
+    """LlamaForCausalLM at llama_1.3b's widths and depth, bf16, weights
+    drawn from pt.seed(seed)."""
+    cfg = train_llama.llama_ladder()[0][1]
+    pt.seed(seed)
+    return pt.models.LlamaForCausalLM(cfg, device=device).eval()
+'''
+CPP_OP = r'''
+#include <cstdint>
+extern "C" void scale_add(const void** in, void** out,
+                          const int64_t* const* shapes, const int* ndims,
+                          int n) {
+  const float* x = static_cast<const float*>(in[0]);
+  const float* y = static_cast<const float*>(in[1]);
+  float* o = static_cast<float*>(out[0]);
+  int64_t m = 1;
+  for (int d = 0; d < ndims[0]; ++d) m *= shapes[0][d];
+  for (int64_t i = 0; i < m; ++i) o[i] = 2.0f * x[i] + y[i];
+}
+'''
+
+
+def plumbing_batch(cfg):
+    """The smallest batch from 1 whose prefill attention at PLUMB_SEQ the
+    router sends to K1, and its decision."""
+    heads = cfg.num_attention_heads
+    d = cfg.hidden_size // heads
+    for b in range(1, 9):
+        dec = ar.route(b * heads, PLUMB_SEQ, PLUMB_SEQ, d, torch.bfloat16,
+                       True, platform="cuda")
+        if dec.fwd == "pallas":
+            return b, dec
+    sys.exit("chip_smoke: the router sends no batch of llama_1.3b's "
+             f"prefill at s{PLUMB_SEQ} to K1")
+
+
+def read_protobuf(path):
+    """The events export_protobuf wrote: an 8-byte little-endian length,
+    then the pickle."""
+    import pickle
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        data = f.read()
+    if n != len(data):
+        sys.exit(f"chip_smoke: {path} says {n} bytes and holds {len(data)}")
+    return pickle.loads(data)
+
+
+def plumbing_serve(tmp):
+    """(a) llama_1.3b from a local hub repository, saved and reloaded
+    through static's inference model, its program run once and the model
+    served greedily; returns K1's launches over the path (both generate
+    calls and the program's run)."""
+    repo = os.path.join(tmp, "hub")
+    os.makedirs(repo)
+    with open(os.path.join(repo, "hubconf.py"), "w") as f:
+        f.write(HUBCONF)
+    if pt.hub.list(repo) != ["llama_1p3b"]:
+        sys.exit(f"chip_smoke: hub.list gave {pt.hub.list(repo)}")
+    t0 = time.perf_counter()
+    model = pt.hub.load(repo, "llama_1p3b")
+    torch.cuda.synchronize()
+    cfg = model.config
+    n_layers = cfg.num_hidden_layers
+    batch, dec = plumbing_batch(cfg)
+    log(f"plumbing (a): hub.load llama_1.3b, {model.num_params()} params, "
+        f"{n_layers} layers (full depth), hidden {cfg.hidden_size}, "
+        f"{cfg.num_attention_heads} heads, bf16, in "
+        f"{time.perf_counter() - t0:.2f} s; router at (bh "
+        f"{batch * cfg.num_attention_heads}, s{PLUMB_SEQ}, d"
+        f"{cfg.hidden_size // cfg.num_attention_heads}): fwd={dec.fwd} "
+        f"[{dec.source}]")
+    ids = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (batch, PLUMB_SEQ)), device="cuda")
+    with torch.no_grad():                      # what the program must give
+        eager = model(ids).float()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_launches()                      # the main path starts here
+    t0 = time.perf_counter()
+    before = generation.generate(model, ids, max_new_tokens=PLUMB_NEW)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    first = fa.flash_fwd_launches
+    prefix = os.path.join(tmp, "llama_1p3b")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt.static.save_inference_model(
+        prefix, [], [], layer=model,
+        input_spec=[pt.static.InputSpec(list(ids.shape), "int64")])
+    save_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(prefix + ".pdiparams")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    program, feeds, fetches = pt.static.load_inference_model(
+        prefix, device="cuda")
+    loaded = pt.hub.load(repo, "llama_1p3b", seed=1)   # other weights
+    loaded.set_state_dict(fetches[0].state_dict())
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    before_run = fa.flash_fwd_launches
+    t0 = time.perf_counter()
+    logits = fetches[0](ids).float()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_launches = fa.flash_fwd_launches - before_run
+    finite = bool(torch.isfinite(logits).all())
+    run_err = (float((logits - eager).abs().max() / eager.abs().max())
+               if logits.shape == eager.shape else math.inf)
+    del fetches, logits, eager
+    prof = pt.profiler.Profiler()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with prof:
+        after = generation.generate(loaded, ids, max_new_tokens=PLUMB_NEW)
+        torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = fa.flash_fwd_launches           # the main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    pb = pt.profiler.export_protobuf(prof, os.path.join(tmp, "gen.pb"))
+    events = read_protobuf(pb)
+    export_s = time.perf_counter() - t0
+    k1_records = sum(e["device"] == "cuda" and K1_KERNEL in e["name"]
+                     for e in events)
+    log(f"plumbing (a) [{CARD}], while (e) and (f) run beside it: greedy "
+        f"b{batch} s{PLUMB_SEQ} +{PLUMB_NEW} {first_s:.2f} s (the first "
+        f"call); save_inference_model with the program {save_s:.2f} s "
+        f"({nbytes} bytes of params), load_inference_model + set_state_dict "
+        f"{load_s:.2f} s, the loaded program's run {run_s:.2f} s (logits "
+        f"against the forward before saving: max err / max|logit| "
+        f"{run_err:.3e}, tol {PREDICTOR_LOGITS_RTOL}), generate under the "
+        f"profiler {gen_s:.2f} s; K1 launches {first}, {run_launches} and "
+        f"{launches - first - run_launches}; export_protobuf and read back "
+        f"{export_s:.2f} s, {os.path.getsize(pb)} bytes, {len(events)} "
+        f"events, {k1_records} K1 kernel records; peak "
+        f"memory {peak / 2**30:.2f} GiB")
+    problems = []
+    if not torch.equal(before, after):
+        problems.append("the reloaded model's greedy tokens differ from the "
+                        "model's before saving")
+    if program.state_dict() or feeds:
+        problems.append("load_inference_model's layer form returned a "
+                        "non-empty program")
+    if not finite or not run_err <= PREDICTOR_LOGITS_RTOL:
+        problems.append(f"the loaded program's logits (finite: {finite}) "
+                        f"are {run_err:.3e} of max|logit| from the forward "
+                        "before saving")
+    if run_launches != n_layers:
+        problems.append(f"the loaded program's run launched {run_launches} "
+                        f"K1, expected {n_layers}")
+    for n in (first, launches - first - run_launches):
+        if n < n_layers:
+            problems.append(f"{n} K1 launches in a prefill of {n_layers} "
+                            "layers")
+    if not k1_records:
+        problems.append(f"no {K1_KERNEL} record among the exported events")
+    if problems:
+        sys.exit(f"chip_smoke: plumbing (a): {problems}")
+    del loaded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def static_net(static, x):
+    """The (b) program: conv2d, batch_norm, fc, layer_norm."""
+    h = static.nn.conv2d(x, 16, 3, padding=1, act="relu")
+    h = static.nn.batch_norm(h)
+    h = static.nn.fc(h, 64, activation="relu")
+    return static.nn.layer_norm(h, begin_norm_axis=1)
+
+
+def run_static(program, x):
+    with pt.utils.unique_name.guard(), pt.static.program_guard(program):
+        return static_net(pt.static, x)
+
+
+@torch.no_grad()
+def plumbing_static(tmp):
+    """(b) one static.nn program built on the CPU and on the card, the
+    registry carried over by name; static.save/load; control flow."""
+    st = pt.static
+    x = np.random.RandomState(1).standard_normal(STATIC_NN_SHAPE).astype(
+        np.float32)
+    cpu, card = st.Program(), st.Program()
+    run_static(cpu, torch.from_numpy(x))
+    run_static(card, torch.from_numpy(x).cuda())
+    card.set_state_dict(cpu.state_dict())
+    want = run_static(cpu, torch.from_numpy(x))
+    got = run_static(card, torch.from_numpy(x).cuda())
+    gap = float((got.cpu() - want).abs().max() / want.abs().max())
+    devices = {str(p.device) for p in card.state_dict().values()}
+    prefix = os.path.join(tmp, "static_net")
+    st.save(card, prefix)
+    fresh = st.Program()
+    with pt.utils.unique_name.guard(), pt.static.program_guard(fresh):
+        pt.seed(5)
+        static_net(pt.static, torch.from_numpy(x).cuda())
+    st.load(fresh, prefix)
+    same = all(torch.equal(fresh.state_dict()[k], v)
+               for k, v in card.state_dict().items())
+    # control flow on CUDA tensors
+    v = torch.from_numpy(x[0, 0, 0]).cuda()
+    c = st.cond(v.sum() > 0, lambda: v * 2, lambda: v - 1)
+    c_want = v * 2 if float(v.sum()) > 0 else v - 1
+    i, s = st.while_loop(lambda i, s: i < 10, lambda i, s: [i + 1, s + i],
+                         [torch.tensor(0, device="cuda"),
+                          torch.tensor(0, device="cuda")])
+    xs = torch.from_numpy(x[0, 0, :5]).cuda()
+    carry, ys = st.scan(lambda c, e: (c + e, c * e),
+                        torch.zeros(x.shape[-1], device="cuda"), xs)
+    carry_cpu, ys_cpu = st.scan(lambda c, e: (c + e, c * e),
+                                torch.zeros(x.shape[-1]), xs.cpu())
+    flow_ok = (torch.equal(c, c_want) and (int(i), int(s)) == (10, 45)
+               and torch.equal(carry.cpu(), carry_cpu)
+               and torch.equal(ys.cpu(), ys_cpu)
+               and {t.device.type for t in (c, i, s, carry, ys)} == {"cuda"})
+    log(f"plumbing (b) [{CARD}]: static.nn program ({len(card.state_dict())} "
+        f"tensors on {sorted(devices)}) out {tuple(got.shape)}, card against "
+        f"CPU {gap:.3e} of max |out| (tolerance {STATIC_NN_RTOL:g}); "
+        f"static.save/load round trip {'equal' if same else 'DIFFERS'}; "
+        f"cond/while_loop/scan on cuda {'right' if flow_ok else 'WRONG'}")
+    if not (gap <= STATIC_NN_RTOL and devices == {"cuda:0"} and same
+            and flow_ok and torch.isfinite(got).all()):
+        sys.exit("chip_smoke: plumbing (b) failed")
+
+
+def plumbing_cpp_extension(tmp):
+    """(c) cpp_extension.load with g++ on this machine, the op called on
+    CUDA tensors."""
+    src = os.path.join(tmp, "scale_add.cc")
+    with open(src, "w") as f:
+        f.write(CPP_OP)
+    t0 = time.perf_counter()
+    lib = pt.utils.cpp_extension.load("scale_add", [src],
+                                      build_directory=os.path.join(tmp, "ext"))
+    build_s = time.perf_counter() - t0
+    op = lib.op("scale_add")
+    x = torch.arange(12, dtype=torch.float32, device="cuda").reshape(3, 4)
+    y = torch.full((3, 4), 0.5, device="cuda")
+    out = op(x, y)
+    ok = out.device.type == "cuda" and torch.equal(out, 2 * x + y)
+    log(f"plumbing (c): cpp_extension.load built scale_add with g++ in "
+        f"{build_s:.2f} s; result on {out.device}, "
+        f"{'equal to 2x + y' if ok else 'WRONG'}")
+    if not ok:
+        sys.exit("chip_smoke: plumbing (c) failed")
+
+
+def plumbing_info():
+    """(d) utils.run_check, version and sysconfig on the card."""
+    import contextlib
+    import io as _io
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        pt.utils.run_check()
+        pt.version.show()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"plumbing (d): {line}")
+    log(f"plumbing (d): version.cuda() {pt.version.cuda()}, cudnn() "
+        f"{pt.version.cudnn()}, nccl() {pt.version.nccl()}, tpu() "
+        f"{pt.version.tpu()}; sysconfig include {pt.sysconfig.get_include()}"
+        f", lib {pt.sysconfig.get_lib()}")
+    from paddle_tpu_torch.distributed import parallel_env
+    try:
+        parallel_env._check_backend("nccl", torch.cuda.device_count() + 1)
+        refused = False
+    except RuntimeError:
+        refused = True
+    if ("checksum 2097152" not in text or torch.cuda.get_device_name(0)
+            not in text or not refused):
+        sys.exit("chip_smoke: plumbing (d) failed")
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def start_drill(tmp):
+    """(e) two ranks on the one card under the port's launcher, gloo."""
+    out = os.path.join(tmp, "drill")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", "2", "--master", f"127.0.0.1:{free_port()}",
+           "--backend", "gloo", "--max_restart", "0", "--log_dir", out,
+           "paddle_tpu_torch/tools/collective_drill.py",
+           os.path.join(out, "result"), "--device", "cuda"]
+    return out, subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+
+
+def finish_drill(out, proc, t0):
+    from paddle_tpu_torch.tools import collective_drill
+    text, _ = proc.communicate(timeout=300)
+    logs = "".join(Path(out, f"worker.{r}.log").read_text()[-1500:]
+                   for r in range(2) if Path(out, f"worker.{r}.log").exists())
+    if proc.returncode != 0:
+        sys.exit(f"chip_smoke: the two-rank launch exited "
+                 f"{proc.returncode}: {text[-1500:]}{logs}")
+    problems = []
+    for r in range(2):
+        with open(os.path.join(out, f"result.rank{r}")) as f:
+            got = json.load(f)
+        want = collective_drill.expected(r)
+        wrong = {k: (got.get(k), v) for k, v in want.items()
+                 if got.get(k) != v}
+        if wrong or got["devices"] != ["cuda:0"] or got["world"] != 2:
+            problems.append((r, wrong, got["devices"], got["world"]))
+    log(f"plumbing (e): launch --nproc_per_node 2 --backend gloo, both ranks "
+        f"exit 0 in {time.perf_counter() - t0:.1f} s, tensors on cuda:0, "
+        f"drill values {'as the reference drill' if not problems else problems}")
+    if problems:
+        sys.exit(f"chip_smoke: plumbing (e): {problems}")
+
+
+def start_loadgen_dashboard():
+    """(f) the loadgen CLI with --dashboard on the card."""
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.tools.loadgen",
+           "--scenario", "chat", "--seed", "0", "--dashboard"]
+    return subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish_loadgen_dashboard(proc, t0):
+    out, err = proc.communicate(timeout=300)
+    board = err[err.find("== observability dashboard =="):]
+    rows = [line for line in board.splitlines()[2:] if line.strip()]
+    log(f"plumbing (f): loadgen --scenario chat --seed 0 --dashboard exit "
+        f"{proc.returncode} in {time.perf_counter() - t0:.1f} s; dashboard "
+        f"{len(rows)} rows: {rows[:3]}")
+    if proc.returncode != 0 or "== observability dashboard ==" not in err \
+            or not rows:
+        sys.exit(f"chip_smoke: plumbing (f) failed: {err[-1500:]}")
+    json.loads(out[:out.rfind("}") + 1])     # the report is JSON
+
+
+def phase_plumbing():
+    """Phase 24; returns K1's launches on (a)'s path. (e) and (f) are
+    subprocesses that run beside (a)-(d)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        drill = start_drill(tmp)
+        board = start_loadgen_dashboard()
+        launches = plumbing_serve(tmp)
+        log(f"phase 24 (a): {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        plumbing_static(tmp)
+        plumbing_cpp_extension(tmp)
+        plumbing_info()
+        log(f"phase 24 (b)-(d): {time.perf_counter() - t1:.1f} s")
+        finish_drill(*drill, t0)
+        finish_loadgen_dashboard(board, t0)
+    return launches
+
+
 def timed(label, fn, *args):
     """fn(*args), logging its seconds as phase `label`'s."""
     t0 = time.perf_counter()
     out = fn(*args)
     log(f"phase {label}: {time.perf_counter() - t0:.1f} s")
     return out
+
+
+def cut_depth(model, layers):
+    """llama_7b at its full width and its first `layers` layers (the rest
+    freed): the engine, knob and predictor phases' model."""
+    full = model.config.num_hidden_layers
+    model.llama.layers = model.llama.layers[:layers]
+    model.config.num_hidden_layers = layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"llama_7b cut to {layers} of its {full} layers (full width) for "
+        f"phases 9, 9b and 13: {model.num_params()} params")
+    return model
 
 
 def main():
@@ -6350,9 +6787,11 @@ def main():
     model = timed("8 (llama_7b build)", build_llama_7b)
     serve = timed("8 (serving slice)", phase_slice, decisions["prefill"][0],
                   model)
+    # the sweep's rates are set for the full depth's saturation
+    timed("12 (loadgen)", phase_loadgen, model)
+    model = cut_depth(model, SERVING_DEPTH)
     plain9, bf16_logits = timed("9 (engine)", phase_engine, model)
     timed("9b (engine knobs)", phase_knobs, model, plain9, bf16_logits)
-    timed("12 (loadgen)", phase_loadgen, model)
     predictor = timed("13 (predictor)", phase_predictor, model,
                       decisions["prefill"][0])
     del model
@@ -6370,14 +6809,15 @@ def main():
     hvp = timed("22 (second order, llama_1.3b)", phase_second_order)
     sparse = timed("23 (graphs, 2:4 sparsity, MoE, distribution)",
                    phase_graph_sparsity, decisions["bert"][0], bert_ms)
-    log(f"phases 1-23: {time.perf_counter() - t0:.1f} s")
+    plumbing = timed("24 (plumbing, distributed)", phase_plumbing)
+    log(f"phases 1-24: {time.perf_counter() - t0:.1f} s")
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # K1 runs on the serving (bf16 and int8), predictor, training, BERT,
-    # GPT, decode, hapi BERT, Transformer-base, ViT, Hessian-vector and
-    # 2:4-pruned BERT paths, K3 and K4 on the training, BERT, hapi BERT,
+    # GPT, decode, hapi BERT, Transformer-base, ViT, Hessian-vector,
+    # 2:4-pruned BERT and reloaded llama_1.3b paths, K3 and K4 on the training, BERT, hapi BERT,
     # Transformer-base, ViT, Hessian-vector (its ordinary backward) and
     # 2:4-pruned BERT paths (the graph and MoE paths launch none; the
     # ResNet, vision-zoo, hapi ResNet and LeNet, LSTM seq2seq and DDPM
@@ -6392,7 +6832,8 @@ def main():
                               + resnet["flash_fwd"] + decode
                               + zoo["flash_fwd"] + hapi["flash_fwd"]
                               + mt["flash_fwd"] + vision["flash_fwd"]
-                              + hvp["flash_fwd"] + sparse["flash_fwd"]),
+                              + hvp["flash_fwd"] + sparse["flash_fwd"]
+                              + plumbing),
                     **{key: k1["train"][key] for key in keys}),
                dict(name="flash_fwd_rms_epilogue", route="cuda",
                     source=src + "fwd.cu", replaces=ref + "116",

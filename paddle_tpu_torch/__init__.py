@@ -21,6 +21,8 @@ from . import (audio, autograd, device, fft, incubate, inference,  # noqa: E402
                jit, observability, ops, parallel, profiler, quantization,
                resilience, signal)
 from . import distribution, geometric, sparse  # noqa: E402
+from . import (distributed, hub, onnx, static, sysconfig, utils,  # noqa: E402
+               version)
 from . import framework as base  # noqa: E402
 from .amp import debugging as _debugging  # noqa: E402,F401
 from .autograd import (enable_grad, grad, is_grad_enabled,  # noqa: E402
@@ -72,7 +74,8 @@ _MODULES = ["autograd", "device", "fft", "signal", "audio", "jit",
             "observability", "ops", "base", "incubate", "parallel",
             "attribute", "creation", "extras", "logic", "manipulation",
             "math", "random", "search", "stat", "distribution", "sparse",
-            "geometric"]
+            "geometric", "static", "utils", "hub", "onnx", "sysconfig",
+            "version", "distributed"]
 
 # the port runs eagerly: static mode is a flag kept for the reference's
 # API (jit.to_static stands where static graphs did)

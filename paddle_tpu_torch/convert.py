@@ -55,7 +55,8 @@ from .vision import models as _vision
 from .vision.models.vgg import _CFGS as _VGG_CFGS
 
 __all__ = ["state_from_reference", "load_reference_state",
-           "tree_from_reference", "tensor_from_bytes"]
+           "tree_from_reference", "tensor_from_bytes",
+           "load_reference_program"]
 
 # the scales tried on a MobileNet state (the published ones of V1-V3 and
 # the reference's tests')
@@ -477,6 +478,20 @@ def load_reference_state(model: torch.nn.Module, np_state: dict) -> None:
     """Copy a reference state of numpy arrays into `model` in place, each
     array cast to its parameter's dtype and device."""
     params = model.state_dict()
+    _check(np_state, {k: tuple(v.shape) for k, v in params.items()})
+    for k, p in params.items():
+        p.copy_(_tensor(np_state[k]))
+
+
+@torch.no_grad()
+def load_reference_program(program, np_state: dict) -> None:
+    """Copy a reference `static.Program`'s registry (its `state_dict()` as
+    numpy arrays) into the port's `static.Program` by name, in place, each
+    array cast to its tensor's dtype and device. The two registries must
+    hold the same names and shapes: `static.nn` names parameters as the
+    reference does, so building both programs under a fresh
+    `unique_name.guard()` makes them so."""
+    params = program.state_dict()
     _check(np_state, {k: tuple(v.shape) for k, v in params.items()})
     for k, p in params.items():
         p.copy_(_tensor(np_state[k]))

@@ -40,7 +40,8 @@ from ..convert import tensor_from_bytes
 from ..framework.device import resolve_device
 from ..framework.dtypes import convert_dtype
 
-__all__ = ["save", "load", "TranslatedLayer", "InputSpec", "FORMAT_VERSION"]
+__all__ = ["save", "load", "TranslatedLayer", "InputSpec", "FORMAT_VERSION",
+           "set_code_level", "set_verbosity"]
 
 FORMAT_VERSION = 2  # v1: pickled params dict; v2: npz params + version field
 
@@ -230,3 +231,20 @@ def load(path, *, device=None, params_path=None, **configs):
     tl.state_dict = lambda: state
     tl._input_spec = meta.get("input_spec", [])
     return tl
+
+
+_code_level = 0
+_verbosity = 0
+
+
+def set_code_level(level=100, also_to_stdout=False):
+    """The transformed-code log level of dy2static, recorded (the port has
+    no AST transform to print until `to_static` is ported)."""
+    global _code_level
+    _code_level = level
+
+
+def set_verbosity(level=0, also_to_stdout=False):
+    """The dy2static log verbosity, recorded."""
+    global _verbosity
+    _verbosity = level

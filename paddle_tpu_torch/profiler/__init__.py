@@ -27,6 +27,7 @@ from .phases import PHASES, PhaseAccountant, get_phase_accountant
 
 __all__ = ["Profiler", "ProfilerState", "ProfilerTarget", "RecordEvent",
            "make_scheduler", "export_chrome_tracing", "load_profiler_result",
+           "export_protobuf",
            "SortedKeys", "SummaryView", "benchmark",
            "PHASES", "PhaseAccountant", "get_phase_accountant"]
 
@@ -258,6 +259,20 @@ class Profiler:
     def step_info(self, unit="samples"):
         return self._timer.step_info(unit)
 
+    def events(self):
+        """The last recorded window's events as plain dicts: name,
+        device ("cpu" or "cuda"; a kernel is "cuda"), start and duration
+        in microseconds, read from the trace's raw records. What
+        `export_protobuf` writes."""
+        if self._prof is None:
+            return []
+        cuda = torch.autograd.DeviceType.CUDA
+        return [{"name": e.name(),
+                 "device": "cuda" if e.device_type() == cuda else "cpu",
+                 "start_us": e.start_ns() / 1e3,
+                 "duration_us": e.duration_ns() / 1e3}
+                for e in self._prof.profiler.kineto_results.events()]
+
     def __enter__(self):
         return self.start()
 
@@ -325,3 +340,29 @@ class benchmark:
 
     def end(self):
         pass
+
+
+def export_protobuf(profiler_result=None, path="profile.pb"):
+    """Write a profiler's events as the reference's length-prefixed record
+    (paddle_tpu/profiler/__init__.py:304-326): the byte length of the
+    pickle as 8 little-endian bytes, then the pickle (protocol 4) of the
+    events. `profiler_result` is a Profiler (its `events()`), or anything
+    with an `events` attribute or method, or the events themselves."""
+    import pickle
+    if profiler_result is None:
+        raise ValueError(
+            "export_protobuf needs a profiler result (e.g. a Profiler's "
+            "collected events); got None")
+    events = getattr(profiler_result, "events", None)
+    if events is None:
+        events = profiler_result
+    if callable(events):
+        events = events()
+    try:
+        data = pickle.dumps(events, protocol=4)
+    except Exception:  # noqa: BLE001 - keep plain data only
+        data = pickle.dumps(repr(events), protocol=4)
+    with open(path, "wb") as f:
+        f.write(len(data).to_bytes(8, "little"))
+        f.write(data)
+    return path

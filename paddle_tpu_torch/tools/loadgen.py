@@ -24,11 +24,12 @@ Usage:
   python3 -m paddle_tpu_torch.tools.loadgen --list     # scenarios
   python3 -m paddle_tpu_torch.tools.loadgen --rate 400 --no-drain
           # overload
+  python3 -m paddle_tpu_torch.tools.loadgen --scenario chat --dashboard
+          # the run's TSDB as a terminal dashboard on stderr
 
 The serving mesh (`--replicas`, `--processes`, `--disaggregate`,
 `--slow-replica`) raises NotImplementedError until it is ported
-(ROADMAP.md, slice 4, step 6). The reference's `--dashboard`, which renders
-through tools/dashboard.py, is not ported.
+(ROADMAP.md, slice 4, step 6).
 """
 
 from __future__ import annotations
@@ -127,6 +128,10 @@ def main(argv=None):
                     help="gray-failure drill of a process mesh (not "
                          "ported: raises)")
     ap.add_argument("--min-coverage", type=float, default=0.95)
+    ap.add_argument("--dashboard", action="store_true",
+                    help="render the run's embedded TSDB as a terminal "
+                         "dashboard (tools/dashboard.py) on stderr at "
+                         "end of run")
     ap.add_argument("--out", default=None, help="write the report JSON here "
                     "(default: stdout)")
     ap.add_argument("--list", action="store_true",
@@ -202,6 +207,11 @@ def main(argv=None):
               f"load_failures={adp['load_failures']} "
               f"resident={adp['resident']} "
               f"swap_recompiles={adp['swap_recompiles']}",
+              file=sys.stderr)
+
+    if args.dashboard:
+        from paddle_tpu_torch.tools import dashboard
+        print(dashboard.render(sampler.snapshot_doc(), report=report),
               file=sys.stderr)
 
     if args.check:

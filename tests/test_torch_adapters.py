@@ -32,6 +32,7 @@ from paddle_tpu_torch.inference.adapters import (
 from paddle_tpu_torch.inference.scheduler import SLOScheduler
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.resilience import faults
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 _PAIR = []
 _REF = {}

@@ -39,6 +39,7 @@ from paddle_tpu_torch import nn as pnn
 from paddle_tpu_torch import optimizer as popt
 from paddle_tpu_torch.convert import load_reference_state
 from paddle_tpu_torch.nn import functional as PF
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 BF16_TOL = 2e-2
 LISTED = jamp.WHITE_LIST | jamp.BLACK_LIST

@@ -14,6 +14,7 @@ import paddle_tpu as paddle
 import paddle_tpu_torch as pt
 from paddle_tpu.amp import debugging as jdbg
 from paddle_tpu_torch.amp import debugging as dbg
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ARRAYS = {
     "nan": np.array([1.0, np.nan], np.float32),

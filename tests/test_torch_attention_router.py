@@ -29,6 +29,7 @@ from paddle_tpu_torch.nn.functional import attention as attn
 from paddle_tpu_torch.ops import attention_router as ar
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.tools import bake_attention_ledger, flash_vs_xla
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CHIP = "TestChip"
 # f32 gradients summed in another order on each side

@@ -20,6 +20,7 @@ import torch
 import paddle_tpu as paddle
 import paddle_tpu_torch as pt
 from paddle_tpu.framework.core import Tensor as RefTensor
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 

@@ -27,6 +27,7 @@ from paddle_tpu_torch.convert import load_reference_state, \
     state_from_reference
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.tools import train_bert
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 F32_TOL = 1e-4
 LOSS_RTOL = 1e-5

@@ -45,6 +45,7 @@ from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch import nn as pnn
 from paddle_tpu_torch import optimizer as poptim
 from paddle_tpu_torch.nn import functional as PF
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 F32_TOL = 1e-4
 BF16_TOL = 1e-2

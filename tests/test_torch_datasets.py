@@ -13,6 +13,7 @@ import pytest
 from paddle_tpu.vision import datasets as jd
 from paddle_tpu_torch import io as pio
 from paddle_tpu_torch.vision import datasets as pd
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CASES = [("MNIST", "train"), ("MNIST", "test"), ("FashionMNIST", "train"),
          ("Cifar10", "train"), ("Cifar10", "test"), ("Cifar100", "train"),

@@ -16,6 +16,7 @@ from paddle_tpu.nn.decode import BeamSearchDecoder as RefDecoder
 from paddle_tpu.nn.decode import dynamic_decode as ref_decode
 from paddle_tpu_torch.nn import BeamSearchDecoder, dynamic_decode
 from torch_seq_parity import copy_weights, ref_np, reference
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 RNG = np.random.default_rng(0)

@@ -13,6 +13,7 @@ import torch
 import paddle_tpu as paddle
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import device as D
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def test_places_as_the_reference():

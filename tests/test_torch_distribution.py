@@ -23,6 +23,7 @@ import torch
 import paddle_tpu as paddle
 import paddle_tpu_torch as pt
 from torch_seq_parity import ref_np
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SERIES = dict(rtol=1e-4, atol=1e-4)

@@ -26,6 +26,7 @@ from paddle_tpu.parallel.functional import functional_call
 from paddle_tpu_torch.nn.functional import attention as port_attn
 from paddle_tpu_torch.ops import flash_attention as fa
 from torch_seq_parity import copy_weights, reference
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 HVP_RTOL = 1e-4

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from paddle_tpu.ops.pallas import flash_attention as jfa
 from paddle_tpu_torch.ops import flash_attention as fa
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # the reference kernel's own cases (tests/test_flash_attention.py:41)
 CASES = [

@@ -22,6 +22,7 @@ from paddle_tpu_torch.framework import random as pt_random
 from paddle_tpu_torch.incubate.nn import functional as IF
 from paddle_tpu_torch.ops import attention_router as ar
 from paddle_tpu_torch.ops import flash_attention as fa
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # f32 on both sides: the reference's own tolerance for the fused epilogue
 # (tests/test_attention_router.py:294)

@@ -18,6 +18,7 @@ from paddle_tpu import generation as jgen
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import generation
 from paddle_tpu_torch.convert import load_reference_state
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _pair(seed=0, **kw):

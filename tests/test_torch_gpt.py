@@ -27,6 +27,7 @@ from paddle_tpu_torch import generation
 from paddle_tpu_torch.convert import load_reference_state, \
     state_from_reference
 from paddle_tpu_torch.framework.random import get_generator
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 F32_TOL = 1e-4
 LOSS_RTOL = 1e-5

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch as pt
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "paddle_tpu_torch"
@@ -69,7 +70,12 @@ SUBPACKAGES = [
     "nn.layer.pooling", "tensor", "tools.train_resnet", "quantization",
     "incubate.nn.layer", "incubate.nn.functional", "tools.bench_decode",
     "sparse", "sparse.nn", "geometric", "distribution", "incubate.asp",
-    "incubate.autotune", "incubate.distributed.models.moe", "ops.autotune"]
+    "incubate.autotune", "incubate.distributed.models.moe", "ops.autotune",
+    "utils", "utils.unique_name", "utils.cpp_extension", "static",
+    "static.nn_builders", "hub", "onnx", "sysconfig", "version",
+    "distributed", "distributed.store", "distributed.parallel_env",
+    "distributed.collective", "distributed.communication.stream",
+    "distributed.launch", "tools.dashboard", "tools.collective_drill"]
 
 
 @pytest.fixture(scope="module")

@@ -23,6 +23,7 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch.convert import load_reference_state
 from paddle_tpu_torch.incubate import nn as tinc
 from paddle_tpu_torch.incubate.nn import functional as TIF
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def J(a):

@@ -27,6 +27,7 @@ from paddle_tpu_torch.incubate import asp
 from paddle_tpu_torch.ops import autotune as tuner
 from paddle_tpu_torch.ops import flash_attention as fa
 from torch_seq_parity import copy_weights, ref_np, reference
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 EXACT = dict(rtol=1e-5, atol=1e-6)
 TOL = dict(rtol=1e-5, atol=1e-5)

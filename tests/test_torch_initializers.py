@@ -16,6 +16,7 @@ import paddle_tpu as paddle
 import paddle_tpu_torch as pt
 from paddle_tpu.nn import initializer as RI
 from paddle_tpu_torch.nn import initializer as PI
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 SHAPES = [(256, 256), (16, 4, 32, 32)]
 

@@ -31,6 +31,7 @@ import torch
 from paddle_tpu import io as jio
 from paddle_tpu_torch import io as pio
 from paddle_tpu_torch.io import _collate
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _squares(io, n=23, shape=(3,)):

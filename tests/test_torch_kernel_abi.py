@@ -14,6 +14,7 @@ from pathlib import Path
 import pytest
 
 from paddle_tpu_torch.ops import _build
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CSRC = Path(_build.__file__).resolve().parent.parent / "csrc"
 DECL = re.compile(r'extern\s+"C"\s+([\w\s\*]+?)\s*\b(\w+)\s*\(([^)]*)\)\s*\{',

@@ -14,6 +14,7 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch import jit
 from paddle_tpu_torch.parallel.functional import functional_call
 from torch_seq_parity import copy_weights, ref_np
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

@@ -22,6 +22,7 @@ from paddle_tpu_torch.convert import load_reference_state, \
 from paddle_tpu_torch.incubate.nn import functional as PIF
 from paddle_tpu_torch.nn import functional as PF
 from paddle_tpu_torch.parallel.functional import split_stacked_layer_params
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = 1e-4   # fp32, different summation orders
 

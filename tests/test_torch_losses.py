@@ -22,6 +22,7 @@ from paddle_tpu import nn as jnn
 from paddle_tpu.nn import functional as JF
 from paddle_tpu_torch import nn as pnn
 from paddle_tpu_torch.nn import functional as PF
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = 2e-5
 

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import paddle_tpu as paddle
 from paddle_tpu import metric as jm
 from paddle_tpu_torch import metric as pm
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _batches(seed, n=3, b=16, c=10, label_col=False):

@@ -23,6 +23,7 @@ from paddle_tpu.nn import functional as JF
 import paddle_tpu_torch as pt
 from paddle_tpu_torch.nn import functional as PF
 from paddle_tpu_torch.nn import initializer as PI
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 F32_TOL = 1e-5
 BF16_TOL = 1e-2

@@ -22,6 +22,7 @@ import paddle_tpu_torch as pt
 from paddle_tpu_torch.convert import load_reference_state
 from torch_op_parity import A, port_call, ref_call, same, to_np
 from torch_seq_parity import ref_run
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 R = np.random.default_rng(4)

@@ -13,6 +13,7 @@ import paddle_tpu_torch as pt
 from paddle_tpu.nn import utils as RU
 from paddle_tpu_torch.nn import utils as PU
 from torch_seq_parity import copy_weights, ref_np
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 X = np.random.default_rng(0).standard_normal((3, 4)).astype(np.float32)

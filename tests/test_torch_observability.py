@@ -28,6 +28,7 @@ from paddle_tpu_torch import generation
 from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.convert import load_reference_state
 from paddle_tpu_torch.profiler import phases
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BOTH = (jobs, obs)

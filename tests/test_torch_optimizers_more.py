@@ -42,6 +42,7 @@ from paddle_tpu.framework.core import Parameter as JParam, Tensor as JTensor
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import nn as pnn
 from paddle_tpu_torch import optimizer as popt
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 F32_TOL = 2e-5
 SHAPES = [(5, 3), (7,)]

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from paddle_tpu.ops import paged_attention as jpa
 from paddle_tpu_torch.ops import paged_attention as pa
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # f32 attention: scores over head dim 16 and softmax sums over up to 64
 # cached positions, in another order on each side

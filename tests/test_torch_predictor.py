@@ -34,6 +34,7 @@ from paddle_tpu_torch.convert import load_reference_state
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.nn import Linear
 from paddle_tpu_torch.ops import flash_attention as fa
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 

@@ -30,6 +30,7 @@ from paddle_tpu_torch.inference.prefix_cache import (PrefixCacheIndex,
                                                      affinity_key,
                                                      chain_keys)
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 _PAIRS = {}
 _REF = {}

@@ -17,6 +17,7 @@ from paddle_tpu import profiler as jprofiler
 from paddle_tpu_torch import profiler
 from paddle_tpu_torch.profiler import (ProfilerState, ProfilerTarget,
                                        benchmark, make_scheduler)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 CPU = [ProfilerTarget.CPU]
 

@@ -17,6 +17,7 @@ from paddle_tpu.resilience import retry as jretry
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.resilience import faults, retry
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 BOTH = ((jfaults, jretry, jobs), (faults, retry, obs))
 

@@ -16,6 +16,7 @@ import paddle_tpu as paddle
 import paddle_tpu_torch as pt
 from torch_seq_parity import assert_grads_close, copy_weights, nest_map, \
     ref_np, ref_run, reference
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 RNG = np.random.default_rng(0)

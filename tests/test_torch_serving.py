@@ -32,6 +32,7 @@ from paddle_tpu_torch.inference import (BackpressureError,
 from paddle_tpu_torch.inference import serving
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.ops import paged_attention as pa
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 WIDTHS = dict(vocab_size=128, hidden_size=64, intermediate_size=128,
               num_hidden_layers=2, num_attention_heads=4,

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 import paddle_tpu_torch as pt
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 _NAME_RECORDS = {"LoraWeights", "Scenario", "Tensor", "SLOSpec", "Series",
                  "Span", "KVBlockFormat", "ProgramCost", "RecordEvent"}
@@ -80,7 +81,13 @@ def test_the_walk_covers_the_ported_surface():
               "send_u_recv", "sample_neighbors", "prune_model", "decorate",
               "MoELayer", "GShardGate", "set_config",
               "LookAhead", "graph_khop_sampler", "MultivariateNormal",
-              "kl_divergence", "StickBreakingTransform"):
+              "kl_divergence", "StickBreakingTransform",
+              # the plumbing and the process layer of distributed
+              "program_guard", "save_inference_model", "batch_norm",
+              "deform_conv2d", "while_loop", "switch_case", "generate",
+              "load", "export_protobuf", "set_code_level", "TCPStore",
+              "init_parallel_env", "reduce_scatter", "batch_isend_irecv",
+              "alltoall", "spawn", "run_check", "get_include", "export"):
         assert n in names, n
     assert len(_PAIRS) > 400
 

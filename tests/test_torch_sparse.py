@@ -24,6 +24,7 @@ from paddle_tpu.framework.core import Tensor as RefTensor
 from paddle_tpu_torch import convert
 from torch_seq_parity import (assert_grads_close, copy_weights, ref_np,
                               ref_run, reference)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 EXACT = dict(rtol=1e-5, atol=1e-6)
 TOL = dict(rtol=1e-5, atol=1e-5)

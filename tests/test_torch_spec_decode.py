@@ -31,6 +31,7 @@ from paddle_tpu_torch.inference import ContinuousBatchingEngine, drafting
 from paddle_tpu_torch.inference import serving
 from paddle_tpu_torch.models import LlamaConfig, LlamaForCausalLM
 from paddle_tpu_torch.ops import paged_attention as pa
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 _PAIRS = {}
 _REF = {}

@@ -8,6 +8,7 @@ import torch
 
 import paddle_tpu_torch as pt
 from torch_op_parity import A, run
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 R = np.random.default_rng(3)

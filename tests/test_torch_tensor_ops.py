@@ -12,6 +12,7 @@ import torch
 
 import paddle_tpu as paddle
 import paddle_tpu_torch as pt
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 R = np.random.default_rng(0)

@@ -11,6 +11,7 @@ import torch
 import paddle_tpu as paddle
 import paddle_tpu_torch as pt
 from torch_seq_parity import ref_np
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RNG = np.random.default_rng(0)
 

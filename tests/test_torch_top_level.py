@@ -11,16 +11,13 @@ import torch
 
 import paddle_tpu as paddle
 import paddle_tpu_torch as pt
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROADMAP = (Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
 
 # name -> how ROADMAP.md names the item that ports it
 MISSING = {
-    "static": "`static`", "utils": "`utils`",
-    "hub": "`hub`", "onnx": "`onnx`", "sysconfig": "`sysconfig`",
-    "version": "`version`",                 # Queue 1 item 2
-    "distributed": "`distributed/`",
-    "DataParallel": "`DataParallel`",       # Queue 1 item 3
+    "DataParallel": "`DataParallel`",       # Queue 1 item 2
     "Tensor": "`Tensor`",                   # Queue 3, by design
 }
 # the reference's JAX internals, bound at its top level: no part of the

@@ -31,6 +31,7 @@ from paddle_tpu_torch.nn import functional as PF
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.parallel import functional as PPF
 from paddle_tpu_torch.tools import train_llama
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 # fp32 on both sides: the same math summed in other orders
 LOSS_RTOL = 1e-5
