@@ -413,9 +413,46 @@ Phases, each of which makes the script exit non-zero if it fails:
      `python -m paddle_tpu_torch.tools.loadgen --scenario chat --seed 0
      --dashboard` exits 0 and renders the dashboard. (e) and (f) are
      subprocesses that run beside (a)-(d).
+  25. DTensor, auto-parallel, fleet, ZeRO and the distributed checkpoint,
+     on the one card: a mesh of several process ids lies on it, each
+     tensor holding its global value and carrying its placements. (a)
+     llama_1.3b (train_llama.llama_ladder()[0]: hidden 2048, 16 heads of
+     128, FFN 8192, 24 layers) in bf16, random weights from seed(0),
+     trained 1 + DIST_STEPS AdamW steps through
+     distributed.to_static(model, loader, None, AdamW, Strategy) with
+     mp_degree 2 and sharding (degree 2, stage 3), LLAMA_SHARDING_RULES,
+     so a 2x2 mesh, at b8 s2048 if dist_reckoning leaves DIST_FREE_GIB
+     of the card free (else b4), ids from a seeded generator; the same
+     weights and batch through a one-process mesh (DP_ONLY_RULES, stage 0)
+     first. Losses, parameters and AdamW moments must be bit for bit
+     equal between the two; the first loss within DIST_PLAIN_LOSS_RTOL of
+     model(ids, labels=ids); every parameter's and moment's chunk map the
+     one its ZeRO spec gives; K1 once a layer a step and K3/K4 once a
+     layer where routed. Prints step ms, tokens/s, MFU, launches a step
+     and peak memory of both. (b) distributed.save_state_dict of the 2x2
+     layout's parameters and moments (parameters only if the temporary
+     disk holds less than twice their bytes): one file per distinct chunk,
+     their data bytes the tensors' bytes; load_state_dict onto a
+     one-process layout, an mp=4 layout and plain tensors, each bit for
+     bit equal and reading each overlapping chunk once (files and bytes
+     counted); a corrupt chunk refused with CheckpointCorruptionError
+     naming it; save and load seconds and GB/s. (c) fleet.init with mp 2
+     and pp 2; a decoder written from VocabParallelEmbedding,
+     Column/RowSequenceParallelLinear, Column/RowParallelLinear, causal
+     F.scaled_dot_product_attention and ParallelCrossEntropy (FLEET: 4
+     layers at hidden 2048, bf16, b8 s2048) as a PipelineLayer of
+     LayerDescs, 1 + DIST_STEPS steps through
+     PipelineParallel.train_batch (4 micro-batches) and
+     fleet.distributed_optimizer(AdamW): losses within FLEET_LOSS_RTOL of
+     the same layers run unwrapped with micro-batch accumulation, K1/K3/K4
+     once a layer a micro-batch where routed. (d)
+     DataParallel(SyncBatchNorm.convert_sync_batchnorm(resnet50)) through
+     group_sharded_parallel(level="p_g_os"), one float32 Momentum step at
+     b64 224 x 224 with cuDNN deterministic: loss and state equal to the
+     plain model's step; save_group_sharded_model reloads bit for bit.
 Phases 9, 9b and 13 run llama_7b at SERVING_DEPTH of its 32 layers (full
 width), after phase 12, which runs at full depth beside phase 8.
-Each phase's seconds are printed as it ends, then those of phases 1-24.
+Each phase's seconds are printed as it ends, then those of phases 1-25.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -6753,6 +6790,511 @@ def phase_plumbing():
     return launches
 
 
+# -- phase 25: distributed training ----------------------------------------
+
+# (a): 1 + DIST_STEPS AdamW steps through dist.to_static; the batch is b8
+# if the reckoning of the step's memory (dist_reckoning) leaves at least
+# DIST_FREE_GIB of the card free, else b4
+DIST_STEPS = 3
+DIST_LR = 3e-4
+DIST_FREE_GIB = 10
+# the first loss against the plain model's model(ids, labels=ids) on the
+# same weights and batch, bf16, relative
+DIST_PLAIN_LOSS_RTOL = 1e-3
+# (c): a user-written decoder at llama_1.3b's width through fleet
+FLEET = dict(layers=4, hidden=2048, heads=16, ffn=5504, vocab=32000,
+             batch=8, seq=2048, micro=4, mp=2, pp=2)
+# the pipeline's losses against the same layers run unwrapped with
+# micro-batch accumulation, relative
+FLEET_LOSS_RTOL = 1e-3
+# (d): one DataParallel(resnet50) step at this batch, float32
+DP_BATCH = 64
+
+
+def dist_activation_bytes(cfg, batch, seq):
+    """The reckoning of what autograd keeps for a Llama step without remat,
+    bf16: per token and layer eleven hidden-wide tensors (the norms' inputs
+    and outputs, q, k, v before and after the rotary, the attention output,
+    the residual sum) and four of the FFN's width (gate, up, silu(gate),
+    their product); then the loss's bf16 logits and its two float32 copies
+    (the log_softmax's input and output)."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    per_token = cfg.num_hidden_layers * 2 * (11 * h + 4 * f) + \
+        cfg.vocab_size * (2 + 4 + 4)
+    return batch * seq * per_token
+
+
+def dist_reckoning(cfg, n_params, seq):
+    """(batch, bytes needed, bytes left): the model, the trainer's copy, its
+    two AdamW moments and the gradients, all bf16, beside the activations
+    of the largest batch of 8 and 4 that leaves DIST_FREE_GIB free."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    state = 2 * n_params * 5
+    for batch in (8, 4):
+        need = state + dist_activation_bytes(cfg, batch, seq)
+        if total - need >= DIST_FREE_GIB * 2**30:
+            break
+    return batch, need, total - need
+
+
+def dist_train(model, batch, strategy, rules):
+    """1 + DIST_STEPS steps of `model` through dist.to_static; returns the
+    trainer, the losses, each timed step's launches, the timed seconds,
+    the whole run's launches and the peak memory."""
+    opt = optimizer.AdamW(DIST_LR, parameters=model.parameters())
+    dm = pt.distributed.to_static(model, [batch], None, opt, strategy,
+                                  rules=rules)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_flash_launches()
+    losses, per_step, _, secs = train_llama.time_steps(
+        lambda n: dm(batch), DIST_STEPS, torch.device("cuda"))
+    launches = kernel_launches()
+    return (dm.engine._trainer, losses, per_step, secs, launches,
+            torch.cuda.max_memory_allocated())
+
+
+def dist_tensors(trainer):
+    """name -> tensor of the trainer's parameters and AdamW moments."""
+    out = dict(trainer.params)
+    for n, st in trainer.opt_state.items():
+        for k, v in st.items():
+            out[f"{n}.{k}"] = v
+    return out
+
+
+def dist_check_chunks(trainer, dp_like):
+    """Every parameter's and state's chunk map is the one its ZeRO spec
+    gives: stage 3 partitions parameters, stage >= 1 states. Returns how
+    many tensors were checked."""
+    from paddle_tpu_torch.distributed.placement import (chunk_map,
+                                                        spec_to_placements)
+    mesh, n = trainer.mesh, 0
+    for name, p in trainer.params.items():
+        zero = trainer._zero_specs[name]
+        if not dp_like and "sharding" not in zero and p.ndim:
+            sys.exit(f"chip_smoke: {name} has no ZeRO axis ({zero})")
+        pspec = zero if trainer.sharding_stage >= 3 else p.partition_spec
+        for t, spec in [(p, pspec)] + [(v, zero) for v in
+                                        trainer.opt_state[name].values()]:
+            want = chunk_map(mesh, spec_to_placements(spec, mesh, t.ndim),
+                             t.shape)
+            if chunk_map(mesh, t.placements, t.shape) != want:
+                sys.exit(f"chip_smoke: {name}'s chunk map is not its spec "
+                         f"{spec}'s")
+            n += 1
+    return n
+
+
+def dist_layout(tensors, mesh, rules):
+    """Empty tensors like `tensors`, laid out on `mesh` by `rules` (a
+    moment by its parameter's name), or unmarked with mesh None."""
+    from paddle_tpu_torch.parallel import spmd
+    out = {}
+    for key, src in tensors.items():
+        empty = torch.empty_like(src)
+        if mesh is None:
+            out[key] = empty
+            continue
+        pname = re.sub(r"\.moment[12]$", "", key)
+        out[key] = spmd.shard_params_by_rules({pname: empty}, mesh,
+                                              rules)[pname]
+    return out
+
+
+def dist_checkpoint(tensors):
+    """(b): save the 2x2 layout's tensors, load them onto three others."""
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.parallel import spmd
+    nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+    with tempfile.TemporaryDirectory() as tmp:
+        free = shutil.disk_usage(tmp).free
+        log(f"dist (b): {len(tensors)} tensors, {nbytes / 1e9:.3f} GB; "
+            f"{free / 1e9:.1f} GB free under {tmp}")
+        if free < 2 * nbytes:
+            tensors = {k: v for k, v in tensors.items()
+                       if not re.search(r"\.moment[12]$", k)}
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in tensors.values())
+            log(f"dist (b): less than twice that free: parameters only, "
+                f"{nbytes / 1e9:.3f} GB")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_state_dict(tensors, tmp)
+        save_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "metadata.json")) as f:
+            meta = json.load(f)
+        chunks = [c for a in meta["arrays"].values() for c in a["chunks"]]
+        files = sorted(x for x in os.listdir(tmp) if x.endswith(".npy"))
+        data = sum(np.load(os.path.join(tmp, x), mmap_mode="r").nbytes
+                   for x in files)
+        if len(files) != len(chunks) or data != nbytes:
+            sys.exit(f"chip_smoke: {len(files)} files of {data} bytes for "
+                     f"{len(chunks)} distinct chunks of {nbytes} bytes")
+        log(f"dist (b): save {save_s:.2f} s ({nbytes / save_s / 1e9:.2f} "
+            f"GB/s), {len(files)} files, each distinct chunk once")
+        layouts = [("dp-only", spmd.create_mesh(), spmd.DP_ONLY_RULES),
+                   ("mp=4", spmd.create_mesh(mp=4),
+                    spmd.LLAMA_SHARDING_RULES),
+                   ("plain", None, None)]
+        for name, mesh, rules in layouts:
+            dst = dist_layout(tensors, mesh, rules)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.load_state_dict(dst, tmp)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            stats = dict(ckpt.last_load_stats)
+            bad = [k for k, v in dst.items() if not torch.equal(v,
+                                                                tensors[k])]
+            if bad:
+                sys.exit(f"chip_smoke: load onto {name}: {len(bad)} tensors "
+                         f"differ, first {bad[0]}")
+            if stats != {"files": len(files), "bytes": nbytes}:
+                sys.exit(f"chip_smoke: load onto {name} read {stats}, the "
+                         f"overlapping chunks are {len(files)} files of "
+                         f"{nbytes} bytes")
+            log(f"dist (b): load onto {name} {secs:.2f} s "
+                f"({nbytes / secs / 1e9:.2f} GB/s), bitwise equal, read "
+                f"{stats['files']} files / {stats['bytes']} bytes: each "
+                "overlapping chunk once")
+            del dst
+            torch.cuda.empty_cache()
+        key = next(iter(tensors))
+        victim = meta["arrays"][key]["chunks"][0]["file"]
+        with open(os.path.join(tmp, victim), "r+b") as f:
+            f.seek(-1, os.SEEK_END)
+            last = f.read(1)
+            f.seek(-1, os.SEEK_END)
+            f.write(bytes([last[0] ^ 0xFF]))
+        try:
+            ckpt.load_state_dict({key: torch.empty_like(tensors[key])}, tmp)
+            sys.exit(f"chip_smoke: a corrupt chunk {victim} loaded")
+        except ckpt.CheckpointCorruptionError as e:
+            if e.file != victim:
+                sys.exit(f"chip_smoke: corruption named {e.file}, not "
+                         f"{victim}")
+            log(f"dist (b): corrupt chunk refused: {e}")
+
+
+class FleetEmbed(pt.nn.Layer):
+    """ids (b, s) -> sequence-parallel activations (s, b, h)."""
+
+    def __init__(self, vocab, hidden):
+        super().__init__()
+        from paddle_tpu_torch.distributed.fleet import meta_parallel as mpu
+        self.emb = mpu.VocabParallelEmbedding(vocab, hidden)
+
+    def forward(self, ids):
+        from paddle_tpu_torch.distributed.fleet.utils import \
+            sequence_parallel_utils as spu
+        return spu.scatter(self.emb(ids).transpose(0, 1))
+
+
+class FleetBlock(pt.nn.Layer):
+    """A pre-norm decoder block written from fleet's layers: attention's
+    projections sequence-parallel, the MLP tensor-parallel, causal
+    attention through F.scaled_dot_product_attention."""
+
+    def __init__(self, hidden, heads, ffn):
+        super().__init__()
+        from paddle_tpu_torch.distributed.fleet import meta_parallel as mpu
+        from paddle_tpu_torch.distributed.fleet.utils import \
+            sequence_parallel_utils as spu
+        self.heads = heads
+        self.norm1 = pt.nn.RMSNorm(hidden)
+        self.norm2 = pt.nn.RMSNorm(hidden)
+        for p in (self.norm1.weight, self.norm2.weight):
+            spu.mark_as_sequence_parallel_parameter(p)
+        self.qkv = spu.ColumnSequenceParallelLinear(hidden, 3 * hidden,
+                                                    has_bias=False)
+        self.proj = spu.RowSequenceParallelLinear(hidden, hidden,
+                                                  has_bias=False)
+        self.up = mpu.ColumnParallelLinear(hidden, ffn, has_bias=False,
+                                           gather_output=False)
+        self.down = mpu.RowParallelLinear(ffn, hidden, has_bias=False,
+                                          input_is_parallel=True)
+
+    def forward(self, x):
+        from paddle_tpu_torch.distributed.fleet.utils import \
+            sequence_parallel_utils as spu
+        s, b, h = x.shape
+        qkv = self.qkv(self.norm1(x)).reshape(s, b, 3, self.heads,
+                                              h // self.heads)
+        q, k, v = qkv.permute(2, 1, 0, 3, 4).unbind(0)      # (b, s, n, d)
+        a = PF.scaled_dot_product_attention(q, k, v, is_causal=True)
+        x = x + self.proj(a.transpose(0, 1).reshape(s, b, h))
+        y = spu.all_gather(self.norm2(x))
+        return x + spu.scatter(self.down(PF.silu(self.up(y))))
+
+
+class FleetHead(pt.nn.Layer):
+    def __init__(self, hidden, vocab):
+        super().__init__()
+        from paddle_tpu_torch.distributed.fleet import meta_parallel as mpu
+        from paddle_tpu_torch.distributed.fleet.utils import \
+            sequence_parallel_utils as spu
+        self.norm = pt.nn.RMSNorm(hidden)
+        spu.mark_as_sequence_parallel_parameter(self.norm.weight)
+        self.out = mpu.ColumnParallelLinear(hidden, vocab, has_bias=False,
+                                            gather_output=False)
+
+    def forward(self, x):
+        from paddle_tpu_torch.distributed.fleet.utils import \
+            sequence_parallel_utils as spu
+        return self.out(spu.all_gather(self.norm(x))).transpose(0, 1)
+
+
+class FleetLoss:
+    """Next-token ParallelCrossEntropy, averaged."""
+
+    def __init__(self):
+        from paddle_tpu_torch.distributed.fleet import meta_parallel as mpu
+        self.ce = mpu.ParallelCrossEntropy()
+
+    def __call__(self, logits, ids):
+        return self.ce(logits[:, :-1], ids[:, 1:]).mean()
+
+
+def fleet_pipeline(c):
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpu
+    return mpu.PipelineLayer(
+        [mpu.LayerDesc(FleetEmbed, c["vocab"], c["hidden"])]
+        + [mpu.LayerDesc(FleetBlock, c["hidden"], c["heads"], c["ffn"])
+           for _ in range(c["layers"])]
+        + [mpu.LayerDesc(FleetHead, c["hidden"], c["vocab"])],
+        num_stages=c["pp"], loss_fn=FleetLoss())
+
+
+def dist_fleet():
+    """(c): the decoder through fleet's PipelineParallel.train_batch and
+    distributed_optimizer, against the same layers unwrapped with
+    micro-batch accumulation. Returns the pipeline run's launches."""
+    from paddle_tpu_torch.distributed import fleet
+    c = FLEET
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs.update(mp_degree=c["mp"], pp_degree=c["pp"])
+    st.pipeline_configs["accumulate_steps"] = c["micro"]
+    fleet.init(is_collective=True, strategy=st)
+    hcg = fleet.get_hybrid_communicate_group()
+    try:
+        d = c["hidden"] // c["heads"]
+        micro = c["batch"] // c["micro"]
+        dec = ar.route(micro * c["heads"], c["seq"], c["seq"], d,
+                       torch.bfloat16, True, platform="cuda")
+        pt.seed(0)
+        pipe = fleet_pipeline(c).to(dtype=torch.bfloat16)
+        plain = fleet_pipeline(c).to(dtype=torch.bfloat16)
+        plain.set_state_dict(pipe.state_dict())
+        n_params = sum(p.numel() for p in pipe.parameters())
+        model = fleet.distributed_model(pipe)
+        opt = fleet.distributed_optimizer(
+            optimizer.AdamW(DIST_LR, parameters=pipe.parameters()))
+        plain_opt = optimizer.AdamW(DIST_LR, parameters=plain.parameters())
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        ids = torch.randint(0, c["vocab"], (c["batch"], c["seq"]),
+                            generator=gen, device="cuda")
+        log(f"dist (c): {type(model).__name__} over mp {c['mp']} x pp "
+            f"{c['pp']} (mesh {hcg.mesh.shape}), {c['layers']} layers at "
+            f"hidden {c['hidden']}, {n_params} params, b{c['batch']} "
+            f"s{c['seq']} in {c['micro']} micro-batches; router at (bh "
+            f"{micro * c['heads']}, s{c['seq']}, d{d}, bf16, causal): "
+            f"fwd={dec.fwd} bwd={dec.bwd} [{dec.source}]")
+        torch.cuda.synchronize()
+        zero_flash_launches()
+        losses, per_step, _, secs = train_llama.time_steps(
+            lambda n: model.train_batch((ids, ids), opt), DIST_STEPS,
+            torch.device("cuda"))
+        launches = kernel_launches()
+        want = []
+        for _ in range(DIST_STEPS + 1):
+            total = 0.0
+            for x in ids.chunk(c["micro"]):
+                loss = plain._loss_fn(plain(x), x)
+                (loss / c["micro"]).backward()
+                total = total + loss.detach()
+            plain_opt.step()
+            plain_opt.clear_grad()
+            want.append(float(total / c["micro"]))
+        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        step_ms = secs / DIST_STEPS * 1e3
+        log(f"dist (c): losses {losses}, unwrapped {want}, largest "
+            f"relative gap {gap:.3e} (tol {FLEET_LOSS_RTOL:g}); step "
+            f"{step_ms:.1f} ms, "
+            f"{c['batch'] * c['seq'] / (secs / DIST_STEPS):.1f} tokens/s; "
+            f"launches a step {per_step[-1]}")
+        if not all(np.isfinite(losses)) or gap > FLEET_LOSS_RTOL:
+            sys.exit("chip_smoke: the pipeline's losses are not the "
+                     "unwrapped layers'")
+        fwd = dec.fwd == "pallas"
+        bwd = fwd and dec.bwd == "pallas"
+        n = c["layers"] * c["micro"]
+        want_launches = {"flash_fwd": n if fwd else 0,
+                         "flash_bwd_dq": n if bwd else 0,
+                         "flash_bwd_dkv": n if bwd else 0}
+        for i, got in enumerate(per_step):
+            if got != want_launches:
+                sys.exit(f"chip_smoke: fleet step {i + 2} launched {got}, "
+                         f"expected {want_launches}")
+        return launches
+    finally:
+        fleet._hcg = None
+
+
+def dist_data_parallel(tmp):
+    """(d): one DataParallel(resnet50) step after convert_sync_batchnorm
+    through group_sharded_parallel("p_g_os"), against the plain model's
+    step; then save_group_sharded_model and a reload."""
+    pt.seed(0)
+    net = VM.resnet50(device="cuda")
+    plain = copy.deepcopy(net)
+    model = pt.DataParallel(pt.nn.SyncBatchNorm.convert_sync_batchnorm(net))
+    model, sopt, _ = pt.distributed.group_sharded_parallel(
+        model, optimizer.Momentum(0.1, 0.9, parameters=net.parameters()),
+        "p_g_os")
+    popt = optimizer.Momentum(0.1, 0.9, parameters=plain.parameters())
+    rs = np.random.RandomState(0)
+    x = torch.as_tensor(rs.randn(DP_BATCH, 3, 224, 224).astype(np.float32),
+                        device="cuda")
+    y = torch.as_tensor(rs.randint(0, 1000, (DP_BATCH,)), device="cuda")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        losses = []
+        for m, o in ((model, sopt), (plain, popt)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = PF.cross_entropy(m(x), y)
+            loss.backward()
+            o.step()
+            o.clear_grad()
+            torch.cuda.synchronize()
+            losses.append((float(loss.detach()), time.perf_counter() - t0))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = all(torch.equal(a, b) for a, b in zip(
+        model.state_dict().values(), plain.state_dict().values()))
+    log(f"dist (d): DataParallel(SyncBatchNorm resnet50) b{DP_BATCH} "
+        f"float32 loss {losses[0][0]!r} in {losses[0][1]:.3f} s, plain "
+        f"{losses[1][0]!r} in {losses[1][1]:.3f} s; state after the step "
+        f"equal: {same}")
+    if losses[0][0] != losses[1][0] or not same:
+        sys.exit("chip_smoke: the DataParallel step is not the plain "
+                 "model's")
+    pt.distributed.save_group_sharded_model(model, tmp, sopt)
+    back = VM.resnet50(device="cuda")
+    back.set_state_dict(pt.load(os.path.join(tmp, "model.pdparams")))
+    bopt = optimizer.Momentum(0.1, 0.9, parameters=back.parameters())
+    bopt.set_state_dict(pt.load(os.path.join(tmp, "model.pdopt")))
+    ok = all(torch.equal(a, b) for a, b in zip(
+        back.state_dict().values(), plain.state_dict().values()))
+    ok = ok and all(torch.equal(bopt._accumulators[id(q)][k], v)
+                    for p, q in zip(net.parameters(), back.parameters())
+                    for k, v in sopt._accumulators[id(p)].items())
+    log(f"dist (d): save_group_sharded_model round trip bitwise: {ok}")
+    if not ok:
+        sys.exit("chip_smoke: save_group_sharded_model did not round-trip")
+
+
+def phase_distributed():
+    """Phase 25; returns each kernel's launches on its main path: (a)'s
+    2x2 run and (c)'s pipeline."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist = pt.distributed
+    from paddle_tpu_torch.parallel import spmd
+    name, cfg, _, seq, *_ = train_llama.llama_ladder()[0]
+    n_layers = cfg.num_hidden_layers
+    t0 = time.perf_counter()
+    pt.seed(0)
+    model = pt.models.LlamaForCausalLM(cfg, device="cuda")
+    n_params = model.num_params()
+    batch, need, left = dist_reckoning(cfg, n_params, seq)
+    heads = cfg.num_attention_heads
+    dec = ar.route(batch * heads, seq, seq, cfg.hidden_size // heads,
+                   torch.bfloat16, True, platform="cuda")
+    log(f"dist (a): {name}, {n_params} params, {n_layers} layers; the "
+        f"reckoning of a step without remat at b{batch} s{seq}: "
+        f"{need / 2**30:.1f} GiB, {left / 2**30:.1f} GiB of the card left "
+        f"(at least {DIST_FREE_GIB} asked); router fwd={dec.fwd} "
+        f"bwd={dec.bwd} [{dec.source}]; built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                        device="cuda")
+    with torch.no_grad():
+        plain_loss = float(model(ids, labels=ids)[0])
+    fwd = dec.fwd == "pallas"
+    bwd = fwd and dec.bwd == "pallas"
+    want = {"flash_fwd": n_layers if fwd else 0,
+            "flash_bwd_dq": n_layers if bwd else 0,
+            "flash_bwd_dkv": n_layers if bwd else 0}
+    runs = {}
+    # the one-process mesh first (DP_ONLY_RULES, stage 0): its tensors
+    # wait on the host while the 2x2 mesh trains
+    one = dist_train(model, (ids, ids), dist.Strategy(), spmd.DP_ONLY_RULES)
+    one_tr = one[0]
+    dist_check_chunks(one_tr, dp_like=True)
+    runs["one-process"] = (one_tr.mesh.shape,) + one[1:]
+    one_host = {k: v.detach().cpu() for k, v in dist_tensors(one_tr).items()}
+    del one, one_tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    st = dist.Strategy()
+    st.mp_degree = 2
+    st.sharding.enable, st.sharding.degree, st.sharding.stage = True, 2, 3
+    tr, losses, per_step, secs, launches, peak = dist_train(
+        model, (ids, ids), st, spmd.LLAMA_SHARDING_RULES)
+    runs["2x2"] = (tr.mesh.shape, losses, per_step, secs, launches, peak)
+    checked = dist_check_chunks(tr, dp_like=False)
+    tensors = dist_tensors(tr)
+    same = all(torch.equal(v, one_host[k].to(v.device))
+               for k, v in tensors.items())
+    del one_host
+    for label, (shape, ls, steps, s, _, pk) in runs.items():
+        tps = batch * seq / (s / DIST_STEPS)
+        mfu = train_llama.mfu(n_params, cfg, seq, tps, "cuda")
+        log(f"dist (a): {label} mesh {shape}: step "
+            f"{s / DIST_STEPS * 1e3:.1f} ms, {tps:.1f} tokens/s, MFU "
+            f"{mfu if mfu is None else round(mfu, 4)}, launches a step "
+            f"{steps[-1]}, peak memory {pk / 2**30:.2f} GiB, losses {ls}")
+    gap = abs(losses[0] - plain_loss) / abs(plain_loss)
+    log(f"dist (a): 2x2 (mp 2 x sharding 2, ZeRO stage 3) against the "
+        f"one-process mesh: losses and {len(tensors)} parameters and "
+        f"moments bitwise equal: {losses == runs['one-process'][1] and same}"
+        f"; {checked} chunk maps as the ZeRO specs say; first loss "
+        f"{losses[0]!r} against the plain model's {plain_loss!r} "
+        f"(relative {gap:.3e}, tol {DIST_PLAIN_LOSS_RTOL:g})")
+    if tr.mesh.shape != [1, 2, 1, 2, 1]:
+        sys.exit(f"chip_smoke: to_static built mesh {tr.mesh.shape}")
+    if losses != runs["one-process"][1] or not same:
+        sys.exit("chip_smoke: the 2x2 layout changed the arithmetic")
+    if not all(np.isfinite(losses)) or gap > DIST_PLAIN_LOSS_RTOL:
+        sys.exit("chip_smoke: to_static's first loss is not the model's")
+    for label, (_, _, steps, *_rest) in runs.items():
+        for i, got in enumerate(steps):
+            if got != want:
+                sys.exit(f"chip_smoke: {label} step {i + 2} launched "
+                         f"{got}, expected {want}")
+    del tr
+    t1 = time.perf_counter()
+    dist_checkpoint(tensors)
+    log(f"phase 25 (b): {time.perf_counter() - t1:.1f} s")
+    del tensors, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    fleet_launches = dist_fleet()
+    log(f"phase 25 (c): {time.perf_counter() - t1:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist_data_parallel(tmp)
+    log(f"phase 25 (d): {time.perf_counter() - t1:.1f} s")
+    return {k: launches[k] + fleet_launches[k] for k in launches}
+
+
 def timed(label, fn, *args):
     """fn(*args), logging its seconds as phase `label`'s."""
     t0 = time.perf_counter()
@@ -6810,16 +7352,20 @@ def main():
     sparse = timed("23 (graphs, 2:4 sparsity, MoE, distribution)",
                    phase_graph_sparsity, decisions["bert"][0], bert_ms)
     plumbing = timed("24 (plumbing, distributed)", phase_plumbing)
-    log(f"phases 1-24: {time.perf_counter() - t0:.1f} s")
+    dist25 = timed("25 (DTensor, fleet, ZeRO, checkpoint)",
+                   phase_distributed)
+    log(f"phases 1-25: {time.perf_counter() - t0:.1f} s")
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # K1 runs on the serving (bf16 and int8), predictor, training, BERT,
     # GPT, decode, hapi BERT, Transformer-base, ViT, Hessian-vector,
-    # 2:4-pruned BERT and reloaded llama_1.3b paths, K3 and K4 on the training, BERT, hapi BERT,
-    # Transformer-base, ViT, Hessian-vector (its ordinary backward) and
-    # 2:4-pruned BERT paths (the graph and MoE paths launch none; the
+    # 2:4-pruned BERT, reloaded llama_1.3b and distributed (to_static on
+    # the 2x2 mesh, the fleet pipeline) paths, K3 and K4 on the training,
+    # BERT, hapi BERT, Transformer-base, ViT, Hessian-vector (its ordinary
+    # backward), 2:4-pruned BERT and distributed paths (the graph and MoE
+    # paths launch none; the
     # ResNet, vision-zoo, hapi ResNet and LeNet, LSTM seq2seq and DDPM
     # paths add none, counted all the same); their times are the Llama
     # training shape's (phases 3 and 5 print BERT's too). K2's are
@@ -6833,7 +7379,7 @@ def main():
                               + zoo["flash_fwd"] + hapi["flash_fwd"]
                               + mt["flash_fwd"] + vision["flash_fwd"]
                               + hvp["flash_fwd"] + sparse["flash_fwd"]
-                              + plumbing),
+                              + plumbing + dist25["flash_fwd"]),
                     **{key: k1["train"][key] for key in keys}),
                dict(name="flash_fwd_rms_epilogue", route="cuda",
                     source=src + "fwd.cu", replaces=ref + "116",
@@ -6846,7 +7392,8 @@ def main():
                               + hapi["flash_bwd_dq"] + mt["flash_bwd_dq"]
                               + vision["flash_bwd_dq"]
                               + hvp["flash_bwd_dq"]
-                              + sparse["flash_bwd_dq"]),
+                              + sparse["flash_bwd_dq"]
+                              + dist25["flash_bwd_dq"]),
                     **k34["train"]["dq"]),
                dict(name="flash_bwd_dkv", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "249",
@@ -6857,7 +7404,8 @@ def main():
                               + mt["flash_bwd_dkv"]
                               + vision["flash_bwd_dkv"]
                               + hvp["flash_bwd_dkv"]
-                              + sparse["flash_bwd_dkv"]),
+                              + sparse["flash_bwd_dkv"]
+                              + dist25["flash_bwd_dkv"]),
                     **k34["train"]["dkv"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

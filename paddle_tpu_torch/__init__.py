@@ -24,6 +24,7 @@ from . import distribution, geometric, sparse  # noqa: E402
 from . import (distributed, hub, onnx, static, sysconfig, utils,  # noqa: E402
                version)
 from . import framework as base  # noqa: E402
+from .distributed.parallel import DataParallel  # noqa: E402,F401
 from .amp import debugging as _debugging  # noqa: E402,F401
 from .autograd import (enable_grad, grad, is_grad_enabled,  # noqa: E402
                        no_grad, set_grad_enabled)
@@ -154,5 +155,6 @@ __all__ = ["seed", "set_device", "get_device", "set_flags", "get_flags",
            "models", "generation", "optimizer", "nn", "amp", "io", "metric",
            "vision", "hapi", "callbacks", "regularizer", "Model", "summary",
            "flops", "save", "load", "ParamAttr", "L1Decay", "L2Decay",
-           "tensor", "text", "create_parameter", "linalg"] + _TOP + \
+           "tensor", "text", "create_parameter", "linalg",
+           "DataParallel"] + _TOP + \
     _MODULES + tensor.__all__

@@ -20,7 +20,8 @@
 - send/recv/batch_isend_irecv go over the TCPStore with the reference's
   key scheme (`__p2p/<src>-><dst>/<seq>`, a 4-byte big-endian header
   length, a JSON header of dtype and shape, the raw bytes).
-- `split` needs a mesh: it raises (ROADMAP Queue 1 item 2).
+- `split` raises, as the reference's does: its tensor-parallel layers are
+  fleet.meta_parallel's.
 """
 
 from __future__ import annotations
@@ -312,10 +313,7 @@ def batch_isend_irecv(p2p_op_list):
 
 def split(x, size, operation, axis=0, num_partitions=1, gather_out=True,
           inner_rank=-1):
-    raise NotImplementedError(
-        "distributed.split builds tensor-parallel layers over a mesh, "
-        "which comes with placement/api/auto_parallel (DTensor), ROADMAP "
-        "Queue 1 item 2")
+    raise NotImplementedError("use fleet.meta_parallel TP layers")
 
 
 # paddle.distributed.stream is communication.stream (the one-tensor

@@ -1,8 +1,8 @@
 """Normalization layers. reference: paddle_tpu/nn/layer/norm.py
 (`_BatchNormBase` :18-40, `BatchNorm`/`BatchNorm1D/2D/3D` :43-57,
-`LayerNorm` :80, `RMSNorm` :99, `GroupNorm` :112, `InstanceNorm1D/2D/3D`
-:130-157, `LocalResponseNorm` :160, `SpectralNorm` :168). `SyncBatchNorm`
-waits for the distributed modules."""
+`SyncBatchNorm` :60, `LayerNorm` :80, `RMSNorm` :99, `GroupNorm` :112,
+`InstanceNorm1D/2D/3D` :130-157, `LocalResponseNorm` :160, `SpectralNorm`
+:168)."""
 
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from .common import _param
 from .layers import Layer
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-           "LayerNorm", "RMSNorm", "GroupNorm", "InstanceNorm1D",
+           "SyncBatchNorm", "LayerNorm", "RMSNorm", "GroupNorm", "InstanceNorm1D",
            "InstanceNorm2D", "InstanceNorm3D", "LocalResponseNorm",
            "SpectralNorm"]
 
@@ -71,6 +71,34 @@ class BatchNorm2D(_BatchNormBase):
 
 class BatchNorm3D(_BatchNormBase):
     pass
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """Cross-replica batch norm. One process holds the global batch, so
+    the statistics are the global batch's: the math is BatchNorm's, as in
+    the reference (nn/layer/norm.py:60)."""
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """`layer` with every batch norm below it (itself included)
+        replaced by a SyncBatchNorm that takes over its parameters and
+        running statistics."""
+        for name, sub in list(layer.named_children()):
+            setattr(layer, name, cls.convert_sync_batchnorm(sub))
+        if isinstance(layer, _BatchNormBase) and \
+                not isinstance(layer, SyncBatchNorm):
+            new = cls(layer._num_features, layer._momentum, layer._epsilon,
+                      weight_attr=False, bias_attr=False,
+                      data_format=layer._data_format,
+                      use_global_stats=layer._use_global_stats,
+                      device=layer._mean.device)
+            new.weight = layer.weight
+            new.bias = layer.bias
+            new._mean = layer._mean
+            new._variance = layer._variance
+            new.train(layer.training)
+            return new
+        return layer
 
 
 class LayerNorm(Layer):

@@ -210,7 +210,7 @@ def test_sub_world_groups_p2p_and_split_raise():
                                                            1)])):
         with pytest.raises(NotImplementedError, match="cross-process"):
             fn()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    with pytest.raises(NotImplementedError, match="fleet.meta_parallel"):
         dist.split(t, (2, 2), "linear")
 
 

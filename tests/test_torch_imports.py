@@ -75,7 +75,14 @@ SUBPACKAGES = [
     "static.nn_builders", "hub", "onnx", "sysconfig", "version",
     "distributed", "distributed.store", "distributed.parallel_env",
     "distributed.collective", "distributed.communication.stream",
-    "distributed.launch", "tools.dashboard", "tools.collective_drill"]
+    "distributed.launch", "tools.dashboard", "tools.collective_drill",
+    "distributed.placement", "distributed.api", "parallel.spmd",
+    "distributed.auto_parallel", "distributed.auto_tuner",
+    "distributed.fleet", "distributed.fleet.meta_parallel",
+    "distributed.fleet.meta_optimizers", "distributed.fleet.utils",
+    "distributed.fleet.utils.sequence_parallel_utils",
+    "distributed.fleet.elastic", "distributed.checkpoint", "distributed.io",
+    "distributed.sharding", "distributed.parallel"]
 
 
 @pytest.fixture(scope="module")

@@ -87,7 +87,15 @@ def test_the_walk_covers_the_ported_surface():
               "deform_conv2d", "while_loop", "switch_case", "generate",
               "load", "export_protobuf", "set_code_level", "TCPStore",
               "init_parallel_env", "reduce_scatter", "batch_isend_irecv",
-              "alltoall", "spawn", "run_check", "get_include", "export"):
+              "alltoall", "spawn", "run_check", "get_include", "export",
+              # DTensor, auto-parallel, fleet, ZeRO and the checkpoint
+              "shard_tensor", "reshard", "ProcessMesh", "to_distributed",
+              "SpmdTrainer", "create_mesh", "Engine", "to_static",
+              "TunerConfig", "HybridCommunicateGroup", "ColumnParallelLinear",
+              "ColumnSequenceParallelLinear", "PipelineParallel",
+              "PipelineLayer", "DygraphShardingOptimizer", "recompute",
+              "ElasticManager", "save_state_dict", "load_state_dict",
+              "group_sharded_parallel", "DataParallel", "SyncBatchNorm"):
         assert n in names, n
     assert len(_PAIRS) > 400
 

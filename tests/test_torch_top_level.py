@@ -17,7 +17,6 @@ ROADMAP = (Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
 
 # name -> how ROADMAP.md names the item that ports it
 MISSING = {
-    "DataParallel": "`DataParallel`",       # Queue 1 item 2
     "Tensor": "`Tensor`",                   # Queue 3, by design
 }
 # the reference's JAX internals, bound at its top level: no part of the
