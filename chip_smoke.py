@@ -450,9 +450,62 @@ Phases, each of which makes the script exit non-zero if it fails:
      group_sharded_parallel(level="p_g_os"), one float32 Momentum step at
      b64 224 x 224 with cuDNN deterministic: loss and state equal to the
      plain model's step; save_group_sharded_model reloads bit for bit.
+  26. the pipeline schedules, ring attention, expert parallelism, the
+     parameter server and the training guards, on the one card (a mesh of
+     several process ids lies on it). (a) llama_1.3b
+     (train_llama.llama_ladder()[0]), bf16, random weights from seed(0),
+     trained 1 + PIPE["steps"] AdamW steps through LlamaPipeRunner under
+     1F1B on a ProcessMesh with pp 4 (6 layers a stage), b8 s2048 in 8
+     micro-batches of b1, with FLAGS_flash_attention_backend and _bwd set
+     to pallas so the stages run K1/K3/K4; the same weights and batches
+     through the plain step (the model's own layers, the runner's loss,
+     the same micro-batch accumulation): losses and every parameter after
+     each step bit for bit equal; then one step each of FThenB (in 4
+     micro-batches of b2 if pipe_reckoning leaves less than
+     DIST_FREE_GIB), ZB and VPP (2 chunks of 3 layers) from the same
+     weights, each first loss within PIPE_FIRST_LOSS_RTOL of 1F1B's and
+     its gradients within PIPE_GRAD_RTOL of 1F1B's first (relative L2 per
+     tensor and layer), a planted wrong micro-batch beyond it; every step's K1/K3/K4 launches as
+     pipe_launches reckons them; step ms, tokens/s, MFU and the schedule's
+     peak memory (forward and backward, before the update) above each
+     step's start; that peak less the gradients' bytes, 1F1B's below
+     FThenB's. (e) (a)'s 1F1B
+     runner under TrainSupervisor: an injected train.step_nonfinite skips
+     its step with the parameters restored and the counter +1, a
+     preemption saves the parameters and exits with code 0, resume()
+     reloads and the next loss equals the skipped step's; a Watchdog of
+     GUARD_TIMEOUT fires on a step that sleeps GUARD_SLEEP and dumps the
+     stacks. (b) ring_attention over a sep ring of 4 at b1 s32768 h16 d128
+     bf16 (8192 tokens a shard), K1 once a ring step, causal and not:
+     within RING_OUT_RTOL (relative L2) of flash_attention_bshd over the
+     whole sequence and, causal, of the dense ring, a planted fault (the
+     last shard without its first block) beyond it; then its backward (the dense
+     ring's) at the largest of RING_BWD_SEQS that ring_dense_bytes leaves
+     RING_BWD_FREE_GIB beside, dq/dk/dv within RING_GRAD_RTOL of K3/K4's;
+     K1 at the ring's block (b1 h16 8192 x 8192 d128, causal and not)
+     against its plain version (output within RING_OUT_RTOL, lse within
+     LSE_ATOL), timed as in phase 3, with SDPA and the
+     bound. (c) ExpertParallelMoE at Mixtral-8x7B's widths (GELU experts),
+     bf16, 4096 tokens over ep 8: within EP_MOE_RTOL of ep 1 at a capacity
+     that drops nothing; at capacity factor 1.25 the pairs dropped, forward
+     and backward ms, useful TFLOP/s and peak memory beside phase 23 (c).
+     (d) a Criteo-shaped CTR model (13 dense and 26 sparse slots, ids
+     hashed, Zipf over 2^24 keys, written by MultiSlotDataGenerator in a
+     subprocess beside (a) and read by InMemoryDataset on a thread beside
+     (e), 32 batches of 4096), one
+     SparseTable of dim 16 (adagrad), DeepFM's 400-400-400 MLP on the
+     card, steps through PsBatch and PsEmbedding over LocalChannel, then
+     over RpcChannel to a server process started with rpc.init_rpc: the
+     rows equal over both channels, and within PS_ROW_ATOL of the same
+     run on the CPU for PS_ROW_SHARE of the elements after the first
+     batch (later batches printed beside); each channel's first two steps
+     (PsBatch, then PsEmbedding) redone on the CPU from the card's MLP
+     and inputs (and in float64, printed), the pushed rows' gradients
+     within PS_GRAD_RTOL and a planted lost sample beyond it; a TheOnePs
+     save/load round trip.
 Phases 9, 9b and 13 run llama_7b at SERVING_DEPTH of its 32 layers (full
 width), after phase 12, which runs at full depth beside phase 8.
-Each phase's seconds are printed as it ends, then those of phases 1-25.
+Each phase's seconds are printed as it ends, then those of phases 1-26.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -471,6 +524,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -5708,6 +5762,8 @@ MOE_CHECK_TOKENS = 512
 # the bf16 block against a float32 copy of the same weights on the first
 # MOE_CHECK_TOKENS tokens whose top-2 experts agree: relative L2
 MOE_BF16_RTOL = 3e-2
+# phase 23 (c)'s numbers, printed beside phase 26 (c)'s expert-parallel MoE
+MOE_DENSE = {}
 
 
 def swiglu_expert(P, d_model, ffn):
@@ -6129,6 +6185,8 @@ def phase_moe():
         same = (topi16.sort(-1)[0] == topi32.sort(-1)[0]).all(-1)
         err = float((half[same] - full[same]).norm() / full[same].norm())
     del twin
+    MOE_DENSE.update(ms=min(ms), useful_tflops=useful / best / 1e12,
+                     peak_gib=peak / 2**30)
     finite = bool(torch.isfinite(out).all()) and math.isfinite(aux)
     log(f"moe mixtral-8x7b block [{CARD}]: d_model {d}, {e} SwiGLU experts "
         f"of {ffn}, top-{k}, GShardGate, bf16, {t} tokens, forward and "
@@ -7295,6 +7353,1045 @@ def phase_distributed():
     return {k: launches[k] + fleet_launches[k] for k in launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the pipeline schedules, ring attention, expert parallelism, the
+# parameter server and the training guards
+# ---------------------------------------------------------------------------
+
+# (a): llama_1.3b over pp 4 in PIPE["micro"] micro-batches of b1 s2048 (the
+# global b8 s2048 of phases 11 and 25), AdamW, 1 + PIPE["steps"] steps
+PIPE = dict(pp=4, micro=8, steps=2, lr=3e-4, chunks=2)
+# the first loss of FThenB, ZB and VPP against 1F1B's: the same eight
+# micro-batch losses (each stage's forward is the same computation),
+# summed in another order, relative
+PIPE_FIRST_LOSS_RTOL = 1e-5
+# 1F1B against the plain step (the model's own layers, the same loss, the
+# same micro-batch accumulation) is held bit for bit: losses and every
+# parameter after each step. FThenB's, ZB's and VPP's first-step gradients
+# against 1F1B's, per layer and tensor, the largest relative L2: their
+# autograd sums the micro-batches' bf16 contributions in another order.
+# A planted fault, 1F1B's gradient with one of the eight micro-batches
+# taken from another batch, must exceed the limit, which the phase checks.
+# On an H100 the schedules read 4.5e-3 to 5.3e-3 and the fault 0.55
+PIPE_GRAD_RTOL = 2e-2
+# (b): llama_1.3b's heads over a sep ring of 4 at s32768 (8192 a shard)
+RING = dict(b=1, s=32768, h=16, d=128, sep=4)
+# its output against flash_attention_bshd over the whole sequence and the
+# dense ring, and K1's at the ring's block against its plain version,
+# relative L2: the outputs run from about 3 (the first queries) down to
+# sqrt(e / 32768) = 0.009, so an absolute limit either passes a missing
+# block or fails bf16's rounding of the large ones. A planted fault, the
+# last shard's queries without the first K/V block, must exceed the limit,
+# which the phase checks. On an H100 the ring read 1.2e-3 (causal) and
+# 3.3e-3 (full) against flash_attention_bshd, 2.4e-3 against the dense
+# ring, K1 at the block 2.9e-3 and 3.1e-3; the fault 0.11 and 0.29
+RING_OUT_RTOL = 1e-2
+RING_BWD_SEQS = (16384, 8192)
+RING_BWD_FREE_GIB = 16
+# bf16 gradients of the dense ring against K3/K4's, relative L2
+RING_GRAD_RTOL = 2e-2
+# (c): ExpertParallelMoE at Mixtral-8x7B's widths with GELU experts
+EP_MOE = dict(d_model=4096, d_hidden=14336, experts=8, top_k=2, tokens=4096,
+              ep=8)
+# ep 8 against ep 1 where no token drops: bf16 products over 8 x 160
+# slots against 4096, relative L2
+EP_MOE_RTOL = 2e-2
+# (d): a CTR model of Criteo's Display Advertising Challenge shape
+CRITEO = dict(dense=13, sparse=26, dim=16, keys=2**24, zipf=1.2,
+              batches=32, batch=4096, hidden=(400, 400, 400), lr=0.05,
+              dense_lr=1e-3)
+# the table against the CPU's after the card's first batch (PsBatch):
+# adagrad's first step moves an element by lr * g / |g|, so only an
+# element whose gradient is near zero may step the other way; the rest
+# agree to float32 rounding. Those few signs, and Adam's as sign-like
+# first step of the MLP, feed the next batch, so from the second batch on
+# the two runs are no longer the same computation (on an H100, 0.969 of
+# the second batch's new rows' elements agreed): the table is printed there, and
+# each channel's first two steps (PsBatch, then PsEmbedding) are held by
+# redoing them on the CPU from the card's own MLP and inputs: the pushed
+# rows' gradients, relative L2. A frequent id's gradient sums hundreds of
+# samples' that nearly cancel, so float32 itself strays: at the first
+# step the CPU's float32 read 7.9e-5 from its float64 and the card 2.5e-4
+# from the CPU (on an H100; 4.1e-7 at the second step). A planted fault,
+# one sample's gradients lost, read 3.2e-3 and 2.0e-2 and must exceed the
+# limit, which the phase checks
+PS_ROW_ATOL = 1e-4
+PS_ROW_SHARE = 0.999
+PS_GRAD_RTOL = 1e-3
+# (e): the watchdog's timeout and the step that sleeps past it, seconds
+GUARD_TIMEOUT, GUARD_SLEEP = 0.5, 1.5
+
+
+def pipe_launches(schedule, m, layers, pp):
+    """K1 and K3/K4 launches a step of `schedule` with m micro-batches over
+    `layers` layers on pp stages, when the attention routes to the
+    kernels: 1F1B and ZB run the forward of every stage but the last
+    without grad and each stage again inside its backward (ZB's batched
+    weight gradient once more, over all micro-batches); FThenB and VPP
+    remat each stage's forward in the backward; the plain step runs each
+    layer once."""
+    k1, k34 = {"1F1B": (m * (layers - layers // pp) + m * layers,
+                        m * layers),
+               "ZB": (m * (layers - layers // pp) + m * layers + layers,
+                      m * layers + layers),
+               "FThenB": (2 * m * layers, m * layers),
+               "VPP": (2 * m * layers, m * layers),
+               "plain": (m * layers, m * layers)}[schedule]
+    return {"flash_fwd": k1, "flash_bwd_dq": k34, "flash_bwd_dkv": k34}
+
+
+def launch_delta(before):
+    return {k: v - before[k] for k, v in kernel_launches().items()}
+
+
+def pipe_step(runner, ids, labels, on_grads=None):
+    """One runner step; (loss, launches, seconds, the schedule's peak bytes
+    above the memory allocated at its start: its forward and backward,
+    the gradients included, before the optimizer's update). `on_grads`
+    sees the step's gradients before the update."""
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    loss, grads = runner.grads(ids, labels)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - start
+    launches, seconds = launch_delta(before), time.perf_counter() - t0
+    if on_grads is not None:
+        on_grads(per_layer_grads(runner, grads))
+    t1 = time.perf_counter()
+    runner.update(grads)
+    loss = float(loss)
+    torch.cuda.synchronize()
+    return loss, launches, seconds + time.perf_counter() - t1, peak
+
+
+def per_layer_grads(runner, grads):
+    """The (demb, dstage, dhead) of `runner.grads` by tensor and layer,
+    whatever the schedule's stacking (VPP's [s, c] is virtual stage
+    c * pp + s)."""
+    demb, dstage, dhead = grads
+    out = {f"embed.{k}": v for k, v in demb.items()}
+    out.update({f"head.{k}": v for k, v in dhead.items()})
+    lead = 2
+    for k, v in dstage.items():
+        if runner.schedule == "VPP":
+            v, lead = v.transpose(0, 1), 3
+        v = v.reshape((-1,) + v.shape[lead:])
+        out.update({f"layer{i}.{k}": v[i] for i in range(v.shape[0])})
+    return out
+
+
+def grad_gap(got, want):
+    """(bitwise equal, the largest relative L2 over tensors and layers)."""
+    return (all(torch.equal(got[k], want[k]) for k in want),
+            max(rel_err(got[k], want[k]) for k in want))
+
+
+def plain_pipe_step(model, opt, ids, m):
+    """The plain step: each micro-batch through the model's own layers and
+    the runner's loss, loss / m backward, then one AdamW step."""
+    from paddle_tpu_torch.parallel.functional import rmsnorm_lm_loss
+    llama, eps = model.llama, model.config.rms_norm_eps
+    total = torch.zeros((), dtype=torch.float32, device="cuda")
+    for tok in ids.chunk(m):
+        h = torch.nn.functional.embedding(tok, llama.embed_tokens.weight)
+        for layer in llama.layers:
+            h = layer(h)
+        loss = rmsnorm_lm_loss(llama.norm.weight, model.lm_head.weight, h,
+                               tok, eps)
+        (loss * (1.0 / m)).backward()
+        total += loss.detach().float() * (1.0 / m)
+    opt.step()
+    opt.clear_grad()
+    return float(total)
+
+
+def pipe_against_plain(runner, model):
+    """(bitwise equal, largest |difference|) of every runner tensor against
+    the model's parameter it stacks."""
+    lps, worst, same = runner.layers_per_stage, 0.0, True
+    pairs = [(runner.embed_params["weight"], model.llama.embed_tokens.weight),
+             (runner.head_params["norm"], model.llama.norm.weight),
+             (runner.head_params["lm_head"], model.lm_head.weight)]
+    layers = model.llama.layers
+    for name, t in runner.stage_params.items():
+        for s in range(t.shape[0]):
+            for j in range(lps):
+                mod = layers[s * lps + j]
+                for part in name.split("."):
+                    mod = getattr(mod, part)
+                pairs.append((t[s, j], mod))
+    for a, b in pairs:
+        same = same and torch.equal(a, b.detach())
+        worst = max(worst, float((a.float() - b.detach().float()).abs().max()))
+    return same, worst
+
+
+def pipe_reckoning(cfg, n_params, m, seq):
+    """Bytes FThenB keeps beside the weights, the runner's copy, its AdamW
+    moments and gradients (bf16): each stage's input for every
+    micro-batch (remat) and each micro-batch's head (bf16 logits and two
+    float32 copies for the log-softmax), as phase 25's reckoning counts
+    them; and the bytes left on the card."""
+    state = 2 * n_params * 5
+    keep = m * PIPE["pp"] * seq * cfg.hidden_size * 2 + \
+        m * seq * cfg.vocab_size * (2 + 4 + 4)
+    total = torch.cuda.get_device_properties(0).total_memory
+    return state, keep, total - state - keep
+
+
+def pipe_runner(model, mesh, schedule, m):
+    from paddle_tpu_torch.parallel.llama_pipeline import LlamaPipeRunner
+    opt = optimizer.AdamW(PIPE["lr"], parameters=model.parameters())
+    return LlamaPipeRunner(model, mesh, m, optimizer=opt, schedule=schedule,
+                           num_chunks=PIPE["chunks"])
+
+
+def restore_model(model, host):
+    with torch.no_grad():
+        for k, v in model.state_dict().items():
+            v.copy_(host[k])
+
+
+def phase26_pipeline():
+    """(a); returns the 1F1B runner (for (e)), its batches, the model and
+    its host copy, and the launches of the main path's runs."""
+    name, cfg, batch, seq, *_ = train_llama.llama_ladder()[0]
+    m, pp, steps = PIPE["micro"], PIPE["pp"], PIPE["steps"]
+    layers = cfg.num_hidden_layers
+    pt.seed(0)
+    model = pt.models.LlamaForCausalLM(cfg, device="cuda")
+    n_params = model.num_params()
+    host = {k: v.detach().to("cpu", copy=True)
+            for k, v in model.state_dict().items()}
+    mesh = pt.distributed.ProcessMesh(shape=[pp], dim_names=["pp"])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ids = torch.randint(0, cfg.vocab_size, (steps + 1, batch, seq),
+                        generator=gen, device="cuda")
+    heads = cfg.num_attention_heads
+    dec = ar.route(batch // m * heads, seq, seq, cfg.hidden_size // heads,
+                   torch.bfloat16, True, platform="cuda")
+    state, keep, left = pipe_reckoning(cfg, n_params, m, seq)
+    fits = left >= DIST_FREE_GIB * 2**30
+    fthenb_m = m if fits else m // 2
+    log(f"pipe (a): {name}, {n_params} params, {layers} layers over pp "
+        f"{pp} ({layers // pp} a stage), b{batch} s{seq} in {m} micro-batches"
+        f" of b{batch // m}; the router at (bh {batch // m * heads}, "
+        f"s{seq}, d{cfg.hidden_size // heads}, bf16, causal): fwd={dec.fwd} "
+        f"bwd={dec.bwd} [{dec.source}]; the stages run K1/K3/K4 "
+        f"(FLAGS_flash_attention_backend and _bwd = pallas); FThenB's "
+        f"reckoning: {state / 2**30:.1f} GiB of weights, copy, moments and "
+        f"gradients, {keep / 2**30:.2f} GiB of stage inputs and heads, "
+        f"{left / 2**30:.1f} GiB left (at least {DIST_FREE_GIB} asked): "
+        f"FThenB in {fthenb_m} micro-batches")
+    runs, ref = {}, {}
+
+    def keep(grads):
+        ref.update({k: v.clone() for k, v in grads.items()})
+    runner = pipe_runner(model, mesh, "1F1B", m)
+    for i in range(steps + 1):
+        runs.setdefault("1F1B", []).append(pipe_step(
+            runner, ids[i], ids[i], keep if i == 0 else None))
+    opt = optimizer.AdamW(PIPE["lr"], parameters=model.parameters())
+    torch.cuda.synchronize()
+    before = kernel_launches()
+    t0 = time.perf_counter()
+    plain = [plain_pipe_step(model, opt, ids[i], m) for i in range(steps + 1)]
+    plain_s = time.perf_counter() - t0
+    plain_launches = launch_delta(before)
+    del opt
+    same, worst = pipe_against_plain(runner, model)
+    losses = [r[0] for r in runs["1F1B"]]
+    log(f"pipe (a): 1F1B losses {losses}, the plain step's {plain}, equal: "
+        f"{losses == plain}; parameters after {steps + 1} steps bit for bit "
+        f"equal: {same}, largest |difference| {worst:.3e}; the plain step "
+        f"{plain_s / (steps + 1) * 1e3:.1f} ms, launches over its "
+        f"{steps + 1} steps {plain_launches}")
+    if not (all(np.isfinite(losses)) and losses == plain and same):
+        sys.exit("chip_smoke: 1F1B over pp 4 does not train bit for bit as "
+                 "the plain step")
+    if plain_launches != {k: v * (steps + 1) for k, v in pipe_launches(
+            "plain", m, layers, pp).items()}:
+        sys.exit(f"chip_smoke: the plain step launched {plain_launches}")
+    restore_model(model, host)
+    gaps = {}
+    for schedule in ("FThenB", "ZB", "VPP"):
+        mm = fthenb_m if schedule == "FThenB" else m
+        other = pipe_runner(model, mesh, schedule, mm)
+        runs[schedule] = [pipe_step(
+            other, ids[0], ids[0],
+            lambda g, k=schedule: gaps.__setitem__(k, grad_gap(g, ref)))]
+        del other
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the planted fault: 1F1B's first gradients with the last micro-batch
+    # taken from the next batch
+    bad = ids[0].clone()
+    bad[-(batch // m):] = ids[1][-(batch // m):]
+    other = pipe_runner(model, mesh, "1F1B", m)
+    fault = grad_gap(per_layer_grads(other, other.grads(bad, bad)[1]), ref)[1]
+    del other, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"pipe (a): first-step gradients against 1F1B's, per tensor and "
+        f"layer (bit for bit, largest relative L2; tol {PIPE_GRAD_RTOL:g}): "
+        + ", ".join(f"{k} ({v[0]}, {v[1]:.3e})" for k, v in gaps.items())
+        + f"; the planted fault (one micro-batch from another batch) "
+        f"{fault:.3e}")
+    if not (fault > PIPE_GRAD_RTOL
+            and all(v[1] <= PIPE_GRAD_RTOL for v in gaps.values())):
+        sys.exit("chip_smoke: a schedule's gradients are not 1F1B's, or the "
+                 "check cannot tell a wrong gradient")
+    first = runs["1F1B"][0][0]
+    main = {k: 0 for k in kernel_launches()}
+    for schedule, rs in runs.items():
+        mm = fthenb_m if schedule == "FThenB" else m
+        want = pipe_launches(schedule, mm, layers, pp)
+        tps = batch * seq / rs[-1][2]
+        mfu = train_llama.mfu(n_params, cfg, seq, tps, "cuda")
+        log(f"pipe (a): {schedule} [{CARD}]: step {rs[-1][2] * 1e3:.1f} ms "
+            f"(its step {len(rs)} of {len(rs)}), {tps:.1f} tokens/s, MFU "
+            f"{mfu if mfu is None else round(mfu, 4)}, launches a step "
+            f"{rs[-1][1]} (expected {want}), the schedule's peak memory "
+            f"above the step's start {rs[-1][3] / 2**30:.2f} GiB, first "
+            f"loss {rs[0][0]!r}")
+        for r in rs:
+            if r[1] != want:
+                sys.exit(f"chip_smoke: {schedule} launched {r[1]}, expected "
+                         f"{want}")
+            for k in main:
+                main[k] += r[1][k]
+        if schedule != "1F1B" and (abs(rs[0][0] - first) / abs(first)
+                                   > PIPE_FIRST_LOSS_RTOL):
+            sys.exit(f"chip_smoke: {schedule}'s first loss {rs[0][0]!r} is "
+                     f"not 1F1B's {first!r}")
+    # the activations' share of each schedule's peak: the peak less the
+    # gradients' bytes (1F1B allocates its gradients before its ticks, so
+    # its share is exact; FThenB's autograd allocates them as it goes, so
+    # its share is a lower bound)
+    grad_bytes = 2 * n_params
+    acts = {k: rs[-1][3] - grad_bytes for k, rs in runs.items()}
+    log(f"pipe (a): the schedules' peaks less the gradients' "
+        f"{grad_bytes / 2**30:.2f} GiB: "
+        + ", ".join(f"{k} {v / 2**30:.2f} GiB" for k, v in acts.items()))
+    if not acts["1F1B"] < acts["FThenB"]:
+        sys.exit("chip_smoke: 1F1B keeps more activations than FThenB")
+    return runner, ids, model, host, main
+
+
+def ring_inputs(b, s, h, d, seed, mesh=None, grad=False):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    out = []
+    for _ in range(3):
+        x = torch.randn(b, s, h, d, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        if mesh is not None:
+            x = pt.distributed.shard_tensor(x, mesh,
+                                            [pt.distributed.Shard(1)])
+        out.append(x.requires_grad_(grad))
+    return out
+
+
+def ring_dense_bytes(b, s, h, n):
+    """What autograd keeps of the dense ring: three float32 (b, h, s/n,
+    s/n) tensors for each shard's each ring step (the scores' max input,
+    exp's output and the masked probabilities)."""
+    sl = s // n
+    return n * n * 3 * 4 * b * h * sl * sl
+
+
+def ring_fault(out, q, k, v, n, causal):
+    """`out` with the last shard's queries attending to every block but
+    the first: what a ring that drops that shard's last step computes.
+    By SDPA with a mask, a check of the check only."""
+    sl = q.shape[1] // n
+    qs, ks, vs = (x.transpose(1, 2) for x in (q[:, (n - 1) * sl:],
+                                               k[:, sl:], v[:, sl:]))
+    mask = None
+    if causal:
+        mask = (torch.arange(ks.shape[2], device=q.device)[None]
+                <= torch.arange(sl, device=q.device)[:, None] + (n - 2) * sl)
+    bad = out.clone()
+    bad[:, (n - 1) * sl:] = torch.nn.functional.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=mask).transpose(1, 2)
+    return bad
+
+
+def ring_k1_rows():
+    """K1 at the ring's block shape, causal and not: device time of 20
+    graph-replayed calls, the plain version, SDPA and the bound."""
+    r = RING
+    sl = r["s"] // r["sep"]
+    rows = {}
+    for causal in (True, False):
+        q, k, v = ring_inputs(r["b"], sl, r["h"], r["d"], 7)
+        qf, kf, vf = (x.transpose(1, 2).reshape(r["b"] * r["h"], sl, r["d"])
+                      .contiguous() for x in (q, k, v))
+        scale = 1.0 / r["d"] ** 0.5
+        with torch.inference_mode():
+            out, lse = fa._flash_fwd_bhsd(qf, kf, vf, causal, scale)
+            ref, ref_lse = fa._flash_fwd_bhsd_plain(qf, kf, vf, causal, scale)
+            err = float((out.float() - ref.float()).abs().max())
+            rel = rel_err(out, ref)
+            err_lse = float((lse - ref_lse).abs().max())
+            del ref, ref_lse
+            ms = device_ms(lambda: fa._flash_fwd_bhsd(qf, kf, vf, causal,
+                                                      scale))
+            plain_ms = time_ms(lambda: fa._flash_fwd_bhsd_plain(
+                qf, kf, vf, causal, scale), reps=5, warmup=1)
+            ql, kl, vl = (x.transpose(1, 2) for x in (q, k, v))
+            library_ms = device_ms(lambda: library_attention(ql, kl, vl,
+                                                             causal))
+        bound, bound_by = k1_bound_ms(r["b"], r["h"], r["h"], sl, sl, r["d"],
+                                      causal)
+        rows["causal" if causal else "full"] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=bound_by, library_ms=library_ms)
+        log(f"ring (b): K1 at the ring's block (b{r['b']} h{r['h']} "
+            f"{sl}x{sl} d{r['d']} bf16, {'causal' if causal else 'full'}) "
+            f"[{CARD}]: {ms:.4f} ms (20 graph-replayed calls), plain "
+            f"{plain_ms:.3f} ms, sdpa {library_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by}), max|err| {err:.3e}, relative L2 "
+            f"{rel:.3e} (tol {RING_OUT_RTOL:g}), max|lse err| {err_lse:.3e} "
+            f"(tol {LSE_ATOL:g})")
+        if not (rel <= RING_OUT_RTOL and err_lse <= LSE_ATOL):
+            sys.exit("chip_smoke: K1 disagrees with its plain version at "
+                     "the ring's block")
+    return rows
+
+
+def rel_err(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def phase26_ring():
+    """(b); returns the K1 launches of its ring calls and the K1 rows."""
+    from paddle_tpu_torch.ops.ring_attention import ring_attention
+    r = RING
+    n = r["sep"]
+    mesh = pt.distributed.ProcessMesh(shape=[n], dim_names=["sep"])
+    q, k, v = ring_inputs(r["b"], r["s"], r["h"], r["d"], 0, mesh)
+    launches = 0
+    for causal in (True, False):
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            before = fa.flash_fwd_launches
+            t0 = time.perf_counter()
+            out = ring_attention(q, k, v, "sep", causal=causal)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            got = fa.flash_fwd_launches - before
+            launches += got
+            call_ms = time_ms(lambda: ring_attention(q, k, v, "sep",
+                                                     causal=causal),
+                              reps=3, warmup=1)
+            whole = fa.flash_attention_bshd(q, k, v, causal=causal)
+            err_whole = rel_err(out, whole)
+            fault = rel_err(ring_fault(out, q, k, v, n, causal), whole)
+            del whole
+            err_dense = None
+            if causal:
+                dense = ring_attention(q, k, v, "sep", causal=True,
+                                       use_flash=False)
+                err_dense = rel_err(out, dense)
+                del dense
+            ok = (got == n and err_whole <= RING_OUT_RTOL
+                  and (err_dense is None or err_dense <= RING_OUT_RTOL)
+                  and fault > RING_OUT_RTOL
+                  and bool(torch.isfinite(out).all()))
+        log(f"ring (b): b{r['b']} s{r['s']} h{r['h']} d{r['d']} bf16 over "
+            f"sep {n} ({r['s'] // n} a shard), {'causal' if causal else 'full'}"
+            f" [{CARD}]: K1 launches {got} a call, first call {ms:.1f} ms, "
+            f"{call_ms:.2f} ms a call (median of 3); relative L2 against "
+            f"flash_attention_bshd over the whole sequence {err_whole:.3e}"
+            + (f", against the dense ring {err_dense:.3e}" if causal else "")
+            + f" (tol {RING_OUT_RTOL:g}); the planted fault (shard {n - 1} "
+            f"without block 0) {fault:.3e}: {'ok' if ok else 'FAIL'}")
+        if not ok:
+            sys.exit("chip_smoke: the ring does not compute attention over "
+                     "the whole sequence")
+    del q, k, v, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    seq = next((s for s in RING_BWD_SEQS
+                if free - ring_dense_bytes(r["b"], s, r["h"], n)
+                >= RING_BWD_FREE_GIB * 2**30), RING_BWD_SEQS[-1])
+    log(f"ring (b): the backward's reckoning: the dense ring keeps "
+        + ", ".join(f"{ring_dense_bytes(r['b'], s, r['h'], n) / 2**30:.1f} "
+                    f"GiB at s{s}" for s in RING_BWD_SEQS)
+        + f"; {free / 2**30:.1f} GiB free, at least {RING_BWD_FREE_GIB} to "
+        f"be left: s{seq}")
+    q, k, v = ring_inputs(r["b"], seq, r["h"], r["d"], 1, mesh, grad=True)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    g = torch.randn(r["b"], seq, r["h"], r["d"], generator=gen,
+                    device="cuda", dtype=torch.bfloat16)
+    before = fa.flash_fwd_launches
+    t0 = time.perf_counter()
+    out = ring_attention(q, k, v, "sep", causal=True)
+    grads = torch.autograd.grad(out, (q, k, v), g)
+    torch.cuda.synchronize()
+    bwd_s = time.perf_counter() - t0
+    got = fa.flash_fwd_launches - before
+    launches += got
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    qd, kd, vd = (x.detach().requires_grad_() for x in (q, k, v))
+    want = torch.autograd.grad(fa.flash_attention_bshd(qd, kd, vd,
+                                                       causal=True),
+                               (qd, kd, vd), g)
+    errs = [rel_err(a, b) for a, b in zip(grads, want)]
+    log(f"ring (b): the backward at s{seq} through the dense ring "
+        f"[{CARD}]: {bwd_s:.2f} s forward and backward, K1 launches {got}, "
+        f"peak memory {peak / 2**30:.1f} GiB; dq, dk, dv against K3/K4's "
+        f"over the whole sequence: relative L2 {[f'{e:.3e}' for e in errs]}"
+        f" (tol {RING_GRAD_RTOL})")
+    del q, k, v, grads, want, qd, kd, vd
+    gc.collect()
+    torch.cuda.empty_cache()
+    if got != n or not all(e <= RING_GRAD_RTOL for e in errs):
+        sys.exit("chip_smoke: the ring's gradients are not attention's")
+    return launches, ring_k1_rows()
+
+
+def phase26_moe():
+    """(c): ExpertParallelMoE at Mixtral-8x7B's widths over ep 8."""
+    from paddle_tpu_torch.parallel.moe import (ExpertParallelMoE,
+                                               dropped_choices, moe_capacity)
+    c = EP_MOE
+    d, h, e, k, t, ep = (c[x] for x in ("d_model", "d_hidden", "experts",
+                                        "top_k", "tokens", "ep"))
+    mesh = pt.distributed.ProcessMesh(shape=[ep], dim_names=["ep"])
+    layer = ExpertParallelMoE(d, h, e, mesh=mesh, top_k=k)
+    params = layer.init(0, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(t, d, generator=gen, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        roomy = e / k
+        a, _ = ExpertParallelMoE(d, h, e, mesh=mesh, top_k=k,
+                                 capacity_factor=roomy).apply(params, x)
+        b, _ = ExpertParallelMoE(d, h, e, top_k=k,
+                                 capacity_factor=roomy).apply(params, x)
+        err = rel_err(a, b)
+        del a, b
+        logits = x @ params["gate"]
+        cap = moe_capacity(t // ep, e, layer.capacity_factor, k)
+        dropped = sum(dropped_choices(lg, e, cap, k)
+                      for lg in logits.chunk(ep))
+    for p in params.values():
+        p.requires_grad_()
+    xg = x.detach().requires_grad_()
+
+    def fwd_bwd():
+        out, aux = layer.apply(params, xg)
+        (out.float().pow(2).mean() + aux.float()).backward()
+        for p in list(params.values()) + [xg]:
+            p.grad = None
+        return out.detach(), float(aux.detach())
+
+    fwd_bwd()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    for _ in range(3):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out, aux = fwd_bwd()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    # the experts' two products on each kept (token, choice), forward and
+    # twice backward, and the gate's
+    useful = 3 * (2 * 2 * (t * k - dropped) * d * h + 2 * t * d * e)
+    best = min(ms) / 1e3
+    dense = (f"phase 23 (c)'s dense MoELayer (SwiGLU experts) at the same "
+             f"widths: {MOE_DENSE['ms']:.3f} ms, "
+             f"{MOE_DENSE['useful_tflops']:.1f} useful TFLOP/s, peak "
+             f"{MOE_DENSE['peak_gib']:.2f} GiB" if MOE_DENSE
+             else "phase 23 (c) did not run in this call")
+    log(f"moe (c): ExpertParallelMoE d_model {d}, {e} GELU experts of {h}, "
+        f"top-{k}, bf16, {t} tokens over ep {ep} [{CARD}]: ep {ep} against "
+        f"ep 1 at capacity factor {roomy:g} (no drop): relative L2 "
+        f"{err:.3e} (tol {EP_MOE_RTOL}); at capacity factor "
+        f"{layer.capacity_factor} ({cap} slots an expert a shard) "
+        f"{dropped} of {t * k} (token, choice) pairs dropped; forward and "
+        f"backward ms {[round(v, 3) for v in ms]}, {useful / best / 1e12:.1f}"
+        f" useful TFLOP/s, peak memory {peak / 2**30:.2f} GiB, aux loss "
+        f"{aux:.6f}; beside {dense}")
+    del params, x, xg, out, layer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not err <= EP_MOE_RTOL or not math.isfinite(aux):
+        sys.exit("chip_smoke: expert parallelism is not the local layer")
+
+
+CRITEO_GEN = r'''
+import sys
+import numpy as np
+from paddle_tpu_torch.distributed.dataset import MultiSlotDataGenerator
+out, n, dense_n, sparse_n, keys, a = sys.argv[1], *map(float, sys.argv[2:])
+n, dense_n, sparse_n, keys = int(n), int(dense_n), int(sparse_n), int(keys)
+rng = np.random.default_rng(0)
+label = (rng.random(n) < 0.25).astype(np.int64)
+dense = np.log1p(rng.poisson(3.0, (n, dense_n))).astype(np.float32)
+raw = (rng.zipf(a, (n, sparse_n)) % keys).astype(np.uint64)
+slot = np.arange(sparse_n, dtype=np.uint64)[None]
+with np.errstate(over="ignore"):
+    ids = (raw * np.uint64(0x9E3779B97F4A7C15)) ^ (slot << np.uint64(56))
+ids = (ids >> np.uint64(1)).astype(np.int64)
+
+
+class Criteo(MultiSlotDataGenerator):
+    def generate_sample(self, line):
+        i = int(line)
+
+        def sample():
+            yield ([("label", [int(label[i])]), ("dense", dense[i].tolist())]
+                   + [(f"C{j}", [int(ids[i, j])]) for j in range(sparse_n)])
+        return sample
+
+
+lines = Criteo().run_from_memory([str(i) for i in range(n)])
+with open(out, "w") as f:
+    f.write("\n".join(lines) + "\n")
+'''
+
+PS_SERVER = r'''
+import sys
+from paddle_tpu_torch.distributed import ps, rpc
+endpoint, dim, lr = sys.argv[1], int(sys.argv[2]), float(sys.argv[3])
+rpc.init_rpc(ps.the_one_ps.server_name(0), rank=1, world_size=2,
+             master_endpoint=endpoint)
+ps.TheOnePs([ps.TableConfig(0, dim, ps.CtrAccessor(
+    ps.SparseAdaGradRule(learning_rate=lr)))]).start_server(0)
+rpc.shutdown()
+'''
+
+
+class _FloatSlot:
+    def __init__(self, name):
+        self.name, self.dtype = name, "float32"
+
+
+class TimedSource:
+    """A PS client whose pulls and pushes are timed (host seconds)."""
+
+    def __init__(self, client):
+        self.client, self.pull_s, self.push_s = client, 0.0, 0.0
+        self.pushed = None
+
+    def pull_unique(self, table_id, ids):
+        t0 = time.perf_counter()
+        out = self.client.pull_unique(table_id, ids)
+        self.pull_s += time.perf_counter() - t0
+        return out
+
+    def push_unique(self, table_id, ids, grads):
+        pushed = (np.array(ids, copy=True),
+                  np.array(grads, np.float32, copy=True))
+        t0 = time.perf_counter()
+        self.client.push_unique(table_id, ids, grads)
+        self.push_s += time.perf_counter() - t0
+        self.pushed = pushed
+
+
+def ctr_model(device):
+    """DeepFM's deep part: the 13 dense features and the 26 pooled
+    embeddings through a 400-400-400 MLP to one logit, float32, drawn on
+    the CPU from seed(0) (the CPU's and the card's generators differ) and
+    moved to `device`."""
+    c = CRITEO
+    pt.seed(0)
+    width = c["dense"] + c["sparse"] * c["dim"]
+    layers = []
+    for w in c["hidden"]:
+        layers += [pt.nn.Linear(width, w, device="cpu"), pt.nn.ReLU()]
+        width = w
+    return pt.nn.Sequential(*layers, pt.nn.Linear(width, 1, device="cpu")) \
+        .to(device)
+
+
+def ctr_run(batches, client, device):
+    """The 32 batches through PsBatch (even steps) and PsEmbedding (odd),
+    the MLP on `device`; the embedding rows' gradients are summed by id on
+    the host, so every run pushes the same rows. Returns the seconds,
+    the host and device seconds, the pulls' and pushes' seconds, the
+    unique ids a batch, for an in-process client the table's (keys, rows)
+    after the first batch (PsBatch) and after the second (PsEmbedding),
+    and for each of those two steps what ps_step_on_cpu needs to redo
+    it: the MLP before it, its inputs and what it
+    pushed."""
+    from paddle_tpu_torch.distributed import ps
+    c = CRITEO
+    src = TimedSource(client)
+    model = ctr_model(device)
+    opt = optimizer.Adam(c["dense_lr"], parameters=model.parameters())
+    emb = ps.PsEmbedding(c["dim"], src, device=device)
+    bracket = ps.PsBatch(src, 0, c["dim"], c["batch"] * c["sparse"],
+                         device=device)
+    cuda = torch.device(device).type == "cuda"
+    device_s, uniq, snaps, probes = 0.0, [], [], []
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        ids = np.stack([batch[f"C{j}"][0] for j in range(c["sparse"])], 1)
+        dense = torch.from_numpy(batch["dense"][0].reshape(
+            -1, c["dense"])).to(device)
+        label = torch.from_numpy(batch["label"][0]).to(device)
+        uniq.append(len(np.unique(ids)))
+        if i % 2 == 0:
+            rows, inv = bracket.prepare(ids)
+            e = rows[inv].detach().requires_grad_()
+        else:
+            e = emb(torch.from_numpy(ids).to(device))
+        if i < 2:
+            probes.append(dict(
+                mlp=[p.detach().to("cpu", copy=True)
+                     for p in model.parameters()],
+                dense=dense.cpu(), label=label.cpu(), e=e.detach().cpu(),
+                ids=ids))
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+            start.record()
+        logit = model(torch.cat([dense, e.reshape(len(label), -1)], 1))
+        loss = torch.nn.functional.binary_cross_entropy_with_logits(
+            logit[:, 0], label.float())
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        if cuda:
+            end.record()
+            end.synchronize()
+            device_s += start.elapsed_time(end) / 1e3
+        if i % 2 == 0:
+            g = e.grad.reshape(-1, c["dim"]).float().cpu().numpy()
+            inv_np = inv.cpu().numpy()
+            drows = np.zeros((c["batch"] * c["sparse"], c["dim"]), np.float32)
+            np.add.at(drows, inv_np, g)
+            bracket.complete(drows)
+        if i < 2:
+            probes[-1]["pushed"] = src.pushed
+        if i < 2 and isinstance(client.channels[0], ps.LocalChannel):
+            keys = np.sort(client.channels[0].server.tables[0].keys())
+            snaps.append((keys, table_rows(client, keys)))
+    total = time.perf_counter() - t0
+    return (total, total - device_s, device_s, src.pull_s, src.push_s, uniq,
+            snaps, probes)
+
+
+def ps_step_on_cpu(probe):
+    """Redo one of the card's CTR steps on the CPU from the same MLP and
+    inputs, in float32 and in float64, and sum the rows' gradients by id
+    as the push does. Returns the relative L2 of the card's pushed
+    gradients against the CPU's float32 ones, that of the CPU's float32
+    against its float64 (how far float32 itself is from exact here), and
+    that of a planted fault (the first sample's gradients lost)."""
+    c = CRITEO
+    uniq, inv = np.unique(probe["ids"].reshape(-1).astype(np.uint64),
+                          return_inverse=True)
+    inv = inv.reshape(-1)
+    ids, got = probe["pushed"]
+    if not np.array_equal(np.asarray(ids, np.uint64), uniq):
+        return float("inf"), 0.0, 0.0
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        model = ctr_model("cpu").to(dtype)
+        with torch.no_grad():
+            for p, q in zip(model.parameters(), probe["mlp"]):
+                p.copy_(q)
+        e = probe["e"].to(dtype, copy=True).requires_grad_()
+        logit = model(torch.cat([probe["dense"].to(dtype), e.reshape(
+            len(probe["label"]), -1)], 1))
+        torch.nn.functional.binary_cross_entropy_with_logits(
+            logit[:, 0], probe["label"].to(dtype)).backward()
+        g = e.grad.reshape(-1, c["dim"]).numpy()
+        out[dtype] = np.zeros((len(uniq), c["dim"]), g.dtype)
+        np.add.at(out[dtype], inv, g)
+    want, exact = out[torch.float32], out[torch.float64]
+    lost = want.copy()
+    np.add.at(lost, inv[:c["sparse"]], -g[:c["sparse"]].astype(np.float32))
+
+    def rel(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    return rel(got[:len(uniq)], want), rel(want, exact), rel(lost, want)
+
+
+def table_rows(client, keys):
+    return client.pull_unique(0, keys)
+
+
+def ctr_parse(gen_proc, data_path):
+    """Wait for the generator, then read its file with InMemoryDataset on
+    a thread (beside (e)); returns the thread and a dict that receives the
+    dataset and the parse seconds."""
+    from paddle_tpu_torch.distributed import InMemoryDataset
+    c = CRITEO
+    out, err = gen_proc.communicate(timeout=300)
+    if gen_proc.returncode != 0:
+        sys.exit(f"chip_smoke: the Criteo generator failed:\n{err}")
+    data = InMemoryDataset()
+    data.init(batch_size=c["batch"], use_var=[
+        _FloatSlot("label"), _FloatSlot("dense")]
+        + [f"C{j}" for j in range(c["sparse"])])
+    data.set_filelist([data_path])
+    parsed = {}
+
+    def load():
+        t0 = time.perf_counter()
+        data.load_into_memory()
+        parsed.update(data=data, seconds=time.perf_counter() - t0)
+
+    thread = threading.Thread(target=load, daemon=True)
+    thread.start()
+    return thread, parsed
+
+
+def phase26_ps(parse):
+    """(d): the CTR model's steps over LocalChannel and RpcChannel, the
+    same run on the CPU, and a save/load round trip."""
+    from paddle_tpu_torch.distributed import ps, rpc
+    c = CRITEO
+    thread, parsed = parse
+    thread.join()
+    batches = list(parsed["data"])
+    parse_s = parsed["seconds"]
+    cfgs = [ps.TableConfig(0, c["dim"], ps.CtrAccessor(
+        ps.SparseAdaGradRule(learning_rate=c["lr"])))]
+    port = free_port()
+    server = subprocess.Popen(
+        [sys.executable, "-c", PS_SERVER, f"127.0.0.1:{port}",
+         str(c["dim"]), str(c["lr"])], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        local = ps.TheOnePs(cfgs).start_local()
+        runs = {"local": ctr_run(batches, local, "cuda")}
+        keys = np.sort(local.channels[0].server.tables[0].keys())
+        rows = {"local": table_rows(local, keys)}
+        rpc.init_rpc("trainer_0", rank=0, world_size=2,
+                     master_endpoint=f"127.0.0.1:{port}")
+        try:
+            remote = ps.TheOnePs(cfgs).connect([ps.the_one_ps.server_name(0)])
+            runs["rpc"] = ctr_run(batches, remote, "cuda")
+            rows["rpc"] = table_rows(remote, keys)
+            remote_rows = remote.stats()[0][0]
+        finally:
+            rpc.shutdown()
+        server.communicate(timeout=60)
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+    cpu = ps.TheOnePs(cfgs).start_local()
+    cpu_snaps = ctr_run(batches, cpu, "cpu")[-2]
+    rows["cpu"] = table_rows(cpu, keys)
+    same = np.array_equal(rows["local"], rows["rpc"])
+    card_snaps = runs["local"][-2]
+    steps = {(label, i): ps_step_on_cpu(p) for label, r in runs.items()
+             for i, p in enumerate(r[-1])}
+
+    def agree(a, b):
+        return (float((np.abs(a - b) <= PS_ROW_ATOL).mean()),
+                float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+    same_keys = all(np.array_equal(a[0], b[0])
+                    for a, b in zip(card_snaps, cpu_snaps))
+    if same_keys:
+        share, rel = agree(card_snaps[0][1], cpu_snaps[0][1])
+        new = ~np.isin(card_snaps[1][0], card_snaps[0][0])
+        share1, rel1 = agree(card_snaps[1][1][new], cpu_snaps[1][1][new])
+        whole1, _ = agree(card_snaps[1][1], cpu_snaps[1][1])
+    else:
+        share = share1 = whole1 = 0.0
+        rel = rel1 = float("inf")
+        new = np.zeros(0, bool)
+    end_share, end_rel = agree(rows["local"], rows["cpu"])
+    with tempfile.TemporaryDirectory() as tmp:
+        eng = ps.TheOnePs(cfgs)
+        eng.client = local
+        t1 = time.perf_counter()
+        eng.save(tmp)
+        fresh = ps.TheOnePs(cfgs)
+        fresh.start_local()
+        fresh.load(tmp)
+        io_s = time.perf_counter() - t1
+        reloaded = np.array_equal(table_rows(fresh.client, keys),
+                                  rows["local"])
+        n_fresh = len(fresh.servers[0].tables[0])
+    n = c["batches"] * c["batch"]
+    for label, (total, host_s, dev_s, pull_s, push_s, uniq, *_) in \
+            runs.items():
+        log(f"ps (d): {label} channel [{CARD}]: {n / total:.1f} samples/s, "
+            f"pull {pull_s / len(uniq) * 1e3:.2f} ms and push "
+            f"{push_s / len(uniq) * 1e3:.2f} ms a step, host "
+            f"{host_s / len(uniq) * 1e3:.2f} ms against device "
+            f"{dev_s / len(uniq) * 1e3:.2f} ms a step, unique ids a batch "
+            f"{min(uniq)}-{max(uniq)} (mean {np.mean(uniq):.0f})")
+    log(f"ps (d): Criteo-shaped CTR ({c['dense']} dense + {c['sparse']} "
+        f"sparse slots, ids Zipf({c['zipf']}) over 2^24 keys, hashed), "
+        f"{c['batches']} batches of {c['batch']} through MultiSlotDataGenerator"
+        f" and InMemoryDataset (parse {parse_s:.2f} s on a thread beside "
+        f"(e)), one SparseTable of "
+        f"dim {c['dim']} (adagrad), DeepFM's 400-400-400 MLP: {len(keys)} "
+        f"table rows ({remote_rows} on the RPC server); rows equal over "
+        f"both channels: {same}; against the same run on the CPU (the same "
+        f"ids: {same_keys}), elements within {PS_ROW_ATOL:g} (at least "
+        f"{PS_ROW_SHARE} asked) after the first batch (PsBatch, "
+        f"{len(card_snaps[0][0])} rows) {share:.6f}, relative L2 "
+        f"{rel:.3e}; after the second (PsEmbedding), in its "
+        f"{int(new.sum())} new rows, {share1:.6f}, relative L2 {rel1:.3e} "
+        f"(in all {len(card_snaps[1][0])} rows {whole1:.6f}; printed); "
+        f"after all {c['batches']}: {end_share:.6f} within, relative L2 "
+        f"{end_rel:.3e} (printed); the card's pushed gradients against the "
+        f"same steps redone on the CPU from the card's MLP and inputs, "
+        f"relative L2 (tol {PS_GRAD_RTOL:g}; the planted fault, one "
+        f"sample's gradients lost): "
+        + ", ".join(f"{k[0]} step {k[1]} "
+                    f"({'PsBatch' if k[1] % 2 == 0 else 'PsEmbedding'}) "
+                    f"{v[0]:.3e} (float32 against float64 {v[1]:.3e}, "
+                    f"fault {v[2]:.3e})" for k, v in steps.items())
+        + f"; save/load round trip {io_s:.2f} s, equal: {reloaded} "
+        f"({n_fresh} rows)")
+    if not (same and same_keys and share >= PS_ROW_SHARE and reloaded
+            and len(steps) == 4
+            and all(v[0] <= PS_GRAD_RTOL < v[2] for v in steps.values())
+            and remote_rows == len(keys) == n_fresh):
+        sys.exit("chip_smoke: the parameter server's tables disagree")
+
+
+def phase26_guards(runner, ids, model, host):
+    """(e): (a)'s runner under TrainSupervisor, and the Watchdog."""
+    from paddle_tpu_torch.distributed.watchdog import Watchdog
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.resilience.supervisor import (Preempted,
+                                                        TrainSupervisor)
+    ckpt, raw = {}, []
+
+    def tensors():
+        return {f"{g}.{k}": v for g, tree in runner._groups()
+                for k, v in tree.items()}
+
+    def save(step):
+        ckpt.update({k: v.detach().to("cpu", copy=True)
+                     for k, v in tensors().items()})
+        ckpt["__step__"] = step
+
+    def load():
+        with torch.no_grad():
+            for k, v in tensors().items():
+                v.copy_(ckpt[k])
+        return ckpt["__step__"]
+
+    def step(tok):
+        loss = runner.step(tok, tok)
+        raw.append(float(loss))
+        return loss
+
+    from paddle_tpu_torch.observability.catalog import metric
+    obs.enable()
+    try:
+        skips = metric("train_nonfinite_skips_total").value
+        sup = TrainSupervisor(step, save_fn=save, load_fn=load,
+                              restore_fn=load, checkpoint_every=1)
+        first = sup.step(ids[0])
+        kept = {k: v.clone() for k, v in tensors().items()}
+        with faults.injected_faults("train.step_nonfinite:1:FaultInjected"):
+            skipped = sup.step(ids[1])
+        unchanged = all(torch.equal(v, kept[k]) for k, v in tensors().items())
+        counted = metric("train_nonfinite_skips_total").value - skips
+        del kept
+        sup.request_preemption()
+        try:
+            sup.step(ids[2])
+            code = None
+        except Preempted as e:
+            code = e.code
+        for v in tensors().values():
+            v.data.zero_()
+        resumed = TrainSupervisor(step, load_fn=load)
+        start = resumed.resume()
+        after = resumed.step(ids[1])
+    finally:
+        obs.disable()
+    fired = []
+    dog = Watchdog(timeout=GUARD_TIMEOUT, poll_interval=0.1,
+                   on_timeout=lambda w: fired.append(w.step_count))
+    with dog:
+        with dog.step_guard():
+            pass
+        with dog.step_guard():
+            time.sleep(GUARD_SLEEP)
+    log(f"guards (e) [{CARD}]: supervised 1F1B steps: loss {first!r}; the "
+        f"injected train.step_nonfinite skipped its step ({skipped}), "
+        f"parameters unchanged: {unchanged}, train_nonfinite_skips_total "
+        f"+{counted:g}; the preemption saved parameters only and exited "
+        f"with code {code}; resume() at step {start}, the next loss "
+        f"{after!r} against the uninterrupted run's {raw[1]!r}; the "
+        f"Watchdog ({GUARD_TIMEOUT} s) fired on a step that slept "
+        f"{GUARD_SLEEP} s: {dog.fired} (after {fired} steps, the stacks on "
+        f"stderr)")
+    if not (skipped is None and unchanged and counted == 1 and code == 0
+            and start == 1 and after == raw[1] and dog.fired
+            and fired == [1]):
+        sys.exit("chip_smoke: the training guards misbehaved")
+
+
+def phase_pipeline_ring_moe_ps():
+    """Phase 26; returns each kernel's launches on its main paths: the
+    pipeline's runs in (a) and the ring's calls in (b), and (b)'s K1 rows
+    at the ring's block shape."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = CRITEO
+    tmp = tempfile.mkdtemp()
+    data_path = os.path.join(tmp, "criteo.txt")
+    gen_proc = subprocess.Popen(
+        [sys.executable, "-c", CRITEO_GEN, data_path,
+         str(c["batches"] * c["batch"]), str(c["dense"]), str(c["sparse"]),
+         str(c["keys"]), str(c["zipf"])], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        pt.set_flags({"FLAGS_flash_attention_backend": "pallas",
+                      "FLAGS_flash_attention_bwd": "pallas"})
+        try:
+            runner, ids, model, host, launches = phase26_pipeline()
+            log(f"phase 26 (a): {time.perf_counter() - t0:.1f} s")
+            # the CTR data is read beside (e), which checks behaviour and
+            # times nothing; (b) and (c) wait for it, as the reading
+            # thread holds the GIL the launching thread needs
+            parse = ctr_parse(gen_proc, data_path)
+            t1 = time.perf_counter()
+            phase26_guards(runner, ids, model, host)
+            parse[0].join()
+            log(f"phase 26 (e): {time.perf_counter() - t1:.1f} s")
+        finally:
+            pt.set_flags({"FLAGS_flash_attention_backend": "auto",
+                          "FLAGS_flash_attention_bwd": "auto"})
+        del runner, ids, model, host
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ring, rows = phase26_ring()
+        launches["flash_fwd"] += ring
+        log(f"phase 26 (b): {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        phase26_moe()
+        log(f"phase 26 (c): {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        phase26_ps(parse)
+        log(f"phase 26 (d): {time.perf_counter() - t1:.1f} s")
+    finally:
+        if gen_proc.poll() is None:
+            gen_proc.kill()
+            gen_proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, rows
+
+
 def timed(label, fn, *args):
     """fn(*args), logging its seconds as phase `label`'s."""
     t0 = time.perf_counter()
@@ -7354,18 +8451,21 @@ def main():
     plumbing = timed("24 (plumbing, distributed)", phase_plumbing)
     dist25 = timed("25 (DTensor, fleet, ZeRO, checkpoint)",
                    phase_distributed)
-    log(f"phases 1-25: {time.perf_counter() - t0:.1f} s")
+    pipe26, _ = timed("26 (pipeline, ring, EP-MoE, PS, guards)",
+                      phase_pipeline_ring_moe_ps)
+    log(f"phases 1-26: {time.perf_counter() - t0:.1f} s")
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     # K1 runs on the serving (bf16 and int8), predictor, training, BERT,
     # GPT, decode, hapi BERT, Transformer-base, ViT, Hessian-vector,
-    # 2:4-pruned BERT, reloaded llama_1.3b and distributed (to_static on
-    # the 2x2 mesh, the fleet pipeline) paths, K3 and K4 on the training,
-    # BERT, hapi BERT, Transformer-base, ViT, Hessian-vector (its ordinary
-    # backward), 2:4-pruned BERT and distributed paths (the graph and MoE
-    # paths launch none; the
+    # 2:4-pruned BERT, reloaded llama_1.3b, distributed (to_static on
+    # the 2x2 mesh, the fleet pipeline) and phase 26 (the 1F1B, FThenB, ZB
+    # and VPP runs over pp 4, the sep ring's calls) paths, K3 and K4 on the
+    # training, BERT, hapi BERT, Transformer-base, ViT, Hessian-vector (its
+    # ordinary backward), 2:4-pruned BERT, distributed and phase 26's
+    # pipeline paths (the graph, MoE, EP-MoE and PS paths launch none; the
     # ResNet, vision-zoo, hapi ResNet and LeNet, LSTM seq2seq and DDPM
     # paths add none, counted all the same); their times are the Llama
     # training shape's (phases 3 and 5 print BERT's too). K2's are
@@ -7379,7 +8479,8 @@ def main():
                               + zoo["flash_fwd"] + hapi["flash_fwd"]
                               + mt["flash_fwd"] + vision["flash_fwd"]
                               + hvp["flash_fwd"] + sparse["flash_fwd"]
-                              + plumbing + dist25["flash_fwd"]),
+                              + plumbing + dist25["flash_fwd"]
+                              + pipe26["flash_fwd"]),
                     **{key: k1["train"][key] for key in keys}),
                dict(name="flash_fwd_rms_epilogue", route="cuda",
                     source=src + "fwd.cu", replaces=ref + "116",
@@ -7393,7 +8494,8 @@ def main():
                               + vision["flash_bwd_dq"]
                               + hvp["flash_bwd_dq"]
                               + sparse["flash_bwd_dq"]
-                              + dist25["flash_bwd_dq"]),
+                              + dist25["flash_bwd_dq"]
+                              + pipe26["flash_bwd_dq"]),
                     **k34["train"]["dq"]),
                dict(name="flash_bwd_dkv", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "249",
@@ -7405,7 +8507,8 @@ def main():
                               + vision["flash_bwd_dkv"]
                               + hvp["flash_bwd_dkv"]
                               + sparse["flash_bwd_dkv"]
-                              + dist25["flash_bwd_dkv"]),
+                              + dist25["flash_bwd_dkv"]
+                              + pipe26["flash_bwd_dkv"]),
                     **k34["train"]["dkv"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -40,6 +40,12 @@ MoELayer's state is its gate (`gate.gate.weight`/`bias`) and its experts
 and its Conv3D and SubmConv3D the dense NDHWC convolution as `_conv`
 (weight (out, in, kd, kh, kw)). ASP masks are not carried: they are
 rebuilt from a pruned model's weights.
+
+`moe_params_from_reference` carries parallel.moe.ExpertParallelMoE's
+`init` dict (gate, w1, w2); `load_reference_pipe` fills a
+LlamaPipeRunner's embedding, stacked stage and head tensors from a
+reference Llama's state dict; `load_reference_table` loads a PS table the
+reference saved (its native checkpoint, or its numpy store's .npz).
 """
 
 from __future__ import annotations
@@ -56,7 +62,8 @@ from .vision.models.vgg import _CFGS as _VGG_CFGS
 
 __all__ = ["state_from_reference", "load_reference_state",
            "tree_from_reference", "tensor_from_bytes",
-           "load_reference_program"]
+           "load_reference_program", "moe_params_from_reference",
+           "load_reference_pipe", "load_reference_table"]
 
 # the scales tried on a MobileNet state (the published ones of V1-V3 and
 # the reference's tests')
@@ -508,3 +515,82 @@ def tree_from_reference(np_tree, device, dtype=None):
             return {k: conv(v) for k, v in x.items()}
         return _tensor(x).to(device=device, dtype=dt)
     return conv(np_tree)
+
+
+def moe_params_from_reference(np_params: dict, device, dtype=None,
+                              mesh=None, axis_name="ep") -> dict:
+    """ExpertParallelMoE's params (gate [D, E], w1 [E, D, H], w2 [E, H, D])
+    from the reference's `init` dict as numpy arrays, w1 and w2 marked
+    Shard(0) on `axis_name` where `mesh` has it. Raises on a missing or
+    unexpected key or inconsistent shapes."""
+    if set(np_params) != {"gate", "w1", "w2"}:
+        raise KeyError(f"an ExpertParallelMoE init dict holds gate, w1 and "
+                       f"w2, not {sorted(np_params)}")
+    d, e = np.shape(np_params["gate"])
+    h = np.shape(np_params["w1"])[2]
+    want = {"gate": (d, e), "w1": (e, d, h), "w2": (e, h, d)}
+    for k, shape in want.items():
+        if tuple(np.shape(np_params[k])) != shape:
+            raise ValueError(f"{k}: shape {np.shape(np_params[k])}, the "
+                             f"gate's widths give {shape}")
+    out = tree_from_reference(np_params, device, dtype)
+    if mesh is not None and axis_name in mesh.dim_names:
+        from .distributed.placement import P, spec_to_placements
+        for k in ("w1", "w2"):
+            out[k].process_mesh = mesh
+            out[k].placements = spec_to_placements(P(axis_name), mesh, 3)
+    return out
+
+
+@torch.no_grad()
+def load_reference_pipe(runner, np_state: dict) -> None:
+    """Copy a reference LlamaForCausalLM's state dict (numpy arrays) into
+    `runner`'s (a LlamaPipeRunner's) embed, stacked stage and head tensors,
+    laid out as the runner stacks its own model's; raises on a missing or
+    unexpected key or a shape mismatch."""
+    from .parallel.functional import split_stacked_layer_params
+    state = {k: _tensor(v) for k, v in np_state.items()}
+    stacked, other = split_stacked_layer_params(state)
+    names = {"llama.embed_tokens.weight": runner.embed_params["weight"],
+             "llama.norm.weight": runner.head_params["norm"]}
+    if "lm_head" in runner.head_params:
+        names["lm_head.weight"] = runner.head_params["lm_head"]
+    if set(other) != set(names) or set(stacked) != set(runner.stage_params):
+        raise KeyError(f"reference keys {sorted(other)} + layers "
+                       f"{sorted(stacked)} do not match the runner's")
+    lead = 3 if runner.schedule == "VPP" else 2
+    pairs = [(k, other[k], t) for k, t in names.items()] + [
+        (k, arr, runner.stage_params[k]) for k, arr in stacked.items()]
+    for k, src, dst in pairs:
+        inner = dst.shape[lead:] if k in stacked else dst.shape
+        if tuple(src.shape[-len(inner):] if inner else ()) != tuple(inner) \
+                or src.numel() != dst.numel():
+            raise ValueError(f"{k}: shape {tuple(src.shape)} against the "
+                             f"runner's {tuple(dst.shape)}")
+        if k in stacked and runner.schedule == "VPP":
+            pp, v, lv = dst.shape[:3]
+            src = src.reshape((v, pp, lv) + src.shape[1:]).transpose(0, 1)
+        dst.copy_(src.reshape(dst.shape))
+
+
+def load_reference_table(table, path: str) -> None:
+    """Load a SparseTable the reference saved at `path` into `table` (a
+    port SparseTable of the same emb_dim and rule): the native checkpoint
+    (the 'PTPS' format both packages' csrc/ps_table.cc write) into either
+    store, or the reference's numpy store's `path`.npz into a numpy-store
+    table."""
+    import os
+    npz = path if path.endswith(".npz") else path + ".npz"
+    if os.path.exists(path) and not path.endswith(".npz"):
+        with open(path, "rb") as f:
+            if f.read(4) != b"PTPS":
+                raise ValueError(f"{path} is not a PS table checkpoint")
+        if table._native:
+            table.load(path)
+            return
+        raise ValueError(f"{path} is a native checkpoint: load it into a "
+                         f"table with the native store")
+    if table._native:
+        raise ValueError(f"{npz} is the numpy store's: load it into a "
+                         f"SparseTable(use_native=False)")
+    table.load(npz)

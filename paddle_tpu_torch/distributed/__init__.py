@@ -6,11 +6,12 @@ Ported: the store (`store.py`), the parallel environment
 layer: placements and ProcessMesh (`placement.py`), the DTensor API
 (`api.py`), auto-parallel with its Engine (`auto_parallel.py`), the
 auto-tuner, fleet with elastic membership, the distributed checkpoint,
-`io`, group sharding and DataParallel. A DTensor holds its global value on
-one device and carries its mesh and placements (placement.py). What is
-left (rpc, ps, the datasets, watchdog) is ROADMAP Queue 1 item 2;
-tests/test_torch_distributed.py holds the names still missing to the list
-there.
+`io`, group sharding and DataParallel, the step watchdog (`watchdog.py`),
+and the parameter-server stack: `rpc`, `ps` and the slot datasets
+(`dataset.py`). A DTensor holds its global value on one device and carries
+its mesh and placements (placement.py). The public surface is the
+reference's, with `ResilientStore` and `get_store` besides
+(tests/test_torch_distributed.py).
 """
 
 from __future__ import annotations
@@ -47,6 +48,13 @@ from .sharding import (  # noqa: F401
     group_sharded_parallel, save_group_sharded_model)
 from . import parallel  # noqa: F401
 from .parallel import DataParallel  # noqa: F401
+from . import watchdog  # noqa: F401
+from .watchdog import Watchdog, enable_comm_watchdog  # noqa: F401
+from . import dataset  # noqa: F401
+from .dataset import InMemoryDataset, QueueDataset  # noqa: F401
+from . import ps  # noqa: F401
+from .ps.accessor import (  # noqa: F401
+    CountFilterEntry, ProbabilityEntry, ShowClickEntry)
 
 __all__ = ["init_parallel_env", "get_rank", "get_world_size", "get_group",
            "new_group", "is_initialized", "ParallelEnv", "barrier",
@@ -68,7 +76,9 @@ __all__ = ["init_parallel_env", "get_rank", "get_world_size", "get_group",
            "group_sharded_parallel", "save_group_sharded_model",
            "DataParallel", "is_available", "wait", "broadcast_object_list",
            "scatter_object_list", "gloo_init_parallel_env", "gloo_barrier",
-           "gloo_release"]
+           "gloo_release", "watchdog", "Watchdog", "enable_comm_watchdog",
+           "dataset", "InMemoryDataset", "QueueDataset", "ps",
+           "CountFilterEntry", "ProbabilityEntry", "ShowClickEntry"]
 
 
 def get_mesh():

@@ -5,11 +5,10 @@ HybridCommunicateGroup with the axis order pp→mp→sep→sharding→dp).
 
 The rank grid is a ProcessMesh (distributed/placement.py) with named axes;
 each communicator group is a mesh axis. As in the reference, one process
-drives the whole mesh, so each axis rank is 0. The parameter-server paths
+drives the whole mesh, so each axis rank is 0. The parameter-server mode
 (`init(is_collective=False)`, `ps_tables`, `init_server`, `run_server`,
-`init_worker`, `stop_worker`, `save_persistables` and the MultiSlot data
-generators) raise NotImplementedError: ROADMAP Queue 1's `rpc`/`ps` item
-ports them.
+`init_worker`, `stop_worker`, `save_persistables`) runs over
+distributed/ps's TheOnePs, as the reference's does.
 """
 
 from __future__ import annotations
@@ -29,14 +28,6 @@ __all__ = ["init", "DistributedStrategy", "HybridCommunicateGroup",
 from . import meta_parallel  # noqa: F401,E402
 from . import meta_optimizers  # noqa: F401,E402
 from .utils import recompute  # noqa: F401,E402
-
-_PS = ("the parameter-server mode of fleet is not ported yet (ROADMAP "
-       "Queue 1, the `rpc`/`ps` item)")
-
-
-def _no_ps(*a, **k):
-    raise NotImplementedError(_PS)
-
 
 class DistributedStrategy:
     """reference: fleet/base/distributed_strategy.py (proto-backed)."""
@@ -202,16 +193,23 @@ def get_hybrid_communicate_group():
 
 class _Fleet:
     _role_maker = None
+    _ps_engine = None
 
     def init(self, role_maker=None, is_collective=False, strategy=None,
              log_level="INFO", *, device=None):
-        """Collective mode only: the hybrid group of `strategy`'s
-        hybrid_configs, its mesh on `device` (the port's default if
-        None)."""
+        """Collective mode: the hybrid group of `strategy`'s
+        hybrid_configs, its mesh on `device` (the port's default if None).
+        With is_collective=False (or a PS role maker), PS mode: the role
+        maker from the environment and no mesh; the tables come from
+        `ps_tables`."""
         global _hcg, _strategy
-        if not is_collective or (role_maker is not None and not getattr(
-                role_maker, "_collective", True)):
-            _no_ps()
+        if role_maker is None and not is_collective:
+            role_maker = PaddleCloudRoleMaker(is_collective=False)
+        if role_maker is not None and not getattr(role_maker, "_collective",
+                                                  True):
+            self._role_maker = role_maker
+            _strategy = strategy or DistributedStrategy()
+            return self
         self._role_maker = role_maker
         from ..parallel_env import init_parallel_env
         init_parallel_env()
@@ -262,25 +260,66 @@ class _Fleet:
     def get_hybrid_communicate_group(self):
         return _hcg
 
-    # -- the parameter-server lifecycle: ROADMAP Queue 1's rpc/ps item -----
+    # -- the parameter-server lifecycle (reference fleet.py init_server/
+    # run_server/init_worker/stop_worker; the runtime is ps.TheOnePs) -------
     def ps_tables(self, *table_configs):
-        _no_ps()
+        """Declare PS mode's sparse tables (TableConfigs)."""
+        from ..ps import the_one_ps
+        self._ps_engine = the_one_ps.from_env(list(table_configs))
+        return self._ps_engine
 
     def init_server(self, dirname=None, **kwargs):
-        _no_ps()
+        """Start this process's server shard (every shard in-process for
+        one server or no role maker), loading `dirname` if given."""
+        eng = self._ps_engine
+        if eng is None:
+            raise RuntimeError("fleet.init_server: declare tables first "
+                               "via fleet.ps_tables(*TableConfigs)")
+        if eng.num_servers <= 1 or self._role_maker is None:
+            eng.start_local()
+        else:
+            sid = self._role_maker.worker_index() \
+                if self._role_maker.is_server() else 0
+            eng.start_server(sid)
+        if dirname:
+            eng.load(dirname)
+        return eng
 
     def run_server(self):
-        _no_ps()
+        """Serve until stop_worker (the RPC threads answer requests)."""
+        if self._ps_engine is None:
+            raise RuntimeError("fleet.run_server before init_server")
+        self._ps_engine.run_server()
 
     def init_worker(self, scopes=None):
-        _no_ps()
+        """The trainer's PsClient: to the in-process server, or over RPC
+        to the server processes named ps_server_<i>."""
+        eng = self._ps_engine
+        if eng is None:
+            raise RuntimeError("fleet.init_worker: declare tables first "
+                               "via fleet.ps_tables(*TableConfigs)")
+        if eng.client is None:
+            if eng.num_servers <= 1:
+                if eng.servers:
+                    from ..ps.service import LocalChannel, PsClient
+                    eng.client = PsClient([LocalChannel(eng.servers[0])])
+                else:
+                    eng.start_local()
+            else:
+                from ..ps.the_one_ps import server_name
+                eng.connect([server_name(i)
+                             for i in range(eng.num_servers)])
+        return eng.client
 
     def stop_worker(self):
-        _no_ps()
+        if self._ps_engine is not None:
+            self._ps_engine.stop()
 
     def save_persistables(self, executor=None, dirname=None,
                           main_program=None, mode=0):
-        _no_ps()
+        """Save every table to `dirname` (the native checkpoint format)."""
+        if self._ps_engine is not None and dirname:
+            self._ps_engine.save(dirname)
 
 
 fleet = _Fleet()
@@ -378,12 +417,5 @@ class UserDefinedRoleMaker(PaddleCloudRoleMaker):
         self._server_endpoints = list(server_endpoints or [])
 
 
-class MultiSlotDataGenerator:
-    """The PS mode's data generator (ROADMAP Queue 1's rpc/ps item)."""
-
-    def __init__(self, *a, **k):
-        _no_ps()
-
-
-class MultiSlotStringDataGenerator(MultiSlotDataGenerator):
-    pass
+from ..dataset import (  # noqa: E402,F401
+    MultiSlotDataGenerator, MultiSlotStringDataGenerator)

@@ -175,6 +175,7 @@ class ShardingParallel(TensorParallel):
 
 class SegmentParallel(TensorParallel):
     """The 'sep' axis wrapper (sequence split across ranks). reference:
-    fleet/meta_parallel/segment_parallel.py:26. Ring attention over the
-    sequence blocks is ROADMAP Queue 1's (`ops/ring_attention.py`)."""
+    fleet/meta_parallel/segment_parallel.py:26. Exact attention over the
+    sequence blocks of the 'sep' axis is ops/ring_attention.py's
+    `ring_attention(q, k, v, "sep", ...)`."""
     pass

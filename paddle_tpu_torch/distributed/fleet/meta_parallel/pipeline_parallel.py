@@ -4,8 +4,8 @@ pipeline_parallel.py (PipelineParallel:255, the 1F1B schedule :575).
 
 The micro-batch loop with gradient accumulation: the optimizer sees the
 gradients a 1F1B schedule gives (the mean over micro-batches), from one
-process that runs every stage. The compiled multi-stage schedules
-(`parallel/pipeline.py`) are ROADMAP Queue 1's.
+process that runs every stage. The tick-by-tick schedules (FThenB, 1F1B,
+VPP, ZB) are parallel/pipeline.py's.
 """
 
 from __future__ import annotations

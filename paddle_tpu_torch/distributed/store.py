@@ -12,19 +12,14 @@ stand-in: where the build fails, making a TCPStore raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
 import threading
 
-from ..ops._build import BUILD_DIR, CSRC
+from ..ops._build import host_library
 from ..resilience.faults import fault_point
 from ..resilience.retry import RetryPolicy
 
 __all__ = ["Store", "TCPStore", "ResilientStore"]
 
-_SRC = CSRC / "tcp_store.cc"
 _LIB: list = []
 _LOCK = threading.Lock()
 
@@ -59,21 +54,8 @@ def library():
     """The store's shared library, built by g++ on first use."""
     with _LOCK:
         if not _LIB:
-            tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-            target = BUILD_DIR / f"libpaddle_tpu_torch_store_{tag}.so"
-            if not target.exists():
-                BUILD_DIR.mkdir(parents=True, exist_ok=True)
-                with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-                    so = os.path.join(tmp, target.name)
-                    res = subprocess.run(
-                        ["g++", "-O3", "-fPIC", "-shared", "-std=c++17",
-                         "-pthread", "-o", so, str(_SRC)],
-                        capture_output=True, text=True)
-                    if res.returncode != 0:
-                        raise RuntimeError(
-                            f"building {_SRC.name} failed:\n{res.stderr}")
-                    os.replace(so, target)
-            _LIB.append(_bind(ctypes.CDLL(str(target))))
+            _LIB.append(_bind(ctypes.CDLL(str(
+                host_library("tcp_store.cc", "store")))))
     return _LIB[0]
 
 

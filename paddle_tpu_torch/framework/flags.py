@@ -106,3 +106,6 @@ define_flag("check_nan_inf_level", 0, "0: raise on a NaN/Inf; >0: warn")
 define_flag("observability", False, "runtime observability layer (paddle_tpu.observability): metrics registry + span tracing + SLO telemetry; off = zero-cost no-op fast path")
 define_flag("flight_recorder_dir", "", "directory flight-recorder postmortem dumps land in ('' = the tempdir); read from the environment by observability/recorder.py so standalone loads see it too")
 define_flag("fault_injection", "", "chaos harness spec (paddle_tpu.resilience.faults): 'site:nth:Exc' / 'site:rand(p)@seed:Exc' entries joined by ';'; '' = disarmed (one global load per site)")
+# the pipeline (reference: flags.py:127)
+define_flag("pipeline_schedule", "FThenB",
+            "LlamaPipeRunner's default schedule: FThenB|1F1B|VPP|ZB")

@@ -10,34 +10,20 @@ reference's does.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import tempfile
 import threading
 
 import numpy as np
 
-from ..ops._build import BUILD_DIR, CSRC
+from ..ops._build import host_library
 
 __all__ = ["available", "collate_stack"]
 
-_SRC = CSRC / "collate.cc"
 _LIB: list = []          # [CDLL] once built, [None] once it failed
 _LOCK = threading.Lock()
 
 
 def _build():
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    target = BUILD_DIR / f"libpaddle_tpu_torch_collate_{tag}.so"
-    if not target.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            so = os.path.join(tmp, target.name)
-            subprocess.run(["g++", "-O3", "-fPIC", "-shared", "-std=c++17",
-                            "-pthread", "-o", so, str(_SRC)], check=True,
-                           capture_output=True)
-            os.replace(so, target)
+    target = host_library("collate.cc", "collate")
     lib = ctypes.CDLL(str(target))
     lib.pt_collate_stack.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                                      ctypes.c_int64, ctypes.c_int64,
@@ -52,7 +38,7 @@ def available() -> bool:
         if not _LIB:
             try:
                 _LIB.append(_build())
-            except (OSError, subprocess.CalledProcessError):
+            except (OSError, RuntimeError):
                 _LIB.append(None)
     return _LIB[0] is not None
 

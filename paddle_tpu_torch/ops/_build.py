@@ -21,7 +21,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["library", "build_log", "BUILD_DIR", "SIGNATURES"]
+__all__ = ["library", "build_log", "host_library", "BUILD_DIR",
+           "SIGNATURES"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -51,6 +52,27 @@ SIGNATURES = {
 
 _LIB = [None]
 build_log: list = []   # nvcc's messages (registers, spills) per source
+
+
+def host_library(source: str, stem: str) -> Path:
+    """The host library of csrc/`source` (C++), built by g++ on first use
+    into BUILD_DIR as libpaddle_tpu_torch_`stem`_<hash of the source>.so;
+    returns its path. Raises RuntimeError with g++'s messages if the build
+    fails."""
+    src = CSRC / source
+    tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    target = BUILD_DIR / f"libpaddle_tpu_torch_{stem}_{tag}.so"
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            so = os.path.join(tmp, target.name)
+            res = subprocess.run(
+                ["g++", "-O3", "-fPIC", "-shared", "-std=c++17", "-pthread",
+                 "-o", so, str(src)], capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"building {source} failed:\n{res.stderr}")
+            os.replace(so, target)
+    return target
 
 
 def _nvcc() -> str:

@@ -1,6 +1,6 @@
 """paddle_tpu_torch.parallel. reference: paddle_tpu/parallel/__init__.py:
-the functional helpers and the mesh trainer (`spmd`). The pipeline and MoE
-engines (`pipeline`, `llama_pipeline`, `moe`) are ROADMAP Queue 1's."""
+the functional helpers, the mesh trainer (`spmd`), the pipeline schedules
+(`pipeline`, `llama_pipeline`) and expert parallelism (`moe`)."""
 
 from .functional import functional_call, make_loss_fn  # noqa: F401
 from .spmd import (  # noqa: F401

@@ -117,20 +117,36 @@ def test_hybrid_group_and_facade(fleets):
     assert isinstance(opt, fleet.meta_optimizers.HybridParallelOptimizer)
 
 
-def test_parameter_server_paths_raise():
-    with pytest.raises(NotImplementedError, match="rpc`/`ps"):
-        fleet.fleet.init()
-    with pytest.raises(NotImplementedError, match="rpc`/`ps"):
-        fleet.init(role_maker=fleet.PaddleCloudRoleMaker(is_collective=False),
-                   is_collective=True)
-    for name in ("ps_tables", "init_server", "run_server", "init_worker",
-                 "stop_worker", "save_persistables"):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            getattr(fleet.fleet, name)()
+def test_parameter_server_paths_raise(tmp_path, monkeypatch):
+    """The PS lifecycle before its tables are declared raises as the
+    reference's does; then init(is_collective=False), ps_tables,
+    init_server, init_worker, a push, save_persistables and stop_worker
+    run over TheOnePs and the saved shard equals the reference's."""
+    from paddle_tpu.distributed import ps as rps
+    from paddle_tpu_torch.distributed import ps
+    monkeypatch.setenv("TRAINING_ROLE", "TRAINER")
+    for name in ("init_server", "run_server", "init_worker"):
+        for f in (fleet.fleet, rfleet.fleet):
+            f._ps_engine = None
+            with pytest.raises(RuntimeError, match="ps_tables|init_server"):
+                getattr(f, name)()
+    for f, pkg in ((fleet, ps), (rfleet, rps)):
+        f.fleet.init()              # is_collective=False: PS mode
+        f.fleet.ps_tables(pkg.TableConfig(0, 4, pkg.CtrAccessor(
+            pkg.SparseAdaGradRule(0.5))))
+        f.fleet.init_server()
+        client = f.fleet.init_worker()
+        client.push(0, np.array([1, 2, 1], np.uint64),
+                    np.ones((3, 4), np.float32))
+        f.fleet.save_persistables(dirname=str(tmp_path / pkg.__name__))
+        f.fleet.stop_worker()
+    shard = "table0.shard0"
+    assert (tmp_path / ps.__name__ / shard).read_bytes() == \
+        (tmp_path / rps.__name__ / shard).read_bytes()
     for cls in (fleet.MultiSlotDataGenerator,
                 fleet.MultiSlotStringDataGenerator):
-        with pytest.raises(NotImplementedError):
-            cls()
+        with pytest.raises(NotImplementedError, match="generate_sample"):
+            cls().run_from_memory(["1 2"])
 
 
 def test_role_makers_and_util(monkeypatch):

@@ -82,7 +82,10 @@ SUBPACKAGES = [
     "distributed.fleet.meta_optimizers", "distributed.fleet.utils",
     "distributed.fleet.utils.sequence_parallel_utils",
     "distributed.fleet.elastic", "distributed.checkpoint", "distributed.io",
-    "distributed.sharding", "distributed.parallel"]
+    "distributed.sharding", "distributed.parallel", "ops.ring_attention",
+    "parallel.pipeline", "parallel.llama_pipeline", "parallel.moe",
+    "resilience.supervisor", "distributed.watchdog", "distributed.rpc",
+    "distributed.ps", "distributed.dataset"]
 
 
 @pytest.fixture(scope="module")
