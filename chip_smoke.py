@@ -503,9 +503,35 @@ Phases, each of which makes the script exit non-zero if it fails:
      and inputs (and in float64, printed), the pushed rows' gradients
      within PS_GRAD_RTOL and a planted lost sample beyond it; a TheOnePs
      save/load round trip.
+  27. the serving mesh (inference/mesh/), on the one card. (a) llama_7b at
+     SERVING_DEPTH layers in bf16, built from mesh_spec() by the mesh
+     worker's own build_model (weights from seed(0)), serves phase 9's 16
+     requests at phase 9's knobs through a single engine and through a
+     MeshRouter over an in-process ReplicaPool of one prefill and one
+     decode replica sharing the model, each with its own engine, pool and
+     decode graphs; the KV hand-off goes through the host (export_kv's
+     read-back, pack_record, unpack_record, import_kv's in-place write).
+     In bf16, then with int8 and fp8_e4m3 pools: every greedy and sampled
+     stream of the mesh equal to the single engine's, every handed-off
+     block equal to the prefill pool's blocks at export and to the decode
+     pool's after import, no K1-K4 launch; prints tokens/s, TTFT and TPOT
+     medians of both, the hand-off's ms (export, wire, import), bytes and
+     GB/s, failovers, hedges, slow demotions and kills, and peak memory.
+     (b) the same requests through ProcessReplicaPool(transport="socket")
+     of two child workers on the card built from the same spec (one
+     prefill, one decode): every stream equal to (a)'s bf16 single engine,
+     which is worker.build_engine(spec)'s engine; prints the children's
+     spawn seconds, the card's free memory after the spawn, tokens/s and
+     the hand-off bytes. (c) the chaos drill (tools/chaos_drill.py) with
+     its tiny engines on the card: no site ESCAPED, every site but the
+     five compile.* ones (listed as not drilled, waiting for PIR) drilled.
+     (d) loadgen's chat scenario on the card through --replicas 2
+     --disaggregate --check: goodput, TTFT and TPOT p95, and the
+     autoscale verdict through tools/autoscale_report.py --check.
 Phases 9, 9b and 13 run llama_7b at SERVING_DEPTH of its 32 layers (full
-width), after phase 12, which runs at full depth beside phase 8.
-Each phase's seconds are printed as it ends, then those of phases 1-26.
+width), after phase 12, which runs at full depth beside phase 8; phase 27
+builds it again at that depth.
+Each phase's seconds are printed as it ends, then those of phases 1-27.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -543,6 +569,9 @@ from paddle_tpu_torch import inference, jit
 from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                         SLOScheduler, demo_store_for_engine)
 from paddle_tpu_torch.inference import loadgen
+from paddle_tpu_torch.inference.mesh import (MeshRouter, ProcessReplicaPool,
+                                             ReplicaPool, worker)
+from paddle_tpu_torch.inference.mesh import router as mesh_router
 from paddle_tpu_torch.inference.scheduler import level_index
 from paddle_tpu_torch.profiler.phases import get_phase_accountant
 from paddle_tpu_torch.observability.quantiles import quantile_from_cumulative
@@ -8392,6 +8421,354 @@ def phase_pipeline_ring_moe_ps():
     return launches, rows
 
 
+# phase 27: the serving mesh. Phase 9's traffic and knobs (decode_steps 4)
+# through one prefill and one decode replica on the one card, with each of
+# these pool formats
+MESH_FORMATS = ("bf16", "int8", "fp8_e4m3")
+
+
+def mesh_spec():
+    """The JSON recipe of phase 27's engines (mesh/worker.py builds a
+    child's engine from it): llama_7b's widths at SERVING_DEPTH layers in
+    bf16, weights from seed(0), phase 9's knobs at decode_steps 4, on the
+    card."""
+    config = dict(vocab_size=32000, hidden_size=4096,
+                  intermediate_size=11008, num_hidden_layers=SERVING_DEPTH,
+                  num_attention_heads=32, dtype="bfloat16")
+    engine = dict(ENGINE, prefill_buckets=list(ENGINE["prefill_buckets"]),
+                  decode_steps=4)
+    return {"seed": 0, "config": config, "engine": engine, "device": "cuda"}
+
+
+def mesh_traffic(server, prompts, knobs):
+    """Phase 9's traffic through `server`, an engine or a MeshRouter: half
+    the requests before the first step, the rest after the third. Returns
+    the streams and finish reasons in request order and the host-clock
+    wall of the run."""
+    half = ENGINE_REQUESTS // 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [server.add_request(p, max_new_tokens=ENGINE_NEW, **kw)
+            for p, kw in zip(prompts[:half], knobs[:half])]
+    steps = 0
+    while steps < 3 or server.has_work():
+        server.step()
+        steps += 1
+        if steps == 3:
+            rids += [server.add_request(p, max_new_tokens=ENGINE_NEW, **kw)
+                     for p, kw in zip(prompts[half:], knobs[half:])]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    done = [server.finished[r] for r in rids]
+    return ([r.generated for r in done], [r.finish_reason for r in done],
+            wall)
+
+
+def mesh_counts():
+    """The mesh's failover, hedge and health counters of the run so far
+    (the observability registry, on through phase 27's runs)."""
+    reg = obs.get_registry()
+    out = {}
+    for name in ("mesh_failovers_total", "mesh_hedges_total",
+                 "mesh_slow_demotions_total", "mesh_rpc_timeouts_total"):
+        fam = reg.get(name)
+        if fam is None:
+            continue
+        for labels, c in fam.children().items():
+            if c.value:
+                key = name + "".join(f"{{{k}={v}}}" for k, v in labels)
+                out[key] = c.value
+    return out
+
+
+def kv_parts(pool):
+    return ["k", "v"] + (["k_scale", "v_scale"] if pool.fmt.quantized
+                         else [])
+
+
+class HandoffAudit:
+    """Wraps the prefill engine's export_kv, the decode engine's import_kv
+    and the router's hand_off_async: times each part of every hand-off
+    (the checks off the clock) and holds each record's blocks against the
+    prefill pool at export and the decode pool after import."""
+
+    def __init__(self, prefill, decode):
+        self.prefill, self.decode = prefill, decode
+        self.export_s = self.import_s = self.total_s = self.check_s = 0.0
+        self.records = self.bad_export = self.bad_import = 0
+        self._sent = {}
+        self._export, self._import = prefill.export_kv, decode.import_kv
+        self._hand_off = mesh_router.hand_off_async
+        prefill.export_kv = self.export_kv
+        decode.import_kv = self.import_kv
+        mesh_router.hand_off_async = self.hand_off_async
+
+    def close(self):
+        mesh_router.hand_off_async = self._hand_off
+
+    def export_kv(self, req, first_tok):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = self._export(req, first_tok)
+        t1 = time.perf_counter()
+        self.export_s += t1 - t0
+        pool = self.prefill.pool
+        ids = pool.tables[req.rid][:rec["k"].shape[1]]
+        self.bad_export += any(
+            not torch.equal(getattr(pool, key)[:, ids].cpu(), rec[key])
+            for key in kv_parts(pool))
+        self._sent[rec["trace_id"]] = rec
+        self.check_s += time.perf_counter() - t1
+        return rec
+
+    def import_kv(self, rec):
+        t0 = time.perf_counter()
+        rid = self._import(rec)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        self.import_s += t1 - t0
+        pool = self.decode.pool
+        sent = self._sent.pop(rec["trace_id"])
+        ids = pool.tables[rid][:rec["k"].shape[1]]
+        self.bad_import += any(
+            not torch.equal(getattr(pool, key)[:, ids].cpu(), sent[key])
+            for key in kv_parts(pool))
+        self.records += 1
+        self.check_s += time.perf_counter() - t1
+        return rid
+
+    def hand_off_async(self, record, engine, retry=None):
+        c0 = self.check_s
+        t0 = time.perf_counter()
+        fut = self._hand_off(record, engine, retry=retry)
+        torch.cuda.synchronize()
+        self.total_s += time.perf_counter() - t0 - (self.check_s - c0)
+        return fut
+
+
+def mesh_serve(model, spec, fmt, prompts, knobs, mesh):
+    """Phase 9's traffic at pool format `fmt` through a single engine
+    over `model`, or (mesh=True) through a MeshRouter over one prefill and
+    one decode replica, each an engine over the same model. Returns the
+    run's numbers."""
+    kw = dict(worker.engine_kwargs(spec), kv_cache_dtype=fmt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    obs.get_registry().reset()
+    obs.enable()
+    audit = router = None
+    if mesh:
+        pool = ReplicaPool(lambda: ContinuousBatchingEngine(model, **kw),
+                           n=2, disaggregate=True, store_port=0)
+        router = server = MeshRouter(pool)
+        audit = HandoffAudit(pool.prefill_targets()[0].engine,
+                             pool.decode_targets()[0].engine)
+    else:
+        server = ContinuousBatchingEngine(model, **kw)
+    zero_flash_launches()
+    try:
+        streams, reasons, wall = mesh_traffic(server, prompts, knobs)
+    finally:
+        if audit is not None:
+            audit.close()
+    out = dict(streams=streams, reasons=reasons, wall=wall,
+               launches=flash_launches(),
+               tokens=sum(map(len, streams)),
+               ttft=hist_median("serving_ttft_seconds"),
+               tpot=hist_median("serving_tpot_seconds"),
+               peak=torch.cuda.max_memory_allocated(), audit=audit,
+               counts=mesh_counts())
+    if router is not None:
+        rep = router.mesh_report()
+        out.update(report=rep, alive=len(pool.alive()))
+    obs.disable()
+    return out
+
+
+def mesh_check(label, run, want, vocab):
+    """Every stream of `run` ended with ENGINE_NEW tokens of the
+    vocabulary and equals `want`'s; no K1-K4 launch."""
+    if any(len(s) != ENGINE_NEW for s in run["streams"]) or any(
+            r != "length" for r in run["reasons"]):
+        sys.exit(f"chip_smoke: mesh {label}: a request did not finish with "
+                 f"{ENGINE_NEW} tokens")
+    if any(t < 0 or t >= vocab for s in run["streams"] for t in s):
+        sys.exit(f"chip_smoke: mesh {label}: a token id is out of the "
+                 "vocabulary")
+    if run["launches"]:
+        sys.exit(f"chip_smoke: mesh {label} launched K1-K4 "
+                 f"{run['launches']} times")
+    if want is not None and run["streams"] != want:
+        bad = [i for i, (a, b) in enumerate(zip(run["streams"], want))
+               if a != b]
+        sys.exit(f"chip_smoke: mesh {label}: streams {bad} differ from the "
+                 "single engine's")
+
+
+def fmt_s(x, digits=4):
+    return "not measured" if x is None else f"{x:.{digits}f} s"
+
+
+def mesh_in_process(model, spec, prompts, knobs):
+    """Phase 27 (a): each pool format through a single engine and the
+    in-process mesh. Returns the bf16 single engine's streams."""
+    vocab = spec["config"]["vocab_size"]
+    base = None
+    for fmt in MESH_FORMATS:
+        one = mesh_serve(model, spec, fmt, prompts, knobs, mesh=False)
+        mesh_check(f"{fmt} single engine", one, None, vocab)
+        two = mesh_serve(model, spec, fmt, prompts, knobs, mesh=True)
+        mesh_check(f"{fmt} mesh", two, one["streams"], vocab)
+        a, rep = two["audit"], two["report"]
+        nbytes = rep["handoffs"]["bytes"]
+        if a.records != ENGINE_REQUESTS or rep["handoffs"]["ok"] \
+                != ENGINE_REQUESTS:
+            sys.exit(f"chip_smoke: mesh {fmt}: {a.records} blocks imported, "
+                     f"{rep['handoffs']} hand-offs for {ENGINE_REQUESTS} "
+                     "requests")
+        if a.bad_export or a.bad_import:
+            sys.exit(f"chip_smoke: mesh {fmt}: {a.bad_export} records differ "
+                     f"from the prefill pool at export, {a.bad_import} "
+                     "decode pools from the record after import")
+        log(f"mesh (a) {fmt} [{CARD}]: single engine {one['tokens']} tokens "
+            f"in {one['wall']:.3f} s, {one['tokens'] / one['wall']:.1f} "
+            f"tokens/s, TTFT median {fmt_s(one['ttft'])}, TPOT median "
+            f"{fmt_s(one['tpot'], 5)}, peak {one['peak'] / 2**30:.2f} GiB")
+        log(f"mesh (a) {fmt} [{CARD}]: prefill + decode replica "
+            f"{two['tokens']} tokens in {two['wall']:.3f} s, "
+            f"{two['tokens'] / two['wall']:.1f} tokens/s (host clock, the "
+            f"replicas stepped in turn; sim_parallel_wall "
+            f"{rep['sim_parallel_wall_s']} s), TTFT median "
+            f"{fmt_s(two['ttft'])}, TPOT median {fmt_s(two['tpot'], 5)}, "
+            f"peak {two['peak'] / 2**30:.2f} GiB; streams equal the single "
+            f"engine's (12 greedy, 4 sampled)")
+        log(f"mesh (a) {fmt} [{CARD}]: hand-off of {a.records} records, "
+            f"{nbytes} bytes: {(a.export_s + a.total_s) * 1e3:.1f} ms in "
+            f"all ({a.export_s * 1e3:.1f} export read-back, "
+            f"{(a.total_s - a.import_s) * 1e3:.1f} pack + unpack, "
+            f"{a.import_s * 1e3:.1f} import), "
+            f"{nbytes / (a.export_s + a.total_s) / 1e9:.3f} GB/s; every "
+            f"block equal at export and after import")
+        log(f"mesh (a) {fmt} [{CARD}]: failovers {rep['failovers'] or 'none'}"
+            f", slow {rep['slow'] or 'none'}, replicas alive {two['alive']} "
+            f"of 2, counters {two['counts'] or 'none'}")
+        if fmt == "bf16":
+            base = one["streams"]
+        del one, two
+    return base
+
+
+def mesh_processes(spec, prompts, knobs, want):
+    """Phase 27 (b): the traffic through two child workers on the card
+    (one prefill, one decode) built from `spec`."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    obs.get_registry().reset()
+    obs.enable()
+    t0 = time.perf_counter()
+    pool = ProcessReplicaPool(transport="socket", n=2, disaggregate=True,
+                              engine_spec=spec, store_port=0)
+    spawn_s = time.perf_counter() - t0
+    free, total = torch.cuda.mem_get_info()
+    log(f"mesh (b) [{CARD}]: 2 workers (pids "
+        f"{[rep.proc.pid for rep in pool]}) spawned and built in "
+        f"{spawn_s:.1f} s; the card's free memory after the spawn "
+        f"{free / 2**30:.2f} of {total / 2**30:.2f} GiB (this process "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+    try:
+        router = MeshRouter(pool)
+        streams, reasons, wall = mesh_traffic(router, prompts, knobs)
+        rep = router.mesh_report()
+        alive = len(pool.alive())
+    finally:
+        pool.close()
+    codes = [rep_.proc.wait(timeout=60) for rep_ in pool]
+    counts = mesh_counts()
+    obs.disable()
+    run = dict(streams=streams, reasons=reasons, launches=0)
+    mesh_check("process workers", run, want, spec["config"]["vocab_size"])
+    tokens = sum(map(len, streams))
+    log(f"mesh (b) [{CARD}]: {tokens} tokens in {wall:.3f} s, "
+        f"{tokens / wall:.1f} tokens/s (host clock); hand-offs "
+        f"{rep['handoffs']}, failovers {rep['failovers'] or 'none'}, slow "
+        f"{rep['slow'] or 'none'}, alive {alive} of 2, counters "
+        f"{counts or 'none'}; streams equal worker.build_engine(spec)'s; "
+        f"workers exited {codes}")
+    if not rep["handoffs"]["ok"]:
+        sys.exit(f"chip_smoke: mesh (b): no stream was handed off between "
+                 f"the workers ({rep['handoffs']})")
+    return spawn_s
+
+
+def mesh_drill_and_loadgen():
+    """Phase 27 (c) the chaos drill and (d) loadgen's mesh on the card."""
+    from paddle_tpu_torch.tools import autoscale_report, chaos_drill
+    from paddle_tpu_torch.tools import loadgen as loadgen_cli
+    t0 = time.perf_counter()
+    obs.get_registry().reset()
+    rows, problems = chaos_drill.run(device="cuda")
+    drilled = [(site, out) for site, out, _ in rows if out != "-"]
+    log(f"mesh (c) [{CARD}]: chaos drill on cuda, {len(drilled)} sites "
+        f"in {time.perf_counter() - t0:.1f} s: " + ", ".join(
+            f"{site} {out}" for site, out in drilled)
+        + "; not drilled (waits for PIR): "
+        + ", ".join(site for site, out, _ in rows if out == "-"))
+    if problems or len(drilled) != 26:
+        sys.exit("chip_smoke: chaos drill on the card: "
+                 + "; ".join(problems or [f"{len(drilled)} sites drilled"]))
+    obs.disable()
+    obs.get_registry().reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mesh_report.json")
+        t0 = time.perf_counter()
+        rc = loadgen_cli.main(["--scenario", "chat", "--replicas", "2",
+                               "--disaggregate", "--check", "--out", path])
+        with open(path) as f:
+            report = json.load(f)
+        mesh = report["mesh"] or {}
+        log(f"mesh (d) [{CARD}]: loadgen chat --replicas 2 --disaggregate "
+            f"on cuda in {time.perf_counter() - t0:.1f} s: issued "
+            f"{report['issued']}, goodput {report['goodput']}, TTFT p95 "
+            f"{report['ttft']['p95']} s, TPOT p95 {report['tpot']['p95']} "
+            f"s, hand-offs {mesh.get('handoffs')}, check rc {rc}")
+        if rc:
+            sys.exit("chip_smoke: loadgen --replicas 2 --disaggregate "
+                     "--check failed on the card")
+        if autoscale_report.main([path, "--check"]):
+            sys.exit("chip_smoke: the mesh report's autoscale verdict "
+                     "fails its check")
+    get_phase_accountant().disable()
+    obs.disable()
+    obs.get_registry().reset()
+
+
+def phase_mesh():
+    """Phase 27: the serving mesh on the card, (a)-(d)."""
+    spec = mesh_spec()
+    t0 = time.perf_counter()
+    model = worker.build_model(spec)
+    torch.cuda.synchronize()
+    log(f"mesh [{CARD}]: llama_7b at {SERVING_DEPTH} layers built from the "
+        f"worker spec in {time.perf_counter() - t0:.2f} s "
+        f"({model.num_params()} params)")
+    prompts, knobs = engine_traffic(spec["config"]["vocab_size"])
+    # the process's first engine run pays one-time set-up (allocator,
+    # library handles) that phase 9 pays before its timed runs: off the
+    # clock here, on four short requests
+    warm = ContinuousBatchingEngine(model, **worker.engine_kwargs(spec))
+    mesh_traffic(warm, [p[:64] for p in prompts[:4]], knobs[:4])
+    del warm
+    base = mesh_in_process(model, spec, prompts, knobs)
+    del model
+    zero_flash_launches()
+    mesh_processes(spec, prompts, knobs, base)
+    mesh_drill_and_loadgen()
+    if flash_launches():
+        sys.exit(f"chip_smoke: the mesh's workers, drill or loadgen "
+                 f"launched K1-K4 {flash_launches()} times in this process")
+
+
 def timed(label, fn, *args):
     """fn(*args), logging its seconds as phase `label`'s."""
     t0 = time.perf_counter()
@@ -8453,7 +8830,8 @@ def main():
                    phase_distributed)
     pipe26, _ = timed("26 (pipeline, ring, EP-MoE, PS, guards)",
                       phase_pipeline_ring_moe_ps)
-    log(f"phases 1-26: {time.perf_counter() - t0:.1f} s")
+    timed("27 (serving mesh)", phase_mesh)
+    log(f"phases 1-27: {time.perf_counter() - t0:.1f} s")
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -8465,7 +8843,8 @@ def main():
     # and VPP runs over pp 4, the sep ring's calls) paths, K3 and K4 on the
     # training, BERT, hapi BERT, Transformer-base, ViT, Hessian-vector (its
     # ordinary backward), 2:4-pruned BERT, distributed and phase 26's
-    # pipeline paths (the graph, MoE, EP-MoE and PS paths launch none; the
+    # pipeline paths (the graph, MoE, EP-MoE and PS paths, and phase 27's
+    # serving mesh, its process workers, drill and loadgen, launch none; the
     # ResNet, vision-zoo, hapi ResNet and LeNet, LSTM seq2seq and DDPM
     # paths add none, counted all the same); their times are the Llama
     # training shape's (phases 3 and 5 print BERT's too). K2's are

@@ -107,5 +107,7 @@ define_flag("observability", False, "runtime observability layer (paddle_tpu.obs
 define_flag("flight_recorder_dir", "", "directory flight-recorder postmortem dumps land in ('' = the tempdir); read from the environment by observability/recorder.py so standalone loads see it too")
 define_flag("fault_injection", "", "chaos harness spec (paddle_tpu.resilience.faults): 'site:nth:Exc' / 'site:rand(p)@seed:Exc' entries joined by ';'; '' = disarmed (one global load per site)")
 # the pipeline (reference: flags.py:127)
+define_flag("mesh_rpc_timeout_s", 30.0, "per-op reply budget for the serving-mesh transport (inference/mesh/transport.py EngineProxy); an expired wait raises typed TransportTimeout — the worker is treated gray (reply still owed), never latched lost. A request deadline_s tightens the budget per call; the pool's op_timeout_s overrides")
+define_flag("mesh_worker_accept_timeout_s", 120.0, "how long the parent waits for a spawned mesh worker's transport connection (and the worker for its parent's listener) before typed TransportTimeout; engine_spec accept_timeout_s overrides per pool")
 define_flag("pipeline_schedule", "FThenB",
             "LlamaPipeRunner's default schedule: FThenB|1F1B|VPP|ZB")

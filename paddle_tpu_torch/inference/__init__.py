@@ -4,9 +4,10 @@ The continuous-batching serving engine over the paged KV pool
 (`serving.py`) with its knobs: speculative decode (`drafting.py`), LoRA
 adapters (`adapters.py`), the SLO scheduler (`scheduler.py`) and the
 prefix cache (`prefix_cache.py`); the open-loop traffic harness
-(`loadgen.py`); and the predictor API over `jit.save` artifacts (`Config`,
-`Predictor`, `create_predictor`, below). The serving mesh is not ported
-yet (ROADMAP.md, slice 4, step 6).
+(`loadgen.py`); the disaggregated serving mesh (`mesh/`: replicas in
+process or as child workers, the router, the KV hand-off); and the
+predictor API over `jit.save` artifacts (`Config`, `Predictor`,
+`create_predictor`, below).
 
 The inference "program" is the `torch.export` program that `jit.save`
 writes (the reference's is StableHLO). Config keeps the reference's knob
@@ -29,6 +30,7 @@ from .loadgen import (SCENARIOS, Scenario, build_schedule, check_report,
 from .scheduler import BROWNOUT_LEVELS, PRIORITY_CLASSES, SLOScheduler
 from .serving import (BackpressureError, ContinuousBatchingEngine,
                       KVPoolExhaustedError, Request)
+from .mesh import KVHandoffError, MeshRouter, ReplicaPool
 
 __all__ = ["ContinuousBatchingEngine", "Request", "BackpressureError",
            "KVPoolExhaustedError",
@@ -37,6 +39,7 @@ __all__ = ["ContinuousBatchingEngine", "Request", "BackpressureError",
            "Scenario", "SCENARIOS", "build_schedule", "run_scenario",
            "check_report",
            "SLOScheduler", "PRIORITY_CLASSES", "BROWNOUT_LEVELS",
+           "MeshRouter", "ReplicaPool", "KVHandoffError",
            "Config", "Predictor", "Tensor", "create_predictor",
            "PrecisionType", "PlaceType", "get_version"]
 

@@ -38,8 +38,9 @@ its per-layer parameters in `layers` (the reference's `stacked`), and it
 is warm once a program has run (`compile_reports`) or a decode graph is
 captured (`_graphs`), where the reference asks for its jitted programs.
 The cost model behind `slo_headroom` is `pir/analysis.price`, calibrated
-by the engine's first measured dispatch. The report's `mesh` is None
-until the serving mesh is ported (ROADMAP.md, slice 4, step 6).
+by the engine's first measured dispatch. The report's `mesh` is the
+MeshRouter's `mesh_report()` when the engine under test is a mesh
+(inference/mesh/), None for a single engine.
 """
 
 from __future__ import annotations

@@ -50,9 +50,10 @@ Quantized formats (int8, fp8) keep a scale pool beside the payload.
 The knobs: speculative decode (`drafting.py` for the pluggable drafters),
 LoRA adapters (`adapters.py`), the SLO scheduler with preemption and the
 brownout ladder (`scheduler.py`), the prefix cache (`prefix_cache.py`)
-and quantized KV. Not ported: the mesh's export_kv / import_kv /
-adopt_identity / prefill_sink (ROADMAP.md Queue 1, slice 4, step 6), which
-raise NotImplementedError.
+and quantized KV. The serving mesh (`mesh/`) drives the hand-off hooks:
+`prefill_sink`, `export_kv` (the prompt's stored blocks read back to the
+host), `import_kv` (written in place into the pool, then resumed as a
+preempted lane) and `adopt_identity`.
 
 The cost model (reference :1397-1443, :1765-1767, :1886-1942): each
 program is priced once by `pir.analysis.price` on its first run, which is
@@ -121,15 +122,24 @@ __all__ = ["ContinuousBatchingEngine", "Request", "BackpressureError",
 # they surface from an admission / prefill-chunk / host-sync seam
 _TRANSIENT_ERRORS = (TimeoutError, ConnectionError, OSError, FaultInjected)
 
+# the integer dtype of each element width, whose views carry stored bytes
+_INT_OF_WIDTH = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                 8: torch.int64}
+
 # measured dispatches of one kind of program whose median sets its
 # cost-model scale (_cost_observe)
 CALIBRATION_DISPATCHES = 3
 
 
-def _not_ported(what):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1, slice 4, step 6: "
-        "the serving mesh)")
+def _to_host(t):
+    """A CPU copy of `t`; from the card through pinned memory (the caching
+    host allocator reuses its blocks), which reads back several times
+    faster than into pageable memory."""
+    if t.device.type != "cuda":
+        return t.cpu()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t)
+    return out
 
 
 class BackpressureError(RuntimeError):
@@ -611,6 +621,14 @@ class ContinuousBatchingEngine:
         # by preemption; their blocks stay allocated, so a resume is a
         # lane-state upload, not a prefill
         self._preempted: dict[int, tuple[Request, int, int]] = {}
+        # a disaggregated prefill worker sets this to a callable: the final
+        # prefill chunk then hands the request's export_kv record to it
+        # instead of activating a local decode lane. None is the
+        # single-process engine.
+        self.prefill_sink = None
+        # an attached observability MetricsSampler, ticked once a step (a
+        # deterministic step-count clock); None costs nothing
+        self.sampler = None
         # arrival times (trailing window): the scheduler's offered rate
         self._arrivals: deque[float] = deque(maxlen=256)
         if scheduler is True:
@@ -733,24 +751,174 @@ class ContinuousBatchingEngine:
             steps += 1
         return {rid: r.generated for rid, r in self.finished.items()}
 
+    def adopt_identity(self, rid, trace_id, t_arrival=None):
+        """Adopt a mesh-level identity onto a still-queued request: its
+        spans and hand-off record join the mesh trace, and TTFT and the
+        deadline stay anchored at the router's arrival time. Returns False
+        when the rid already left the queue."""
+        for req in self.queue:
+            if req.rid == rid:
+                req.trace_id = str(trace_id)
+                if t_arrival is not None:
+                    req.t_arrival = float(t_arrival)
+                    if req.deadline_s is not None:
+                        req.t_deadline = req.t_arrival + req.deadline_s
+                return True
+        return False
+
+    # --- disaggregated paged-KV hand-off (the serving mesh) ---------------
     def export_kv(self, req, first_tok):
-        raise _not_ported("export_kv")
+        """Hand-off record of a just-prefilled request: the prompt's
+        blocks in the pool's stored form (payload, and scales when
+        quantized) as CPU tensors, plus what the decode side needs to go
+        on with the stream as this engine would have. Stored bytes, not
+        dequantized values, so the round trip is exact in every block
+        format; sampled lanes draw from (sample_seed, position), so
+        sampled streams survive the hop too."""
+        s = int(req.prompt.size)
+        nb = self.pool.blocks_needed(s)
+        ids = torch.as_tensor(self.pool.tables[req.rid][:nb],
+                              dtype=torch.int64, device=self.pool.k.device)
+        rec = {
+            "version": 1,
+            "fmt": self.pool.fmt.name,
+            "prompt": np.asarray(req.prompt, np.int32),
+            "first_token": int(first_tok),
+            "max_new_tokens": int(req.max_new_tokens),
+            "eos_token_id": req.eos_token_id,
+            "do_sample": bool(req.do_sample),
+            "temperature": float(req.temperature),
+            "top_k": int(req.top_k),
+            "top_p": float(req.top_p),
+            "sample_seed": int(req.sample_seed),
+            "tenant": req.tenant,
+            "priority": req.priority,
+            "trace_id": req.trace_id,
+            "t_arrival": float(req.t_arrival),
+            "t_first": None if req.t_first is None else float(req.t_first),
+            "deadline_s": req.deadline_s,
+            # the prefix-cache manifest: prompt tokens resolved from this
+            # engine's index and exported blocks shared here; the payload
+            # is a copy either way, which the receiver owns and indexes
+            "prefix_matched_tokens": int(
+                self._prefix_matched.get(req.rid, 0)),
+            "prefix_shared_blocks": int(self.pool.shared_count(req.rid)),
+            # the importer must bind the same adapter or refuse the record
+            "adapter": req.adapter,
+        }
+        keys = ["k", "v"] + (["k_scale", "v_scale"]
+                             if self.pool.fmt.quantized else [])
+        for key in keys:
+            rec[key] = _to_host(getattr(self.pool, key)[:, ids])
+        return rec
 
     def import_kv(self, record):
-        raise _not_ported("import_kv")
-
-    def adopt_identity(self, rid, trace_id, t_arrival=None):
-        raise _not_ported("adopt_identity")
-
-    @property
-    def prefill_sink(self):
-        """The disaggregated prefill worker's hand-off; always None here."""
-        return None
-
-    @prefill_sink.setter
-    def prefill_sink(self, sink):
-        if sink is not None:
-            raise _not_ported("prefill_sink")
+        """Install a handed-off prefill on this engine: reserve the whole
+        sequence's blocks, write the stored payload into them in place (the
+        pool tensors are the storage the captured decode graphs read), and
+        park the request as a preempted lane, so the next lane-state upload
+        resumes the stream where the prefill worker left it. Returns the
+        local rid. Raises ValueError on a block-format, geometry or adapter
+        mismatch and KVPoolExhaustedError when the blocks do not fit; the
+        router treats either as a failed hand-off and prefills again."""
+        if record["fmt"] != self.pool.fmt.name:
+            raise ValueError(
+                f"handoff block format {record['fmt']!r} != pool format "
+                f"{self.pool.fmt.name!r}; mesh replicas must share "
+                "kv_cache_dtype")
+        adapter = record.get("adapter") or None
+        if adapter is not None and (
+                self.adapters is None
+                or not self.adapters.can_serve(adapter)):
+            raise ValueError(
+                f"handoff names adapter {adapter!r} which this engine "
+                "cannot serve (no store or unregistered adapter)")
+        prompt = np.asarray(record["prompt"], np.int32).reshape(-1)
+        s = int(prompt.size)
+        total = s + int(record["max_new_tokens"])
+        if total > self.max_blocks_per_seq * self.pool.block_size:
+            raise ValueError("handoff exceeds the per-sequence block "
+                             "budget of the receiving engine")
+        nb = self.pool.blocks_needed(s)
+        parts = [("k", self.pool.k), ("v", self.pool.v)]
+        if self.pool.fmt.quantized:
+            parts += [("k_scale", self.pool.k_scale),
+                      ("v_scale", self.pool.v_scale)]
+        want = lambda dst: (dst.shape[0], nb) + tuple(dst.shape[2:])
+        for key, dst in parts:
+            if tuple(record[key].shape) != want(dst):
+                raise ValueError(
+                    f"handoff {key} blocks {tuple(record[key].shape)} do "
+                    f"not fit this pool's {want(dst)}")
+        rid = self._next_rid
+        self._next_rid += 1
+        req = Request(rid, prompt, record["max_new_tokens"],
+                      record["eos_token_id"], record["do_sample"],
+                      record["temperature"], record["top_k"],
+                      record["top_p"], seed=None,
+                      tenant=record["tenant"],
+                      priority=record["priority"],
+                      adapter=adapter)
+        # the stream's identity crosses the hop: trace id, the sampling
+        # key, and the arrival and deadline anchors
+        req.trace_id = record["trace_id"]
+        req.sample_seed = np.uint32(int(record["sample_seed"]) & 0xFFFFFFFF)
+        req.t_arrival = record["t_arrival"]
+        req.t_first = record.get("t_first")
+        if record.get("deadline_s") is not None:
+            req.deadline_s = float(record["deadline_s"])
+            req.t_deadline = req.t_arrival + req.deadline_s
+        first_tok = int(record["first_token"])
+        req.generated = [first_tok]
+        self._m_admitted.inc()
+        self._m_tokens.inc()        # the handed-off first token
+        if (req.eos_token_id is not None and first_tok == req.eos_token_id) \
+                or req.max_new_tokens <= 1:
+            # the first token already ended the stream: nothing to decode
+            reason = ("eos" if req.eos_token_id is not None
+                      and first_tok == req.eos_token_id else "length")
+            self._m_retired.inc()
+            self._finish(req, reason)
+            return rid
+        self.pool.ensure(rid, total)
+        if req.adapter:
+            try:
+                req.adapter_id = self.adapters.acquire(req.adapter)
+            except (AdapterLoadError,) + _TRANSIENT_ERRORS as e:
+                self.pool.release(rid)
+                raise ValueError(
+                    f"handoff adapter {req.adapter!r} failed to "
+                    f"hot-load on the receiving engine: {e}") from e
+        ids = torch.as_tensor(self.pool.tables[rid][:nb], dtype=torch.int64,
+                              device=self.pool.k.device)
+        for key, dst in parts:
+            src = record[key]
+            if not isinstance(src, torch.Tensor):
+                src = torch.from_numpy(np.ascontiguousarray(src))
+            src = src.to(device=dst.device, dtype=dst.dtype)
+            # through integer views of the same width: index_copy_ takes
+            # no float8, and the bytes land as stored
+            raw = _INT_OF_WIDTH[dst.element_size()]
+            dst.view(raw).index_copy_(1, ids, src.view(raw))
+        # a handed-off prompt seeds this engine's prefix index too; a
+        # failure leaves it unindexed
+        if self._prefix is not None:
+            try:
+                fault_point("serve.prefix_match", rid=rid)
+                for b in self._prefix.insert(prompt,
+                                             self.pool.tables[rid]):
+                    self.pool.pin(b)
+                for b in self._prefix.trim():
+                    self.pool.unpin(b)
+                    self._m_pfx_evict.inc()
+                self._m_pfx_shared.set(len(self._prefix))
+            except _TRANSIENT_ERRORS:
+                _metric("serving_runtime_degradations_total",
+                        what="prefix_miss").inc()
+        # parked like a preempted lane: (request, cached length, next token)
+        self._preempted[rid] = (req, s, first_tok)
+        self._dirty = True
+        return rid
 
     # --- static cost model (pir/analysis.py) ------------------------------
     def _cost_kind(self, key):
@@ -855,6 +1023,10 @@ class ContinuousBatchingEngine:
                             / self.max_batch)
             self._m_free.set(len(self.pool._free))
         ph.end_step()
+        # an attached MetricsSampler ticks once a step; a failing one
+        # degrades itself (obs.sample), never the engine
+        if self.sampler is not None:
+            self.sampler.sample()
 
     def _decode_active(self):
         """Lanes the fused decode advances: occupied AND past prefill."""
@@ -1389,6 +1561,22 @@ class ContinuousBatchingEngine:
                 if self._rec.enabled:
                     self._rec.record("degrade", what="prefix_miss",
                                      rid=req.rid)
+        if self.prefill_sink is not None:
+            # disaggregated prefill worker: export the prompt's KV and hand
+            # the stream on; the lane and blocks free now, and the stream
+            # is admitted once mesh-wide, on the decode engine's import
+            record = self.export_kv(req, first_tok)
+            if self._phases.enabled:    # the export reads KV back to host
+                self._phases.mark("hostsync", tenant=req.tenant)
+            self.pool.release(req.rid)
+            self._adapter_release(req)
+            self._prefix_matched.pop(req.rid, None)
+            self.lanes[lane] = None
+            self.lane_len[lane] = 0
+            self._lane_epoch[lane] += 1
+            self._dirty = True
+            self.prefill_sink(record)
+            return True
         self.lane_len[lane] = s
         self.lane_tok[lane] = first_tok
         self._dirty = True

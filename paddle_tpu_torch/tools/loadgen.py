@@ -26,10 +26,10 @@ Usage:
           # overload
   python3 -m paddle_tpu_torch.tools.loadgen --scenario chat --dashboard
           # the run's TSDB as a terminal dashboard on stderr
-
-The serving mesh (`--replicas`, `--processes`, `--disaggregate`,
-`--slow-replica`) raises NotImplementedError until it is ported
-(ROADMAP.md, slice 4, step 6).
+  python3 -m paddle_tpu_torch.tools.loadgen --device cpu --replicas 2 \\
+          --disaggregate --check --out report.json
+          # the serving mesh: prefill and decode replicas in process
+  python3 -m paddle_tpu_torch.tools.autoscale_report report.json --check
 """
 
 from __future__ import annotations
@@ -37,11 +37,19 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 
 import paddle_tpu_torch as pt
 from paddle_tpu_torch import observability as obs
 from paddle_tpu_torch.inference import loadgen
 from paddle_tpu_torch.profiler.phases import get_phase_accountant
+
+
+def _counter_sum(name):
+    fam = obs.get_registry().get(name)
+    if fam is None:
+        return 0.0
+    return sum(c.value for c in fam.children().values())
 
 
 def build_engine(device="cuda", max_batch=4, num_blocks=128, block_size=8,
@@ -116,17 +124,34 @@ def main(argv=None):
                          "is populated, and swap_recompiles is exactly 0 "
                          "(default 1 for the multi_adapter scenario)")
     ap.add_argument("--replicas", type=int, default=1,
-                    help="engine replicas behind the mesh router (not "
-                         "ported: more than 1 raises)")
-    ap.add_argument("--processes", type=int, default=0, metavar="N",
-                    help="replicas behind the process transport (not "
-                         "ported: more than 1 raises)")
+                    help="run N in-process engine replicas behind the "
+                         "mesh router instead of one engine; the report "
+                         "gains a mesh block with per-replica goodput "
+                         "and headroom columns")
     ap.add_argument("--disaggregate", action="store_true",
-                    help="split prefill and decode workers (not ported: "
-                         "raises)")
+                    help="with --replicas >= 2: split the pool into "
+                         "prefill and decode workers with serialized "
+                         "paged-KV handoff between them")
+    ap.add_argument("--processes", type=int, default=0, metavar="N",
+                    help="run N replicas behind the process-native "
+                         "frame transport (ProcessReplicaPool, loopback "
+                         "clients) instead of bare in-process engines; "
+                         "overrides --replicas; composes with "
+                         "--disaggregate")
     ap.add_argument("--slow-replica", action="store_true",
-                    help="gray-failure drill of a process mesh (not "
-                         "ported: raises)")
+                    help="degrade one worker of a process mesh with a "
+                         "duty-cycled step wedge (parked replies, no "
+                         "progress while busy) so the gray-failure path "
+                         "carries the run: the health detector demotes "
+                         "it SLOW, routing avoids it, and with --check "
+                         "the run must still meet its TTFT SLO with the "
+                         "degraded worker alive; implies --processes 2 "
+                         "when no process mesh was requested")
+    ap.add_argument("--slow-ttft-burn", type=float, default=3.0,
+                    help="with --check --slow-replica: max allowed "
+                         "ttft_p95 burn rate (observed/objective) for "
+                         "the degraded run; a mesh that keeps placing on "
+                         "the wedged worker burns far past 3")
     ap.add_argument("--min-coverage", type=float, default=0.95)
     ap.add_argument("--dashboard", action="store_true",
                     help="render the run's embedded TSDB as a terminal "
@@ -144,13 +169,6 @@ def main(argv=None):
             print(f"{name:18s} {sc.arrival:8s} {sc.rate_rps:6.1f} rps "
                   f"x {sc.duration_s:4.1f}s  {sc.description}")
         return 0
-    if (args.replicas > 1 or args.processes > 1 or args.disaggregate
-            or args.slow_replica):
-        raise NotImplementedError(
-            "the serving mesh (--replicas, --processes, --disaggregate, "
-            "--slow-replica) is not ported yet (ROADMAP.md Queue 1, slice "
-            "4, step 6)")
-
     obs.enable()
     get_phase_accountant().enabled = True
     kw = {}
@@ -163,8 +181,52 @@ def main(argv=None):
         kw["draft_depth"] = drafting.scenario_draft_depth(args.scenario)
         if not args.flat_drafter:
             kw["drafter"] = drafting.scenario_drafter(args.scenario)
-    engine = build_engine(args.device,
-                          scheduler=True if args.scheduler else None, **kw)
+    if args.slow_replica and args.processes < 2:
+        # the wedge needs the process transport: only ProcessReplica
+        # freezes its progress counters when a step reply is parked
+        args.processes = 2
+    victim = None
+    if args.processes > 1 or args.replicas > 1:
+        from paddle_tpu_torch.inference import SLOScheduler
+        from paddle_tpu_torch.inference.mesh import (MeshRouter,
+                                                     ProcessReplicaPool,
+                                                     ReplicaPool)
+        if args.processes > 1:
+            pool = ProcessReplicaPool(
+                lambda: build_engine(args.device, **kw), n=args.processes,
+                transport="loopback",
+                disaggregate=args.disaggregate, store_port=0)
+        else:
+            pool = ReplicaPool(
+                lambda: build_engine(args.device, **kw), n=args.replicas,
+                disaggregate=args.disaggregate, store_port=0)
+        if args.slow_replica:
+            # wedge the last worker: every 8th real step starts a 0.6 s
+            # episode during which its step reply stays parked (0.0
+            # wall, progress counters frozen) — alive-but-wrong, the
+            # shape the health detector scores; between episodes it
+            # works normally, so the run always drains
+            victim = pool.alive()[-1]
+            _inner = victim.engine.step
+            _wedge = {"until": 0.0, "reals": 0}
+
+            def _wedged_step(_inner=_inner, _wedge=_wedge):
+                now = time.perf_counter()
+                if now < _wedge["until"]:
+                    return 0.0
+                _wedge["reals"] += 1
+                if _wedge["reals"] % 8 == 0:
+                    _wedge["until"] = now + 0.6
+                    return 0.0
+                return _inner()
+
+            victim.engine.step = _wedged_step
+        engine = MeshRouter(
+            pool, scheduler=SLOScheduler() if args.scheduler else None)
+    else:
+        engine = build_engine(args.device,
+                              scheduler=True if args.scheduler else None,
+                              **kw)
     from paddle_tpu_torch.observability.timeseries import MetricsSampler
     sampler = MetricsSampler()
     report = loadgen.run_scenario(
@@ -187,7 +249,7 @@ def main(argv=None):
         f" drafter={spec['drafter']} acceptance={spec['acceptance']}"
         f" ({spec['accepted_tokens']}/{spec['draft_tokens']})")
     print(f"\n# scenario={report['scenario']} seed={report['seed']} "
-          f"device={engine.device} issued={report['issued']} "
+          f"device={args.device} issued={report['issued']} "
           f"goodput={report['goodput']} ttft_p95={report['ttft']['p95']} "
           f"slo={slo_state} "
           f"coverage={cov if cov is None else round(cov, 4)}{spec_str}",
@@ -209,10 +271,43 @@ def main(argv=None):
               f"swap_recompiles={adp['swap_recompiles']}",
               file=sys.stderr)
 
+    mesh = report.get("mesh")
+    if mesh:
+        print(f"# mesh: replicas={len(mesh['replicas'])} "
+              f"disaggregate={mesh['disaggregate']} "
+              f"handoffs={mesh['handoffs']} "
+              f"failovers={mesh['failovers'] or '{}'} "
+              f"sim_tok_per_s={mesh['sim_tok_per_s']} "
+              f"(simulated-parallel wall)", file=sys.stderr)
+        if mesh.get("slow") or args.slow_replica:
+            print(f"# mesh health: slow={mesh.get('slow')} "
+                  f"suspicion={mesh.get('suspicion')} "
+                  f"slow_demotions="
+                  f"{_counter_sum('mesh_slow_demotions_total')} "
+                  f"hedges={_counter_sum('mesh_hedges_total')}",
+                  file=sys.stderr)
+        print(f"# {'replica':10s} {'role':8s} {'alive':5s} {'routed':>6s} "
+              f"{'finished':>8s} {'tok/s':>8s} {'headroom':>9s}",
+              file=sys.stderr)
+        rate = report["issued"] / max(report["wall_s"], 1e-9)
+        for name, row in sorted(mesh["replicas"].items()):
+            svc = row["predicted_service_s"]
+            n_alive = max(1, sum(r["alive"]
+                                 for r in mesh["replicas"].values()))
+            head = (None if svc is None
+                    else round(1.0 - (rate / n_alive) * svc, 3))
+            print(f"# {name:10s} {row['role']:8s} "
+                  f"{str(row['alive']):5s} {row['routed']:6d} "
+                  f"{row['finished']:8d} "
+                  f"{str(row['tok_per_s']):>8s} {str(head):>9s}",
+                  file=sys.stderr)
+
     if args.dashboard:
         from paddle_tpu_torch.tools import dashboard
-        print(dashboard.render(sampler.snapshot_doc(), report=report),
-              file=sys.stderr)
+        doc = (engine.collector.merged_doc()
+               if getattr(engine, "collector", None) is not None
+               else sampler.snapshot_doc())
+        print(dashboard.render(doc, report=report), file=sys.stderr)
 
     if args.check:
         problems = loadgen.check_report(
@@ -221,6 +316,7 @@ def main(argv=None):
                              if args.min_acceptance is not None else 0.0)
                             if args.speculative else None),
             require_timeseries=True,
+            require_autoscale=args.replicas > 1,
             min_prefix_hit_rate=(
                 args.min_prefix_hit_rate
                 if args.min_prefix_hit_rate is not None
@@ -232,6 +328,30 @@ def main(argv=None):
                 if args.min_adapter_loads is not None
                 else (1 if loadgen.SCENARIOS[
                     args.scenario].adapter_population else None)))
+        if args.slow_replica:
+            # the gray-failure acceptance: the wedged worker must have
+            # been demoted SLOW (never killed — that would be the crash
+            # path, not gray immunity), every request must finish, and
+            # TTFT p95 must hold within the burn bound — a mesh that
+            # fails to route around the wedge blows far past it
+            if _counter_sum("mesh_slow_demotions_total") < 1:
+                problems.append("slow-replica run never demoted the "
+                                "wedged worker SLOW")
+            if victim is not None and not victim.alive:
+                problems.append("slow-replica run killed the wedged "
+                                "worker (gray must not escalate to "
+                                "dead)")
+            for s in report["slo"].get("slos", ()):
+                if s["name"] == "ttft_p95" \
+                        and s.get("burn_rate", 0.0) > args.slow_ttft_burn:
+                    problems.append(
+                        "TTFT p95 degraded past the slow-replica bound "
+                        f"(burn {s['burn_rate']:.2f} > "
+                        f"{args.slow_ttft_burn}): the mesh did not "
+                        "route around the wedge")
+                if s["name"] == "availability" and not s.get("ok"):
+                    problems.append("requests lost with one degraded "
+                                    "worker (availability SLO breached)")
         for p in problems:
             print(f"CHECK FAIL: {p}", file=sys.stderr)
         if problems:
@@ -245,6 +365,10 @@ def main(argv=None):
             extra += (f", {adp['loads']} adapter hot-loads / "
                       f"{adp['evictions']} evictions, "
                       f"{adp['swap_recompiles']} swap recompiles")
+        if args.replicas > 1:
+            auto = (report.get("mesh") or {}).get("autoscale") or {}
+            extra += (f", autoscale {auto.get('action')} -> "
+                      f"desired={auto.get('desired_replicas')}")
         print("CHECK PASS: SLO verdict present, attribution "
               f">={args.min_coverage:.0%}, cost gauge populated, "
               f"recording rules populated{extra}",

@@ -8,8 +8,7 @@ port's store: greedy streams on base and adapter lanes must equal the
 reference engine's token for token. A hot swap fills a slot of the
 store's pools in place and adds no program. TestLoadgenScenario and
 TestAdapterSweeps drive the port's loadgen; the mesh cases
-(TestMeshAdapters, TestAdapterSweeps' replica kill) wait for the port of
-the serving mesh (ROADMAP.md slice 4, step 6).
+(TestMeshAdapters) are in tests/test_torch_mesh.py.
 """
 
 import numpy as np

@@ -3,8 +3,8 @@ package's, on the CPU: the store (the port's server with the reference's
 client, both built from the same C++), the collectives in a world of one,
 the rank-order reduction, the single-process environment, the launcher's
 arguments, and one two-process gloo launch whose drill values equal the
-reference's `_reduce_stacked` on the same stacks. The reference's public
-names the port still lacks are the ones ROADMAP Queue 1 item 2 lists."""
+reference's `_reduce_stacked` on the same stacks. The port lacks no public
+name of the reference's; ROADMAP Queue 1's Done list says so."""
 
 import json
 import os
@@ -39,13 +39,14 @@ def _public(mod):
 def test_missing_names_are_queued():
     """The two surfaces are equal, less the port's ResilientStore and
     get_store: no public name of the reference's distributed is missing,
-    so none is left for ROADMAP Queue 1 item 2, which marks the rpc, ps,
-    dataset and watchdog names done."""
+    so none is left for ROADMAP Queue 1, whose Done list marks the rpc,
+    ps, dataset and watchdog modules done."""
     missing = _public(rdist) - _public(dist)
-    item = ROADMAP[ROADMAP.index("2. **Distributed"):
-                   ROADMAP.index("3. **Slice 4, step 6")]
+    done = ROADMAP[ROADMAP.index("### Queue 1"):
+                   ROADMAP.index("**Next, in this order:**")]
     assert missing == set()
-    assert all(f"`{n}`" in item for n in ("ps", "dataset", "Watchdog"))
+    assert all(f"`{n}`" in done
+               for n in ("rpc", "ps", "dataset", "watchdog"))
     assert _public(dist) - _public(rdist) == {"ResilientStore", "get_store"}
 
 

@@ -85,7 +85,8 @@ SUBPACKAGES = [
     "distributed.sharding", "distributed.parallel", "ops.ring_attention",
     "parallel.pipeline", "parallel.llama_pipeline", "parallel.moe",
     "resilience.supervisor", "distributed.watchdog", "distributed.rpc",
-    "distributed.ps", "distributed.dataset"]
+    "distributed.ps", "distributed.dataset", "inference.mesh",
+    "inference.mesh.worker", "tools.chaos_drill", "tools.autoscale_report"]
 
 
 @pytest.fixture(scope="module")

@@ -602,7 +602,17 @@ def test_cli_check_passes_on_the_cpu(capsys):
     assert "CHECK PASS" in err
 
 
-def test_cli_mesh_flags_raise():
+def test_cli_mesh_flags_raise(capsys):
+    """The mesh flags no longer raise: two in-process replicas behind the
+    router serve the scenario and the report gains its mesh section
+    (tests/test_torch_chaos_drill.py drives the rest of them)."""
     from paddle_tpu_torch.tools import loadgen as cli
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 6"):
-        cli.main(["--device", "cpu", "--replicas", "2"])
+    try:
+        rc = cli.main(["--device", "cpu", "--scenario", "chat",
+                       "--duration", "0.5", "--replicas", "2"])
+    finally:
+        _obs_off()
+    captured = capsys.readouterr()
+    assert rc == 0, captured.err
+    assert "# mesh: replicas=2 disaggregate=False" in captured.err
+    assert '"mesh": {' in captured.out

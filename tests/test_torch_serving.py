@@ -419,20 +419,19 @@ def test_compat_step_loop_reproduces_prefused_engine(both_obs):
 # -- the port's own surface ---------------------------------------------------
 
 def test_unported_methods_raise_and_no_cost_model():
-    """Only the serving mesh's methods are refused, naming its ROADMAP
-    step; before any dispatch the cost model holds no price and no
-    calibration, as the reference's (test_torch_loadgen.py holds it after
-    one)."""
+    """No method is refused any more: the serving mesh's hooks are ported
+    (tests/test_torch_mesh.py holds their records and streams against the
+    reference's), and a malformed hand-off is a typed ValueError; before
+    any dispatch the cost model holds no price and no calibration, as the
+    reference's (test_torch_loadgen.py holds it after one)."""
     eng = _engine(ContinuousBatchingEngine, _pair()[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 6"):
-        eng.export_kv(None, 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 6"):
-        eng.import_kv({})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 6"):
-        eng.adopt_identity(0, "t")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*step 6"):
-        eng.prefill_sink = print
     assert eng.prefill_sink is None
+    eng.prefill_sink = print
+    assert eng.prefill_sink is print
+    eng.prefill_sink = None
+    with pytest.raises(ValueError, match="block format"):
+        eng.import_kv({"fmt": "int8"})
+    assert eng.adopt_identity(0, "t") is False
     assert eng.predicted_costs() == {}
     assert eng.predicted_service_seconds() is None
 
