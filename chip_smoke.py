@@ -523,15 +523,43 @@ Phases, each of which makes the script exit non-zero if it fails:
      which is worker.build_engine(spec)'s engine; prints the children's
      spawn seconds, the card's free memory after the spawn, tokens/s and
      the hand-off bytes. (c) the chaos drill (tools/chaos_drill.py) with
-     its tiny engines on the card: no site ESCAPED, every site but the
-     five compile.* ones (listed as not drilled, waiting for PIR) drilled.
+     its tiny engines on the card: no site ESCAPED, every site but
+     compile.shard_prop (listed as not drilled, waiting for the sharding
+     passes) drilled, the four compile.* sites of the PIR pipeline on a
+     two-op program compiled on the card.
      (d) loadgen's chat scenario on the card through --replicas 2
      --disaggregate --check: goodput, TTFT and TPOT p95, and the
      autoscale verdict through tools/autoscale_report.py --check.
-Phases 9, 9b and 13 run llama_7b at SERVING_DEPTH of its 32 layers (full
-width), after phase 12, which runs at full depth beside phase 8; phase 27
-builds it again at that depth.
-Each phase's seconds are printed as it ends, then those of phases 1-27.
+  28. the PIR compile pipeline and jit.to_static (pir/, jit/,
+     framework/staging.py) on llama_1.3b at full width and depth (24
+     layers, hidden 2048, 16 heads of 128, bf16, weights from seed(0)).
+     (a) jit.to_static(model.forward) serves a prefill of 4 x 512 tokens:
+     logits equal to eager's bit for bit, no fallback, K1 launched
+     once a layer a call; prints the capture, verify, pass, cost and
+     evaluator seconds, the ops before and after the passes, each pass's
+     edits and the CostModel's flops. (b) one training step (b2 s2048)
+     through a to_static forward and loss.backward(), then AdamW: the
+     loss and every gradient within TS_LOSS_RTOL / TS_GRAD_RTOL of the
+     eager step's, K1, K3 and K4 launched once a layer; prints the step's
+     ms beside eager's. (c) a hand-written causal einsum-softmax-einsum
+     attention at the training attention shape (b8 h16 s2048 d128) is
+     captured and becomes one pt.sdpa that launches K1 once, within phase
+     3's tolerance of its dense eager version; the unfused rmsnorm(
+     attention + residual) * gamma at the prefill shape (b4 h16 s512)
+     becomes one pt.sdpa_rms_epilogue that launches K2 once, within phase
+     4's tolerance. (d) on a temporary compile_cache_dir, (a)'s program
+     cold then warm from a new StaticFunction: the warm call a hit, equal
+     to the cold one bit for bit; a flipped byte gives the typed
+     CompileCacheCorruptionError, compile_cache_corrupt_total 1 and a
+     recompile. (e) a function with one data-dependent branch runs as 2
+     staged segments, equal to eager with gradients. (f)
+     tools/pipeline_tax.py at its tiny config on the card, its table
+     printed (every stage on the one card: the ratio measures serial
+     stages).
+Phases 9, 9b, 13 and 27 run llama_7b at SERVING_DEPTH of its 32 layers
+(full width), after phase 12, which runs at full depth beside phase 8;
+phase 27 builds it again at that depth.
+Each phase's seconds are printed as it ends, then those of phases 1-28.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -881,12 +909,13 @@ NMT_BATCH, NMT_LEN, NMT_STEPS = 128, 50, 4
 NMT_DECODE_BATCH, NMT_BEAM, NMT_MAX_STEPS = 32, 10, 100
 NMT_SCORE_ATOL, NMT_TIE_ATOL = 1e-4, 1e-4
 
-# phases 9, 9b and 13 run llama_7b at this depth (full width), phases 8
-# and 12 at its full 32 layers. These three phases take about 8 s a layer
-# on an H100 at 700 W (101-120 s at 8 layers, 308.7 s at 32), so 16 layers
-# put the whole script near 600-750 s, below 1,000 s even with the 27 %
-# spread seen between two whole runs of one tree; 24 would not be
-SERVING_DEPTH = 16
+# phases 9, 9b, 13 and 27 run llama_7b at this depth (full width), phases
+# 8 and 12 at its full 32 layers. Phases 9, 9b and 13 take about 8 s a
+# layer on an H100 at 700 W (101-120 s at 8 layers, 308.7 s at 32). At 16
+# layers the script took 873.1-999.3 s of command; at 12, with phase 28,
+# 1,193.0 s on a slow host (phases 1-27 1,030.2 s there), so the depth is
+# 8, which keeps the script well below its 1,200 s limit
+SERVING_DEPTH = 8
 
 # the card's name and power limit as nvidia-smi gives them (phase 1)
 CARD = "not read"
@@ -8712,9 +8741,9 @@ def mesh_drill_and_loadgen():
     log(f"mesh (c) [{CARD}]: chaos drill on cuda, {len(drilled)} sites "
         f"in {time.perf_counter() - t0:.1f} s: " + ", ".join(
             f"{site} {out}" for site, out in drilled)
-        + "; not drilled (waits for PIR): "
+        + "; not drilled (waits for the sharding passes): "
         + ", ".join(site for site, out, _ in rows if out == "-"))
-    if problems or len(drilled) != 26:
+    if problems or len(drilled) != 30:
         sys.exit("chip_smoke: chaos drill on the card: "
                  + "; ".join(problems or [f"{len(drilled)} sites drilled"]))
     obs.disable()
@@ -8767,6 +8796,435 @@ def phase_mesh():
     if flash_launches():
         sys.exit(f"chip_smoke: the mesh's workers, drill or loadgen "
                  f"launched K1-K4 {flash_launches()} times in this process")
+
+
+# -- phase 28: the PIR compile pipeline and jit.to_static ------------------
+
+# (a), (d): llama_1.3b serving a prefill of 4 prompts of 512 tokens
+TS_SERVE = dict(b=4, s=512)
+# (b): one training step at llama_1.3b's sequence, batch 2 (the router's
+# ledger row at 2 x 16 heads and s2048 takes K1 forward, K3/K4 backward)
+TS_TRAIN = dict(b=2, s=2048)
+TS_LR = 1e-4
+# (c): hand-written causal attention at the training attention shape, and
+# the unfused rmsnorm(attention + residual) * gamma at the prefill shape
+TS_PATTERN = dict(b=8, h=16, s=2048, d=128)
+TS_EPILOGUE = dict(b=4, h=16, s=512, d=128)
+# (b): the loss relative to its value and each gradient relative to its
+# largest magnitude, as phase 5 holds K3/K4: both steps run K1 and K3/K4,
+# but CSE merges the three projections' views of each normed input, so
+# their gradients are summed in another order in bf16
+TS_LOSS_RTOL = 1e-2
+TS_GRAD_RTOL = BWD_RTOL
+
+
+def sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def ts_counts():
+    return {"flash_fwd": fa.flash_fwd_launches,
+            "flash_fwd_rms_epilogue": fa.flash_fwd_rms_epilogue_launches,
+            "flash_bwd_dq": fa.flash_bwd_dq_launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv_launches}
+
+
+def ts_report(label, rep):
+    """One line of what the pipeline did: stage seconds, ops before and
+    after the passes, each pass's edits, patterns, fusion, CostModel."""
+    sec = ", ".join(f"{k} {v:.3f}" for k, v in rep.seconds.items())
+    edits = ", ".join(f"{k} {v['edits']}" for k, v in
+                      rep.pass_report.items())
+    cost = rep.cost
+    log(f"to_static {label}: seconds ({sec}); ops {rep.captured_ops} -> "
+        f"{rep.final_ops}; edits ({edits}); patterns {rep.pattern_counts}; "
+        f"fusion groups {rep.fusion_groups} {rep.fusion_kinds}; CostModel "
+        f"{cost.flops / 1e12:.4f} TFLOP, {cost.bytes / 1e9:.3f} GB; cache "
+        f"{rep.cache}; fallback {rep.fallback}")
+
+
+def ts_serve(model, device, cache_dir):
+    """(a) a to_static prefill of llama_1.3b against eager, and (d) the
+    compile cache cold, warm and corrupted. Returns K1's launches of the
+    counted call."""
+    from paddle_tpu_torch import pir
+    cfg = model.config
+    b, s = TS_SERVE["b"], TS_SERVE["s"]
+    heads, d = cfg.num_attention_heads, cfg.hidden_size // \
+        cfg.num_attention_heads
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        dec = ar.route(b * heads, s, s, d, torch.bfloat16, True,
+                       platform="cuda")
+        log(f"to_static (a): router at (bh {b * heads}, s{s}, d{d}, bf16, "
+            f"causal): fwd={dec.fwd} [{dec.source}]")
+        if dec.fwd != "pallas":
+            sys.exit("chip_smoke: the router does not send llama_1.3b's "
+                     "prefill attention to K1")
+    ids = torch.as_tensor(np.random.RandomState(28).randint(
+        0, cfg.vocab_size, (b, s)), device=device)
+    with torch.no_grad():
+        eager = model(ids)
+    sf = jit.to_static(model.forward)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cold = sf(ids)
+    sync(device)
+    cold_s = time.perf_counter() - t0
+    rep = sf.last_report
+    ts_report("(a) prefill", rep)
+    if rep.fallback is not None or rep.cache != "miss":
+        sys.exit(f"chip_smoke: to_static prefill: fallback {rep.fallback}, "
+                 f"cache {rep.cache}")
+    zero_flash_launches()                    # the served call starts here
+    with torch.no_grad():
+        out = sf(ids)
+    sync(device)
+    launches = ts_counts()["flash_fwd"]      # and ends here
+    times = {"eager": [], "to_static": []}
+    with torch.no_grad():
+        for fn, key in ((model.forward, "eager"), (sf, "to_static"),
+                        (sf, "to_static"), (model.forward, "eager"),
+                        (model.forward, "eager"), (sf, "to_static")):
+            t0 = time.perf_counter()
+            fn(ids)
+            sync(device)
+            times[key].append((time.perf_counter() - t0) * 1e3)
+    static_ms = statistics.median(times["to_static"])
+    eager_ms = statistics.median(times["eager"])
+    want = cfg.num_hidden_layers if on_card else 0
+    err = ((out.float() - eager.float()).abs().max()
+           / eager.float().abs().max()).item()
+    log(f"to_static (a) [{CARD}]: logits {tuple(out.shape)}, max error "
+        f"{err:.3e} of the largest logit (bit for bit: "
+        f"{torch.equal(out, eager)}), K1 launches {launches} a call; "
+        f"call median {static_ms:.1f} ms against eager {eager_ms:.1f} ms "
+        f"(3 each, interleaved); "
+        f"first call (capture, passes, cache write, run) {cold_s:.2f} s")
+    # the program replays eager's ops in eager's order under no_grad (the
+    # passes merge, fold and regroup but do not reorder a sum), so its
+    # logits equal eager's bit for bit
+    if launches != want or not torch.equal(out, eager) \
+            or not torch.isfinite(out).all():
+        sys.exit(f"chip_smoke: to_static prefill: {launches} K1 launches "
+                 f"(expected {want}), logits error {err:.3e}, not equal "
+                 f"to eager's")
+    if not torch.equal(cold, out):
+        sys.exit("chip_smoke: two to_static calls disagree")
+
+    # (d) the same program warm from a new StaticFunction, then corrupted
+    t0 = time.perf_counter()
+    warm_sf = jit.to_static(model.forward)
+    with torch.no_grad():
+        warm = warm_sf(ids)
+    sync(device)
+    warm_s = time.perf_counter() - t0
+    wrep = warm_sf.last_report
+    log(f"to_static (d) [{CARD}]: cold first call {cold_s:.2f} s (cache "
+        f"{rep.cache}), warm {warm_s:.2f} s (cache {wrep.cache}; stage "
+        f"seconds {({k: round(v, 3) for k, v in wrep.seconds.items()})}), "
+        f"artifact {os.path.getsize(os.path.join(cache_dir, rep.key + '.pirc'))} "
+        f"bytes, bit for bit: {torch.equal(warm, cold)}")
+    if wrep.cache != "hit" or not torch.equal(warm, cold):
+        sys.exit(f"chip_smoke: warm to_static: cache {wrep.cache}, "
+                 f"equal {torch.equal(warm, cold)}")
+    path = os.path.join(cache_dir, rep.key + ".pirc")
+    blob = bytearray(Path(path).read_bytes())
+    blob[len(blob) // 2] ^= 0xFF
+    Path(path).write_bytes(bytes(blob))
+    try:
+        pir.CompileCache(cache_dir).get(rep.key)
+        sys.exit("chip_smoke: a corrupted artifact read back")
+    except pir.CompileCacheCorruptionError as e:
+        typed = type(e).__name__
+    obs.get_registry().reset()
+    obs.enable()
+    try:
+        import warnings
+        with warnings.catch_warnings(record=True):
+            warnings.simplefilter("always")
+            again_sf = jit.to_static(model.forward)
+            with torch.no_grad():
+                again = again_sf(ids)
+        corrupt = obs.get_registry().get("compile_cache_corrupt_total").value
+        arep = again_sf.last_report
+        log(f"to_static (d): flipped byte -> {typed}, "
+            f"compile_cache_corrupt_total {corrupt}, recompile cache "
+            f"{arep.cache}, equal to cold {torch.equal(again, cold)}")
+        if corrupt != 1 or arep.cache != "miss" or arep.fallback \
+                or not torch.equal(again, cold):
+            sys.exit("chip_smoke: the corrupted artifact was not caught, "
+                     "counted and recompiled")
+    finally:
+        obs.disable()
+        obs.get_registry().reset()
+    return launches
+
+
+def ts_train(model, device):
+    """(b) one training step through a to_static forward and
+    loss.backward(), then AdamW, against the eager step. Returns the
+    step's launches."""
+    cfg = model.config
+    b, s = TS_TRAIN["b"], TS_TRAIN["s"]
+    on_card = torch.device(device).type == "cuda"
+    model.train()
+    ids = torch.as_tensor(np.random.RandomState(29).randint(
+        0, cfg.vocab_size, (b, s)), device=device)
+    model.zero_grad(set_to_none=True)
+    loss_e, _ = model(ids, labels=ids)
+    loss_e.backward()
+    want = {k: p.grad.clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    sf = jit.to_static(model.forward)
+    zero_flash_launches()                    # the to_static step starts here
+    loss, _ = sf(ids, labels=ids)
+    loss.backward()
+    sync(device)
+    counts = ts_counts()                     # and ends here
+    ts_report("(b) training forward", sf.last_report)
+    if sf.last_report.fallback is not None:
+        sys.exit(f"chip_smoke: to_static training step fell back at "
+                 f"{sf.last_report.fallback}")
+    loss_err = abs(loss.item() - loss_e.item()) / abs(loss_e.item())
+    worst, worst_k = 0.0, None
+    for k, p in model.named_parameters():
+        g = p.grad.float()
+        e = (g - want[k].float()).abs().max() / \
+            want[k].float().abs().max().clamp_min(1e-30)
+        if e.item() > worst:
+            worst, worst_k = e.item(), k
+    n = cfg.num_hidden_layers if on_card else 0
+    expect = {"flash_fwd": n, "flash_fwd_rms_epilogue": 0,
+              "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    log(f"to_static (b) [{CARD}]: loss {loss.item():.6f} against eager "
+        f"{loss_e.item():.6f} (rel {loss_err:.2e}); worst gradient error "
+        f"{worst:.3e} of its largest magnitude ({worst_k}); launches "
+        f"{counts}")
+    if counts != expect or loss_err > TS_LOSS_RTOL or worst > TS_GRAD_RTOL:
+        sys.exit(f"chip_smoke: to_static training step: launches {counts} "
+                 f"(expected {expect}), loss error {loss_err:.3e}, gradient "
+                 f"error {worst:.3e}")
+    opt = optimizer.AdamW(TS_LR, parameters=model.parameters())
+    opt.step()
+    if not all(torch.isfinite(p).all() for p in model.parameters()):
+        sys.exit("chip_smoke: a parameter is not finite after AdamW")
+
+    def step(fn):
+        opt.clear_grad()
+        loss, _ = fn(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        sync(device)
+
+    times = {"eager": [], "to_static": []}
+    for fn, key in ((model.forward, "eager"), (sf, "to_static"),
+                    (sf, "to_static"), (model.forward, "eager"),
+                    (model.forward, "eager"), (sf, "to_static")):
+        t0 = time.perf_counter()
+        step(fn)
+        times[key].append((time.perf_counter() - t0) * 1e3)
+    log(f"to_static (b) [{CARD}]: llama_1.3b step (b{b} s{s}, forward, "
+        f"backward, AdamW) median {statistics.median(times['to_static']):.1f}"
+        f" ms through to_static against {statistics.median(times['eager']):.1f}"
+        f" ms eager (3 each, interleaved)")
+    model.eval()
+    opt.clear_grad()
+    return counts
+
+
+def dense_causal_attention(q, k, v):
+    """Attention written out densely: f32 scores, the -1e30 causal mask,
+    softmax, P in v's dtype, P V."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) \
+        / q.shape[-1] ** 0.5
+    keep = torch.ones(q.shape[1], k.shape[1], dtype=torch.bool,
+                      device=q.device).tril()
+    p = torch.softmax(s.masked_fill(~keep, -1e30), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
+
+
+def unfused_rms_epilogue(q, k, v, res, w):
+    att = dense_causal_attention(q, k, v)
+    hh = (att + res).float()
+    ms = torch.mean(hh * hh, dim=-1, keepdim=True)
+    return ((hh * torch.rsqrt(ms + RMS_EPS) * w.float()).to(att.dtype),)
+
+
+def ts_patterns(device):
+    """(c) the dense attention becomes one pt.sdpa launching K1, the
+    unfused epilogue one pt.sdpa_rms_epilogue launching K2. Returns their
+    launches."""
+    from paddle_tpu_torch import pir
+    on_card = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(30)
+    b, h, s, d = (TS_PATTERN[k] for k in "bhsd")
+    q, k, v = (torch.randn(b, s, h, d, generator=gen, device=device)
+               .to(torch.bfloat16) for _ in range(3))
+    compiled, rep = pir.compile_flat(
+        lambda q_, k_, v_: (dense_causal_attention(q_, k_, v_),),
+        [q, k, v], name="dense_attention")
+    ts_report("(c) dense attention", rep)
+    sdpa = [op for op in rep.program.ops if op.name == "pt.sdpa"]
+    zero_flash_launches()                    # the rewritten call
+    with torch.no_grad():
+        out = compiled(q, k, v)[0]
+    sync(device)
+    k1 = ts_counts()["flash_fwd"]
+    with torch.no_grad():
+        want = dense_causal_attention(q, k, v)
+        times = ""
+        if on_card:
+            times = (f"; {time_ms(lambda: compiled(q, k, v)):.4f} ms a "
+                     f"call against the dense version's "
+                     f"{time_ms(lambda: dense_causal_attention(q, k, v), reps=5):.4f}"
+                     f" (medians on CUDA events)")
+    err = (out.float() - want.float()).abs().max().item()
+    log(f"to_static (c) [{CARD}]: dense attention b{b} h{h} s{s} d{d} -> "
+        f"{[op.name for op in rep.program.ops]} (route "
+        f"{sdpa[0].attrs['route_fwd'] if sdpa else None}), K1 launches "
+        f"{k1}, max error {err:.3e} against the dense eager version{times}")
+    if rep.fallback or len(sdpa) != 1 or k1 != (1 if on_card else 0) \
+            or not torch.allclose(out.float(), want.float(), atol=OUT_ATOL,
+                                  rtol=OUT_RTOL):
+        sys.exit("chip_smoke: the sdpa pattern did not route the dense "
+                 "attention to K1 within tolerance")
+    del q, k, v, out, want, compiled, rep, sdpa
+    gc.collect()
+    b, h, s, d = (TS_EPILOGUE[k] for k in "bhsd")
+    q, k, v, res = (torch.randn(b, s, h, d, generator=gen, device=device)
+                    .to(torch.bfloat16) for _ in range(4))
+    w = torch.rand(d, generator=gen, device=device) + 0.5
+    compiled, rep = pir.compile_flat(unfused_rms_epilogue,
+                                     [q, k, v, res, w], name="epilogue")
+    ts_report("(c) unfused epilogue", rep)
+    epi = [op for op in rep.program.ops if op.name == "pt.sdpa_rms_epilogue"]
+    zero_flash_launches()
+    with torch.no_grad():
+        out = compiled(q, k, v, res, w)[0]
+    sync(device)
+    k2 = ts_counts()["flash_fwd_rms_epilogue"]
+    with torch.no_grad():
+        want = unfused_rms_epilogue(q, k, v, res, w)[0]
+    diff = (out.float() - want.float()).abs()
+    bound = K2_ATOL * w.abs().max() + K2_RTOL * want.float().abs()
+    log(f"to_static (c) [{CARD}]: unfused epilogue b{b} h{h} s{s} d{d} -> "
+        f"{[op.name for op in rep.program.ops]} (route "
+        f"{epi[0].attrs['route_fwd'] if epi else None} "
+        f"[{epi[0].attrs['route_source'] if epi else None}]), K2 launches "
+        f"{k2}, max error {diff.max().item():.3e}")
+    if rep.fallback or len(epi) != 1 or k2 != (1 if on_card else 0) \
+            or not bool((diff <= bound).all()):
+        sys.exit("chip_smoke: the rms-epilogue pattern did not route the "
+                 "unfused epilogue to K2 within tolerance")
+    return {"flash_fwd": k1, "flash_fwd_rms_epilogue": k2}
+
+
+def ts_graph_break(device):
+    """(e) a function with one data-dependent branch: 2 segments, equal to
+    eager, with gradients."""
+    import warnings
+
+    def fn(x, w):
+        h = torch.tanh(x @ w) * 2.0
+        if float(h.sum()) > -1e9:            # the graph break
+            return (h * h).sum() / h.numel()
+        return h.sum()
+
+    gen = torch.Generator(device=device).manual_seed(31)
+    x = torch.randn(1024, 1024, generator=gen, device=device)
+    w1 = (torch.randn(1024, 1024, generator=gen, device=device) * 0.03) \
+        .requires_grad_()
+    w2 = w1.detach().clone().requires_grad_()
+    sf = jit.to_static(fn)
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        y = sf(x, w1)
+    y.backward()
+    want = fn(x, w2)
+    want.backward()
+    sync(device)
+    gerr = ((w1.grad - w2.grad).abs().max()
+            / w2.grad.abs().max()).item()
+    log(f"to_static (e) [{CARD}]: graph break -> {sf._last_segments} "
+        f"segments, value {y.item():.6f} against eager {want.item():.6f}, "
+        f"gradient error {gerr:.3e} of its largest magnitude")
+    if sf._last_segments != 2 or not math.isclose(y.item(), want.item(),
+                                                  rel_tol=1e-5) \
+            or gerr > 1e-5:
+        sys.exit("chip_smoke: the staged graph break disagrees with eager")
+
+
+def ts_pipeline_tax(device, captures):
+    """(f) tools/pipeline_tax.py at its tiny config; its flops captures
+    (host time only, in worker processes) started with (e)."""
+    from paddle_tpu_torch.tools import pipeline_tax
+    t0 = time.perf_counter()
+    rows, failures = pipeline_tax.run(device, captures=captures)
+    log(f"to_static (f) [{CARD}]: pipeline_tax in "
+        f"{time.perf_counter() - t0:.1f} s:\n"
+        + pipeline_tax.table(rows, device))
+    if failures or any(r[3] is None for r in rows):
+        sys.exit("chip_smoke: pipeline_tax: " + "; ".join(
+            failures or ["a CostModel capture failed"]))
+
+
+def phase_to_static(device="cuda", cfg=None):
+    """Phase 28; returns each kernel's launches over (a)-(c)'s counted
+    runs."""
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    name, lcfg, *_ = train_llama.llama_ladder()[0]
+    return ts_phase(name, cfg or lcfg, device)
+
+
+def ts_phase(name, cfg, device):
+    """Phase 28 (a)-(f) on `cfg`'s llama. (f)'s CostModel captures (host
+    time only) run in worker processes on the host's other cores from the
+    start of (e), after (a)-(c)'s host-clock timings."""
+    from paddle_tpu_torch.framework import flags as _flags
+    from paddle_tpu_torch.tools import pipeline_tax
+    t0 = time.perf_counter()
+    pt.seed(0)
+    model = pt.models.LlamaForCausalLM(cfg, device=device).eval()
+    log(f"to_static: {name} ({cfg.num_hidden_layers} layers, hidden "
+        f"{cfg.hidden_size}, {cfg.num_attention_heads} heads, {cfg.dtype}) "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    prev = _flags.flag_value("compile_cache_dir")
+    with tempfile.TemporaryDirectory() as tmp:
+        cache_dir = os.path.join(tmp, "pirc")
+        _flags.set_flags({"compile_cache_dir": cache_dir})
+        try:
+            t0 = time.perf_counter()
+            served = ts_serve(model, device, cache_dir)
+            log(f"phase 28 (a), (d): {time.perf_counter() - t0:.1f} s")
+        finally:
+            _flags.set_flags({"compile_cache_dir": prev})
+    t0 = time.perf_counter()
+    trained = ts_train(model, device)
+    log(f"phase 28 (b): {time.perf_counter() - t0:.1f} s")
+    del model
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pattern = ts_patterns(device)
+    log(f"phase 28 (c): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    captures = pipeline_tax.FlopsCaptures()
+    try:
+        ts_graph_break(device)
+        ts_pipeline_tax(device, captures)
+    finally:
+        captures.close()
+    log(f"phase 28 (e), (f): {time.perf_counter() - t0:.1f} s")
+    return {"flash_fwd": served + trained["flash_fwd"]
+            + pattern["flash_fwd"],
+            "flash_fwd_rms_epilogue": pattern["flash_fwd_rms_epilogue"],
+            "flash_bwd_dq": trained["flash_bwd_dq"],
+            "flash_bwd_dkv": trained["flash_bwd_dkv"]}
 
 
 def timed(label, fn, *args):
@@ -8831,7 +9289,8 @@ def main():
     pipe26, _ = timed("26 (pipeline, ring, EP-MoE, PS, guards)",
                       phase_pipeline_ring_moe_ps)
     timed("27 (serving mesh)", phase_mesh)
-    log(f"phases 1-27: {time.perf_counter() - t0:.1f} s")
+    ts28 = timed("28 (PIR, to_static)", phase_to_static)
+    log(f"phases 1-28: {time.perf_counter() - t0:.1f} s")
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -8839,16 +9298,19 @@ def main():
     # K1 runs on the serving (bf16 and int8), predictor, training, BERT,
     # GPT, decode, hapi BERT, Transformer-base, ViT, Hessian-vector,
     # 2:4-pruned BERT, reloaded llama_1.3b, distributed (to_static on
-    # the 2x2 mesh, the fleet pipeline) and phase 26 (the 1F1B, FThenB, ZB
-    # and VPP runs over pp 4, the sep ring's calls) paths, K3 and K4 on the
-    # training, BERT, hapi BERT, Transformer-base, ViT, Hessian-vector (its
-    # ordinary backward), 2:4-pruned BERT, distributed and phase 26's
-    # pipeline paths (the graph, MoE, EP-MoE and PS paths, and phase 27's
-    # serving mesh, its process workers, drill and loadgen, launch none; the
-    # ResNet, vision-zoo, hapi ResNet and LeNet, LSTM seq2seq and DDPM
-    # paths add none, counted all the same); their times are the Llama
-    # training shape's (phases 3 and 5 print BERT's too). K2's are
-    # the serving prefill shape's (no single library call computes it).
+    # the 2x2 mesh, the fleet pipeline), phase 26 (the 1F1B, FThenB, ZB
+    # and VPP runs over pp 4, the sep ring's calls) and phase 28 (the
+    # to_static prefill and training step, the rewritten dense attention)
+    # paths; K2 on phase 10's fused epilogue and phase 28's rewritten one;
+    # K3 and K4 on the training, BERT, hapi BERT, Transformer-base, ViT,
+    # Hessian-vector (its ordinary backward), 2:4-pruned BERT, distributed,
+    # phase 26's pipeline and phase 28's to_static training paths (the
+    # graph, MoE, EP-MoE and PS paths, and phase 27's serving mesh, its
+    # process workers, drill and loadgen, launch none; the ResNet,
+    # vision-zoo, hapi ResNet and LeNet, LSTM seq2seq and DDPM paths add
+    # none, counted all the same); their times are the Llama training
+    # shape's (phases 3 and 5 print BERT's too). K2's are the serving
+    # prefill shape's (no single library call computes it).
     # "ms" and "library_ms" are device times from back-to-back calls
     kernels = [dict(name="flash_fwd", route="cuda", source=src + "fwd.cu",
                     replaces=ref + "116",
@@ -8859,11 +9321,11 @@ def main():
                               + mt["flash_fwd"] + vision["flash_fwd"]
                               + hvp["flash_fwd"] + sparse["flash_fwd"]
                               + plumbing + dist25["flash_fwd"]
-                              + pipe26["flash_fwd"]),
+                              + pipe26["flash_fwd"] + ts28["flash_fwd"]),
                     **{key: k1["train"][key] for key in keys}),
                dict(name="flash_fwd_rms_epilogue", route="cuda",
                     source=src + "fwd.cu", replaces=ref + "116",
-                    launches=epilogue,
+                    launches=epilogue + ts28["flash_fwd_rms_epilogue"],
                     **{key: k2["prefill"][key] for key in keys}),
                dict(name="flash_bwd_dq", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "198",
@@ -8874,7 +9336,8 @@ def main():
                               + hvp["flash_bwd_dq"]
                               + sparse["flash_bwd_dq"]
                               + dist25["flash_bwd_dq"]
-                              + pipe26["flash_bwd_dq"]),
+                              + pipe26["flash_bwd_dq"]
+                              + ts28["flash_bwd_dq"]),
                     **k34["train"]["dq"]),
                dict(name="flash_bwd_dkv", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "249",
@@ -8887,7 +9350,8 @@ def main():
                               + hvp["flash_bwd_dkv"]
                               + sparse["flash_bwd_dkv"]
                               + dist25["flash_bwd_dkv"]
-                              + pipe26["flash_bwd_dkv"]),
+                              + pipe26["flash_bwd_dkv"]
+                              + ts28["flash_bwd_dkv"]),
                     **k34["train"]["dkv"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -106,6 +106,30 @@ define_flag("check_nan_inf_level", 0, "0: raise on a NaN/Inf; >0: warn")
 define_flag("observability", False, "runtime observability layer (paddle_tpu.observability): metrics registry + span tracing + SLO telemetry; off = zero-cost no-op fast path")
 define_flag("flight_recorder_dir", "", "directory flight-recorder postmortem dumps land in ('' = the tempdir); read from the environment by observability/recorder.py so standalone loads see it too")
 define_flag("fault_injection", "", "chaos harness spec (paddle_tpu.resilience.faults): 'site:nth:Exc' / 'site:rand(p)@seed:Exc' entries joined by ';'; '' = disarmed (one global load per site)")
+# the PIR compile pipeline (reference: flags.py:120-125)
+define_flag("pir", True, "route jit.to_static through the PIR pass pipeline "
+            "(capture -> verify -> passes -> cost -> evaluator -> compile "
+            "cache); off = the function runs as it is written")
+define_flag("pir_passes", "fold,cse,pattern,fuse,dce",
+            "ordered comma list of PIR passes to run (registered: dce, fold, "
+            "cse, pattern, fuse); each can be left out; an unknown name "
+            "raises. The reference's three sharding passes (shard_search, "
+            "shard_prop, overlap) are not ported yet and join the default "
+            "when they are (ROADMAP Queue 1 item 3.6)")
+define_flag("pir_verify", "boundary", "structural IR verifier "
+            "(pir/verifier.py): off | boundary (after capture and after the "
+            "final pass) | on (after capture and after every pass). A "
+            "rejection runs that function as it is written, counted in "
+            "pir_fallback_total{stage=verify}")
+define_flag("compile_cache_dir", "", "persistent PIR compile-cache "
+            "directory ('' = off): sha256-verified artifacts of the rewritten "
+            "program, keyed by its canonical hash, the sharding, the flags, "
+            "the torch version and the device")
+define_flag("compile_cache_max_bytes", 1 << 28, "PIR compile-cache size "
+            "cap; the least recently read artifacts are evicted past it")
+define_flag("jit_signature_cache_size", 64, "most input signatures a "
+            "StaticFunction keeps captured (LRU); each fresh capture counts in "
+            "jit_retrace_total")
 # the pipeline (reference: flags.py:127)
 define_flag("mesh_rpc_timeout_s", 30.0, "per-op reply budget for the serving-mesh transport (inference/mesh/transport.py EngineProxy); an expired wait raises typed TransportTimeout — the worker is treated gray (reply still owed), never latched lost. A request deadline_s tightens the budget per call; the pool's op_timeout_s overrides")
 define_flag("mesh_worker_accept_timeout_s", 120.0, "how long the parent waits for a spawned mesh worker's transport connection (and the worker for its parent's listener) before typed TransportTimeout; engine_spec accept_timeout_s overrides per pool")

@@ -1,8 +1,21 @@
-"""jit.save / jit.load: the inference artifact.
+"""jit: to_static and the inference artifact (jit.save / jit.load).
 
-reference: paddle_tpu/jit/__init__.py — `InputSpec` (:43-51), `save`,
-`load`, `TranslatedLayer`, `FORMAT_VERSION` and the npz parameter codec
-`_encode_param` / `_decode_param` (:367-512).
+reference: paddle_tpu/jit/__init__.py — `to_static`, `StaticFunction`,
+`enable_to_static`, `not_to_static` (:58-380), `InputSpec` (:43-51),
+`save`, `load`, `TranslatedLayer`, `FORMAT_VERSION` and the npz parameter
+codec `_encode_param` / `_decode_param` (:367-512).
+
+`to_static(fn)` compiles `fn` through the PIR pipeline
+(pir/pipeline.compile_flat) once per input signature: the function is
+captured on fake tensors into a pir.Program with the layer's parameters
+and buffers as program inputs (closed over through
+`torch.func.functional_call`, as `jit.save` exports), verified, rewritten
+by the passes (dense causal attention to K1, its RMSNorm epilogue to K2)
+and replayed as torch calls on every call, so `loss.backward()` after a
+to_static forward runs torch autograd through the replayed program: K3/K4
+are the backward of the K1 operator the program holds. A data-dependent
+Python branch is a graph break: the signature then runs as staged
+segments (framework/staging.py), or raises with `full_graph=True`.
 
 An artifact is two files at one prefix:
 
@@ -23,25 +36,28 @@ An artifact is two files at one prefix:
     program holds them as nodes and runs them wherever it is loaded.
 
 The program runs on the device the layer lived on when it was saved.
-`jit.to_static` waits for the PIR slice (ROADMAP.md, slice 6).
 """
 
 from __future__ import annotations
 
+import functools
 import io
 import os
 import pickle
+import warnings
 import zipfile
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 
 from ..convert import tensor_from_bytes
 from ..framework.device import resolve_device
 from ..framework.dtypes import convert_dtype
 
-__all__ = ["save", "load", "TranslatedLayer", "InputSpec", "FORMAT_VERSION",
-           "set_code_level", "set_verbosity"]
+__all__ = ["to_static", "not_to_static", "ignore_module", "enable_to_static",
+           "StaticFunction", "save", "load", "TranslatedLayer", "InputSpec",
+           "FORMAT_VERSION", "set_code_level", "set_verbosity"]
 
 FORMAT_VERSION = 2  # v1: pickled params dict; v2: npz params + version field
 
@@ -238,8 +254,8 @@ _verbosity = 0
 
 
 def set_code_level(level=100, also_to_stdout=False):
-    """The transformed-code log level of dy2static, recorded (the port has
-    no AST transform to print until `to_static` is ported)."""
+    """The transformed-code log level of dy2static, recorded (the port
+    captures by tracing and has no transformed code to print)."""
     global _code_level
     _code_level = level
 
@@ -248,3 +264,218 @@ def set_verbosity(level=0, also_to_stdout=False):
     """The dy2static log verbosity, recorded."""
     global _verbosity
     _verbosity = level
+
+
+# ---------------------------------------------------------------------------
+# to_static
+# ---------------------------------------------------------------------------
+
+_to_static_enabled = True
+
+
+def enable_to_static(flag: bool):
+    """Globally turn to_static compilation on or off (off: every
+    StaticFunction calls its function as written)."""
+    global _to_static_enabled
+    _to_static_enabled = bool(flag)
+
+
+def _leaf_key(a):
+    """Signature part of one non-tensor argument leaf: its type and repr
+    (1, 1.0 and True key apart)."""
+    return (type(a).__name__, repr(a))
+
+
+class StaticFunction:
+    """A compiled wrapper (reference: StaticFunction): one captured,
+    rewritten program per input signature, in an LRU of
+    FLAGS_jit_signature_cache_size entries."""
+
+    def __init__(self, fn, input_spec=None, build_strategy=None,
+                 full_graph=False, layer=None):
+        self._fn = fn
+        self._layer = layer
+        self._input_spec = input_spec
+        self._full_graph = full_graph
+        self._cache: dict = {}               # LRU: insertion == recency
+        self._fallback_keys: set = set()
+        self._staged_jit_cache: dict = {}    # graph-break segments
+        self._last_segments = 0
+        self._ir_program = None
+        self._last_report = None
+        functools.update_wrapper(self, fn, updated=())
+
+    @property
+    def ir_program(self):
+        """The pir.Program of the most recent compile (None when the
+        pipeline is off or fell back): print(sf.ir_program)."""
+        return self._ir_program
+
+    @property
+    def last_report(self):
+        """pir.CompileReport of the most recent compile: cache state,
+        per-pass edits and seconds, pattern counts, fallback."""
+        return self._last_report
+
+    def _state(self):
+        if self._layer is None:
+            return {}
+        state = dict(self._layer.named_parameters())
+        state.update((k, b) for k, b in self._layer.named_buffers()
+                     if b is not None)
+        return state
+
+    def __call__(self, *args, **kwargs):
+        from ..pir.capture import GraphBreak, _proxy_graph
+        if not _to_static_enabled or getattr(self._fn, "_not_to_static",
+                                             False) \
+                or _proxy_graph() is not None:
+            # disabled, or called inside another capture: the outer
+            # program records this function's ops
+            return self._fn(*args, **kwargs)
+        state = self._state()
+        names = list(state)
+        flat, spec = pytree.tree_flatten((args, kwargs))
+        t_idx = [i for i, a in enumerate(flat) if isinstance(a, torch.Tensor)]
+        tensors = [flat[i] for i in t_idx]
+        key = (spec, tuple(names),
+               tuple((tuple(t.shape), t.dtype, str(t.device),
+                      t.requires_grad) for t in list(state.values())
+                     + tensors),
+               tuple(_leaf_key(a) for a in flat
+                     if not isinstance(a, torch.Tensor)),
+               None if self._layer is None else self._layer.training)
+        if key in self._fallback_keys:
+            return self._run_staged(args, kwargs)
+        entry = self._cache.pop(key, None)
+        if entry is None:
+            from ..framework import flags as _flags
+            from ..observability.catalog import metric as _metric
+            _metric("jit_retrace_total").inc()
+            try:
+                entry = self._compile(names, flat, spec, t_idx,
+                                      list(state.values()) + tensors)
+            except GraphBreak as e:
+                if self._full_graph:
+                    raise
+                warnings.warn(
+                    f"to_static: graph break in "
+                    f"{getattr(self._fn, '__name__', self._fn)!r} "
+                    f"(data-dependent control flow); running this input "
+                    f"signature as staged segments around the break. Use "
+                    f"full_graph=True to make this an error.\n  cause: {e}",
+                    RuntimeWarning, stacklevel=2)
+                self._fallback_keys.add(key)
+                return self._run_staged(args, kwargs)
+            cap = _flags.flag_value("jit_signature_cache_size")
+            while cap and len(self._cache) >= cap:
+                self._cache.pop(next(iter(self._cache)))
+        self._cache[key] = entry
+        compiled, out_box = entry
+        outs = compiled(*state.values(), *tensors)
+        return pytree.tree_unflatten(list(outs), out_box["spec"])
+
+    def _compile(self, names, flat, spec, t_idx, example):
+        """compile_flat of fn over (params and buffers, tensor args)."""
+        from .. import pir
+        from ..framework import flags as _flags
+        fn, layer = self._fn, self._layer
+        n_state = len(names)
+        out_box: dict = {}
+
+        def flat_fn(*tensors):
+            leaves = list(flat)
+            for i, t in zip(t_idx, tensors[n_state:]):
+                leaves[i] = t
+            a, k = pytree.tree_unflatten(leaves, spec)
+            if layer is not None:
+                out = torch.func.functional_call(
+                    _Bound(layer, fn),
+                    {"layer." + n: t for n, t in zip(names, tensors)},
+                    a, k)
+            else:
+                out = fn(*a, **k)
+            out_flat, out_box["spec"] = pytree.tree_flatten(out)
+            return tuple(out_flat)
+
+        name = getattr(fn, "__name__", "to_static")
+        if not _flags.flag_value("pir"):
+            self._last_report = self._ir_program = None
+            return flat_fn, out_box
+        compiled, report = pir.compile_flat(flat_fn, example, name=name)
+        self._last_report = report
+        self._ir_program = report.program
+        if report.program is not None:
+            from .. import static as _static
+            _static.default_main_program().attach_ir(report.program)
+        if "spec" not in out_box:
+            # a fallback never ran flat_fn: learn the output structure
+            from torch._subclasses.fake_tensor import FakeTensorMode
+            with FakeTensorMode(allow_non_fake_inputs=True):
+                flat_fn(*example)
+        return compiled, out_box
+
+    def _run_staged(self, args, kwargs):
+        from ..framework.staging import StagingScope
+        scope = StagingScope(jit_cache=self._staged_jit_cache)
+        out = scope.run(self._fn, *args, **kwargs)
+        self._last_segments = scope.segments
+        return out
+
+    @property
+    def code(self):
+        import inspect
+        return inspect.getsource(self._fn)
+
+    def concrete_program_specify_input_spec(self, *a, **k):
+        return None
+
+
+class _Bound(torch.nn.Module):
+    """forward = the wrapped function, with the layer registered as the
+    submodule "layer", so torch.func.functional_call can put the program's
+    parameter and buffer inputs in place of the layer's own."""
+
+    def __init__(self, layer, fn):
+        super().__init__()
+        self.layer = layer
+        object.__setattr__(self, "_fn", fn)
+
+    def forward(self, *args, **kwargs):
+        return self._fn(*args, **kwargs)
+
+
+def to_static(function=None, input_spec=None, build_strategy=None,
+              backend=None, full_graph=False, **kwargs):
+    """reference: python/paddle/jit/api.py:195. A Layer gets its forward
+    replaced by a StaticFunction (the Layer is returned); a bound method
+    of a Layer or a plain function becomes a StaticFunction. With
+    full_graph=False (the reference's SOT default) a graph break runs the
+    signature as staged segments; full_graph=True raises
+    pir.GraphBreak."""
+
+    def decorate(fn):
+        if isinstance(fn, torch.nn.Module):
+            layer = fn
+            sf = StaticFunction(layer.forward, input_spec, build_strategy,
+                                full_graph, layer=layer)
+            layer.forward = sf
+            return layer
+        owner = getattr(fn, "__self__", None)
+        layer = owner if isinstance(owner, torch.nn.Module) else None
+        return StaticFunction(fn, input_spec, build_strategy, full_graph,
+                              layer=layer)
+
+    if function is not None:
+        return decorate(function)
+    return decorate
+
+
+def not_to_static(fn):
+    """Mark `fn` so a StaticFunction of it runs it as written."""
+    fn._not_to_static = True
+    return fn
+
+
+def ignore_module(modules):
+    """Accepted for the reference's API; capture traces every module."""

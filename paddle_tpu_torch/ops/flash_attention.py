@@ -445,6 +445,14 @@ def _first_order_only(bwd):
     return wrapper
 
 
+def _flash_fwd_setup(ctx, inputs, output):
+    q, k, v, causal, scale, q_per_kv = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, out, lse)
+    ctx.causal, ctx.scale, ctx.q_per_kv = causal, scale, q_per_kv
+    ctx.mark_non_differentiable(lse)
+
+
 class _FlashAttention(torch.autograd.Function):
     """K1 forward; K3/K4 or the dense rematerialised backward: the
     counterpart of the reference's `custom_vjp` `_flash_attention_bhsd`.
@@ -473,6 +481,18 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
     backward = staticmethod(_first_order_only(first_order.__func__))
+
+
+# K1's operator differentiates through K3/K4 (or the dense rematerialised
+# backward, as routed), first order only: _FlashAttention's backward. A
+# program that holds the bare operator (a captured to_static program)
+# trains through the backward kernels; lse is not differentiable. Eager
+# calls go through _FlashAttention, whose forward runs with autograd off,
+# so this formula never runs there.
+flash_fwd_op.register_autograd(
+    _first_order_only(lambda ctx, g, _g_lse:
+                      _FlashAttention.first_order(ctx, g)),
+    setup_context=_flash_fwd_setup)
 
 
 class _FlashAttentionHigherOrder(_FlashAttention):

@@ -16,6 +16,10 @@ Two departures from the reference's functional style:
 - Writes land IN PLACE in the cache tensors (`index_put_`), which are also
   returned, so the reference's `k_cache, v_cache = write(...)` call shape
   still reads right. A copy of a 7B pool per token would move gigabytes.
+  The writes run inside `pir.effect_scope("kv.write")` and the rollback
+  inside `effect_scope("kv.rollback")` (the reference's named scopes), so
+  a program captured around them stamps them for the verifier's
+  effect-order rule.
 - A block index past a table row is clamped to the row's last entry
   (which the engine pads with its scratch block) wherever it is looked
   up; the reference's `take_along_axis` leaves that case to XLA's
@@ -32,6 +36,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..pir.capture import effect_scope
 
 from ..framework.dtypes import NAME2DTYPE
 from ..nn.quant.format import fp8_limits
@@ -145,8 +151,9 @@ def write_to_cache(k_cache, v_cache, k_new, v_new, block_tables, write_pos,
     in_block = (write_pos % block_size).long()
     if active is not None:
         block_ids = torch.where(active, block_ids, scratch_block)
-    k_cache[block_ids, in_block] = k_new.to(k_cache.dtype)
-    v_cache[block_ids, in_block] = v_new.to(v_cache.dtype)
+    with effect_scope("kv.write"):
+        k_cache[block_ids, in_block] = k_new.to(k_cache.dtype)
+        v_cache[block_ids, in_block] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
 
 
@@ -168,8 +175,9 @@ def write_chunk_to_cache(k_cache, v_cache, k_new, v_new, table_row, start):
     """
     bids, inb = _chunk_slots(table_row, start, k_new.shape[0],
                              k_cache.shape[1])
-    k_cache[bids, inb] = k_new.to(k_cache.dtype)
-    v_cache[bids, inb] = v_new.to(v_cache.dtype)
+    with effect_scope("kv.write"):
+        k_cache[bids, inb] = k_new.to(k_cache.dtype)
+        v_cache[bids, inb] = v_new.to(v_cache.dtype)
     return k_cache, v_cache
 
 
@@ -212,8 +220,9 @@ def kv_write_tokens(fmt, k_cache, v_cache, k_scale, v_scale,
     else:
         qk, qv = k_new, v_new
         saved = (saved_k, saved_v)
-    k_cache[bids, inb] = qk.to(k_cache.dtype)
-    v_cache[bids, inb] = qv.to(v_cache.dtype)
+    with effect_scope("kv.write"):
+        k_cache[bids, inb] = qk.to(k_cache.dtype)
+        v_cache[bids, inb] = qv.to(v_cache.dtype)
     return k_cache, v_cache, k_scale, v_scale, saved
 
 
@@ -233,8 +242,9 @@ def kv_rollback_tokens(fmt, k_cache, v_cache, k_scale, v_scale, saved,
         v_scale[bids, inb] = saved_vs
     else:
         saved_k, saved_v = saved
-    k_cache[bids, inb] = saved_k
-    v_cache[bids, inb] = saved_v
+    with effect_scope("kv.rollback"):
+        k_cache[bids, inb] = saved_k
+        v_cache[bids, inb] = saved_v
     return k_cache, v_cache, k_scale, v_scale
 
 

@@ -1,11 +1,61 @@
-"""PIR. reference: paddle_tpu/pir/.
+"""paddle_tpu_torch.pir: the PIR-lite compiler layer. reference:
+paddle_tpu/pir/ (after paddle/pir/: the Program/Operation/Value SSA IR,
+pir::PassManager, DRR pattern rewriting, the PIR serialize layer).
 
-Only the serving engine's pricer is ported (`analysis.py`: `OpCost`,
-`ProgramCost`, `DEFAULT_ROOFLINE` and `price`). The reference's program
-IR, its passes, the full `CostModel` and `to_static` wait for the PIR
-slice (ROADMAP.md, slice 6).
+* capture (`pir.capture`): `make_fx` on fake tensors lowers a torch
+  function to a small SSA IR with stable canonical hashing; a
+  data-dependent branch raises `GraphBreak`;
+* the PassManager (`pir.passes`, `pir.patterns`, `pir.fuse`): ordered,
+  flag-toggled, instrumented passes: constant folding, CSE, the DRR
+  patterns that send dense attention to K1 (`pt.sdpa`) and its RMSNorm
+  epilogue to K2 (`pt.sdpa_rms_epilogue`), cost-guided fusion and DCE,
+  each held to the structural verifier (`pir.verifier`, mutation-tested
+  by `pir.mutate`) and priced by `pir.analysis.CostModel`;
+* the compile cache (`pir.cache`, `pir.pipeline`): persistent,
+  sha256-verified, LRU-capped artifacts of the rewritten program
+  (`pir.serialize`), keyed by (canonical IR hash, sharding, flags, torch
+  version, device).
+
+`jit.to_static` compiles through `pipeline.compile_flat`. The reference's
+sharding passes (`shard_prop`, `shard_search`, `overlap`) are not ported
+yet (ROADMAP Queue 1 item 3.6).
 """
 
-from .analysis import DEFAULT_ROOFLINE, OpCost, ProgramCost, price
+from .analysis import (DEFAULT_ROOFLINE, CostModel, DataflowAnalysis,
+                       FlatLattice, Lattice, Liveness, OpCost, ProgramCost,
+                       ShapeDtypeInference, ShardingConsistency,
+                       check_donation_safety, price)
+from .cache import (CompileCache, CompileCacheCorruptionError, cache_key,
+                    default_cache, stats_snapshot)
+from .capture import GraphBreak, capture, effect_scope, from_graph_module
+from .fuse import (FUSIBLE_ELEMENTWISE, FUSIBLE_LAYOUT, FUSIBLE_REDUCE,
+                   FusionPass, FusionPassError)
+from .ir import Operation, Program, Value
+from .mutate import CORRUPTIONS, SkipCorruption, corrupt
+from .passes import (CommonSubexprElimination, ConstantFolding,
+                     DeadCodeElimination, Pass, PassManager, PassResult)
+from .patterns import (PatternRewriter, RewritePattern, RmsEpiloguePattern,
+                       SdpaRoutePattern)
+from .pipeline import CompileReport, compile_flat, pir_jit
+from .verifier import (EFFECT_SCOPES, RULES, IRVerificationError,
+                       verify_mode, verify_program)
 
-__all__ = ["OpCost", "ProgramCost", "DEFAULT_ROOFLINE", "price"]
+__all__ = [
+    "Program", "Operation", "Value",
+    "capture", "from_graph_module", "GraphBreak", "effect_scope",
+    "Pass", "PassResult", "PassManager",
+    "DeadCodeElimination", "ConstantFolding", "CommonSubexprElimination",
+    "RewritePattern", "PatternRewriter", "SdpaRoutePattern",
+    "RmsEpiloguePattern",
+    "FusionPass", "FusionPassError", "FUSIBLE_ELEMENTWISE",
+    "FUSIBLE_LAYOUT", "FUSIBLE_REDUCE",
+    "CompileCache", "CompileCacheCorruptionError", "cache_key",
+    "default_cache", "stats_snapshot",
+    "CompileReport", "compile_flat", "pir_jit",
+    "RULES", "EFFECT_SCOPES", "IRVerificationError", "verify_program",
+    "verify_mode",
+    "DataflowAnalysis", "Lattice", "FlatLattice", "ShapeDtypeInference",
+    "Liveness", "ShardingConsistency", "check_donation_safety",
+    "CostModel", "OpCost", "ProgramCost", "DEFAULT_ROOFLINE", "price",
+    "CORRUPTIONS", "SkipCorruption", "corrupt",
+]

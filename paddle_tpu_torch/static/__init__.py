@@ -9,8 +9,10 @@ are Python control flow on tensors with the reference's return shapes:
 `cond` reads its predicate on the host (one device-to-host copy on the
 card; the reference stages a `lax.cond`), `while_loop` reads its
 condition once a trip and returns a list, and `scan` returns the carry
-and the stacked ys. A Program has no captured IR until the PIR slice, so
-`to_string` prints the registry.
+and the stacked ys. `jit.to_static` attaches the pir.Program of its most
+recent compile to the default main program (`attach_ir`), and then
+`print(program)` (and `CompiledProgram.to_string()`) shows its ops; a
+Program with no IR attached prints its registry.
 
 Serialization is the reference's: `serialize_program`/`serialize_
 persistables` write the registry as npz bytes (no pickle), so bytes one
@@ -83,6 +85,7 @@ class Program:
 
     def __init__(self):
         self._params: dict = {}
+        self._ir = None          # attached pir.Program (last to_static)
 
     def global_block(self):
         return self
@@ -90,10 +93,24 @@ class Program:
     def clone(self, for_test=False):
         p = Program()
         p._params = dict(self._params)
+        p._ir = self._ir
         return p
 
+    def attach_ir(self, pir_program):
+        """Bind a captured pir.Program, so print(program) shows its ops
+        (jit.to_static attaches each compile to the default main
+        program)."""
+        self._ir = pir_program
+
+    @property
+    def ir(self):
+        return self._ir
+
     def to_string(self, throw_on_error=False, with_details=False):
-        """The registry: one line per parameter with its shape."""
+        """The attached IR, one SSA op a line; without one, the registry:
+        one line per parameter with its shape."""
+        if self._ir is not None:
+            return self._ir.to_string()
         lines = [f"program (no captured IR; {len(self._params)} "
                  "registered parameters) {"]
         for k, v in self._params.items():

@@ -24,10 +24,12 @@ the outcome:
              not move — the drill exits nonzero
 
 Every scenario also asserts the matching catalog counters moved, so a
-fault can never be silently swallowed either. The five `compile.*` sites
-belong to PIR, which is not ported: they are listed as not drilled
-(ROADMAP.md Queue 1 item 3.4) and never counted as recovered. Any other
-registered site without a scenario fails the drill.
+fault can never be silently swallowed either. The four `compile.*` sites
+of the PIR pipeline (cache read and write, the verifier, the fusion pass)
+are drilled on a two-op program compiled on DEVICE; `compile.shard_prop`
+waits for the sharding passes (ROADMAP.md Queue 1 item 3.6) and is listed
+as not drilled, never counted as recovered. Any other registered site
+without a scenario fails the drill.
 """
 
 from __future__ import annotations
@@ -52,10 +54,10 @@ from paddle_tpu_torch.resilience import RetryPolicy, TrainSupervisor, faults
 DEVICE = "cuda"
 TINY_KNOBS = dict(num_blocks=64, block_size=8, max_batch=2,
                   prefill_buckets=(16,))
-# the sites that wait for PIR (ROADMAP.md Queue 1 item 3.4)
-NOT_DRILLED = ("compile.cache_read", "compile.cache_write",
-               "compile.verify", "compile.fuse", "compile.shard_prop")
-NOT_DRILLED_WHY = "not drilled (waits for PIR, ROADMAP Queue 1 item 3.4)"
+# the site that waits for the sharding passes (ROADMAP.md Queue 1 item 3.6)
+NOT_DRILLED = ("compile.shard_prop",)
+NOT_DRILLED_WHY = ("not drilled (waits for pir.shard_prop, ROADMAP Queue 1 "
+                   "item 3.6)")
 
 
 class Escape(AssertionError):
@@ -892,6 +894,156 @@ def drill_obs_sample(tmp):
                         "on, off, and mid-run killed")
 
 
+def _pir_compile_setup(tmp):
+    """A two-op program (tanh(x @ y).sum()) on DEVICE and a fresh compile
+    cache directory; returns (pir, fn, args, want, previous cache dir)."""
+    from paddle_tpu_torch import pir
+    from paddle_tpu_torch.framework import flags as _flags
+
+    def fn(x, y):
+        return (torch.tanh(x @ y).sum(),)
+
+    x = torch.ones(4, 4, device=DEVICE)
+    y = torch.eye(4, device=DEVICE) * 2.0
+    want = float(np.tanh(2.0) * 16)
+    prev = _flags.flag_value("compile_cache_dir")
+    _flags.set_flags({"compile_cache_dir": os.path.join(tmp, "pirc")})
+    return pir, fn, [x, y], want, prev
+
+
+def drill_compile_cache_read(tmp):
+    from paddle_tpu_torch.framework import flags as _flags
+    pir, fn, args, want, prev = _pir_compile_setup(tmp)
+    try:
+        _, rep0 = pir.compile_flat(fn, args, name="drill")   # seed artifact
+        _expect(rep0.cache == "miss", f"seed compile was {rep0.cache}")
+        with faults.injected_faults("compile.cache_read:1:OSError"):
+            warm, rep = pir.compile_flat(fn, args, name="drill")
+            inj = faults.injected_counts().get("compile.cache_read", 0)
+        _expect(inj == 1, "fault never reached the cache-read site")
+        _expect(rep.cache.startswith("error:read"),
+                f"read fault not surfaced in report: {rep.cache}")
+        out = float(warm(*args)[0])
+        _expect(abs(out - want) < 1e-5, f"recompiled result wrong: {out}")
+        _expect(_counter("fault_injected_total",
+                         site="compile.cache_read") >= 1,
+                "injection not counted")
+        _, rep2 = pir.compile_flat(fn, args, name="drill")
+        _expect(rep2.cache == "hit", f"artifact lost after read fault: "
+                                     f"{rep2.cache}")
+    finally:
+        _flags.set_flags({"compile_cache_dir": prev})
+    return "recovered", ("read fault degraded to the fresh compile; the "
+                         "artifact survived and re-verified as a hit")
+
+
+def drill_compile_cache_write(tmp):
+    from paddle_tpu_torch.framework import flags as _flags
+    pir, fn, args, want, prev = _pir_compile_setup(tmp)
+    try:
+        with faults.injected_faults("compile.cache_write:1:OSError"):
+            cold, rep = pir.compile_flat(fn, args, name="drill")
+            inj = faults.injected_counts().get("compile.cache_write", 0)
+        _expect(inj == 1, "fault never reached the cache-write site")
+        _expect(rep.cache.startswith("error:write"),
+                f"write fault not surfaced in report: {rep.cache}")
+        out = float(cold(*args)[0])
+        _expect(abs(out - want) < 1e-5,
+                f"compile result wrong after write fault: {out}")
+        _, rep2 = pir.compile_flat(fn, args, name="drill")
+        _expect(rep2.cache == "miss", f"expected miss, got {rep2.cache}")
+        _, rep3 = pir.compile_flat(fn, args, name="drill")
+        _expect(rep3.cache == "hit", f"retried write not readable: "
+                                     f"{rep3.cache}")
+    finally:
+        _flags.set_flags({"compile_cache_dir": prev})
+    return "degraded", ("write fault left the compile uncached but "
+                        "working; the next compile wrote and verified")
+
+
+def drill_compile_verify(tmp):
+    from paddle_tpu_torch.framework import flags as _flags
+    pir, fn, args, want, prev = _pir_compile_setup(tmp)
+    prev_v = _flags.flag_value("pir_verify")
+    _flags.set_flags({"pir_verify": "boundary"})
+    try:
+        with faults.injected_faults("compile.verify:1:RuntimeError"):
+            compiled, rep = pir.compile_flat(fn, args, name="drill_verify")
+            inj = faults.injected_counts().get("compile.verify", 0)
+        _expect(inj == 1, "fault never reached the verifier entry")
+        _expect(rep.fallback == "verify",
+                f"verifier fault not degraded: fallback={rep.fallback}")
+        out = float(compiled(*args)[0])
+        _expect(abs(out - want) < 1e-5, f"fallback result wrong: {out}")
+        _expect(_counter("pir_fallback_total", stage="verify") >= 1,
+                "verify fallback not counted")
+        clean, rep2 = pir.compile_flat(fn, args, name="drill_verify")
+        _expect(rep2.fallback is None,
+                f"still degraded after fault cleared: {rep2.fallback}")
+        out2 = float(clean(*args)[0])
+        _expect(abs(out2 - want) < 1e-5, f"clean recompile wrong: {out2}")
+    finally:
+        _flags.set_flags({"compile_cache_dir": prev, "pir_verify": prev_v})
+    return "degraded", ("verifier fault ran that function as written "
+                        "(correct numerics); the next compile verified and "
+                        "took the PIR path")
+
+
+def drill_compile_fuse(tmp):
+    """Both blast radii of the fusion pass: hit 1 (the planning walk)
+    runs the whole function as written, counted
+    pir_fallback_total{stage=fuse}; hit 2 (the group's commit) skips that
+    group only, the compile staying on the PIR path. Every leg must equal
+    the fusion-off program bit for bit."""
+    from paddle_tpu_torch.framework import flags as _flags
+    pir, fn, args, want, prev = _pir_compile_setup(tmp)
+    prev_passes = _flags.flag_value("pir_passes")
+    no_fuse = ",".join(p for p in prev_passes.split(",")
+                       if p.strip() != "fuse")
+    try:
+        _flags.set_flags({"pir_passes": no_fuse})
+        off, rep_off = pir.compile_flat(fn, args, name="drill_fuse")
+        _expect(rep_off.fallback is None,
+                f"fusion-off reference degraded: {rep_off.fallback}")
+        ref = off(*args)[0]
+        _flags.set_flags({"pir_passes": prev_passes})
+
+        with faults.injected_faults("compile.fuse:2:RuntimeError"):
+            part, rep1 = pir.compile_flat(fn, args, name="drill_fuse")
+            inj1 = faults.injected_counts().get("compile.fuse", 0)
+        _expect(inj1 == 1, "fault never reached the per-group seam")
+        _expect(rep1.fallback is None,
+                f"per-group fault degraded the compile: {rep1.fallback}")
+        _expect(rep1.fusion_groups == 0,
+                f"skipped group still counted: {rep1.fusion_groups}")
+        _expect(torch.equal(part(*args)[0], ref),
+                "per-group skip not bit-identical to fusion-off")
+
+        with faults.injected_faults("compile.fuse:1:RuntimeError"):
+            plain, rep2 = pir.compile_flat(fn, args, name="drill_fuse")
+            inj2 = faults.injected_counts().get("compile.fuse", 0)
+        _expect(inj2 == 1, "fault never reached the fuse pass entry")
+        _expect(rep2.fallback == "fuse",
+                f"whole-pass fault not degraded: fallback={rep2.fallback}")
+        _expect(torch.equal(plain(*args)[0], ref),
+                "stage=fuse fallback not bit-identical to fusion-off")
+        _expect(_counter("pir_fallback_total", stage="fuse") >= 1,
+                "fuse fallback not counted")
+
+        clean, rep3 = pir.compile_flat(fn, args, name="drill_fuse")
+        _expect(rep3.fallback is None and rep3.fusion_groups >= 1,
+                f"not fused after the fault cleared: fallback="
+                f"{rep3.fallback} groups={rep3.fusion_groups}")
+        _expect(torch.equal(clean(*args)[0], ref),
+                "fused program not bit-identical to fusion-off")
+    finally:
+        _flags.set_flags({"compile_cache_dir": prev,
+                          "pir_passes": prev_passes})
+    return "degraded", ("per-group fault skipped that group on the PIR "
+                        "path; pass-entry fault ran the function as "
+                        "written; every leg bit-identical to fusion-off")
+
+
 SCENARIOS = {
     "ckpt.chunk_write": drill_ckpt_chunk_write,
     "ckpt.metadata_replace": drill_ckpt_metadata_replace,
@@ -919,13 +1071,18 @@ SCENARIOS = {
     "mesh.net_stall": drill_mesh_net_stall,
     "mesh.controller_act": drill_mesh_controller_act,
     "obs.sample": drill_obs_sample,
+    "compile.cache_read": drill_compile_cache_read,
+    "compile.cache_write": drill_compile_cache_write,
+    "compile.verify": drill_compile_verify,
+    "compile.fuse": drill_compile_fuse,
 }
 
 
 def run(sites=None, device="cuda", verbose=False):
     """Drill `sites` (every scenario when None) with the tiny engines on
     `device`. Returns (rows, problems): rows of (site, outcome, note) in
-    site order, with the sites that wait for PIR as NOT_DRILLED_WHY, and
+    site order, with the site that waits for the sharding passes as
+    NOT_DRILLED_WHY, and
     the list of what fails the drill."""
     global DEVICE
     DEVICE = device

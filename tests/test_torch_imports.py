@@ -86,7 +86,9 @@ SUBPACKAGES = [
     "parallel.pipeline", "parallel.llama_pipeline", "parallel.moe",
     "resilience.supervisor", "distributed.watchdog", "distributed.rpc",
     "distributed.ps", "distributed.dataset", "inference.mesh",
-    "inference.mesh.worker", "tools.chaos_drill", "tools.autoscale_report"]
+    "inference.mesh.worker", "tools.chaos_drill", "tools.autoscale_report",
+    "pir.capture", "pir.pipeline", "pir.serialize", "framework.staging",
+    "tools.ir_dump", "tools.pipeline_tax"]
 
 
 @pytest.fixture(scope="module")
