@@ -523,10 +523,10 @@ Phases, each of which makes the script exit non-zero if it fails:
      which is worker.build_engine(spec)'s engine; prints the children's
      spawn seconds, the card's free memory after the spawn, tokens/s and
      the hand-off bytes. (c) the chaos drill (tools/chaos_drill.py) with
-     its tiny engines on the card: no site ESCAPED, every site but
-     compile.shard_prop (listed as not drilled, waiting for the sharding
-     passes) drilled, the four compile.* sites of the PIR pipeline on a
-     two-op program compiled on the card.
+     its tiny engines on the card: no site ESCAPED, all 31 sites
+     drilled, the five compile.* sites of the PIR pipeline
+     (compile.shard_prop among them) on a two-op program compiled on the
+     card.
      (d) loadgen's chat scenario on the card through --replicas 2
      --disaggregate --check: goodput, TTFT and TPOT p95, and the
      autoscale verdict through tools/autoscale_report.py --check.
@@ -556,10 +556,37 @@ Phases, each of which makes the script exit non-zero if it fails:
      tools/pipeline_tax.py at its tiny config on the card, its table
      printed (every stage on the one card: the ratio measures serial
      stages).
-Phases 9, 9b, 13 and 27 run llama_7b at SERVING_DEPTH of its 32 layers
-(full width), after phase 12, which runs at full depth beside phase 8;
-phase 27 builds it again at that depth.
-Each phase's seconds are printed as it ends, then those of phases 1-28.
+  29. the PIR sharding passes (pir/shard_prop.py, shard_search.py,
+     overlap.py, ops/collectives.py) and the engine through pir_jit. (a)
+     llama_1.3b (24 layers, b2 s2048, bf16) trained a step through
+     pir_jit(sharding_rules=LLAMA_SHARDING_RULES) under a 2x2 logical
+     ProcessMesh ("dp", "mp"): the loss and every gradient equal to the
+     same step compiled outside the scope bit for bit, the same K1/K3/K4
+     launches (once a layer); prints the values annotated, rules stamped,
+     conflicts resolved, sweeps and shard_prop seconds, and the call's ms
+     beside the unscoped compile's. (b) its forward under a search scope
+     of dp, tp and dp+tp from the rule tables: the decision and each
+     candidate's predicted seconds on the H100 rows, the loss equal to
+     (a)'s unscoped one. (c) over a one-rank NCCL group, an all-reduce of
+     x 4096x8192 @ w 8192x4096 captured after two 4096x4096 products in
+     bf16: the overlap pass hoists it (edits >= 1, exposed seconds
+     strictly down), the compiled program equal to eager bit for bit;
+     the captured and reordered replays' device times printed (one rank
+     moves no bytes: no overlap can show on one card). (d), run after
+     phase 13 on its model: 4 greedy requests of phase 9's traffic at its
+     knobs through pir_jit on a fresh compile cache (the prefill programs
+     "miss", the decode "bypass:donate"), again on the same cache (a
+     prefill "hit") and with FLAGS_pir off: every stream equal to phase
+     9's, no K1-K4 launch; prints the capture and compile seconds, the
+     first step's seconds, the prefill chunk's ms compiled and as written
+     and the decode tile's beside phase 9's. (e) ReplicaPool(n=2,
+     tp=True) against tp=False: equal streams; shard_prop declines in
+     every tp program (the reference's scope closes before the lazy
+     compiles).
+Phases 9, 9b, 13, 27 and 29 (d, e) run llama_7b at SERVING_DEPTH of its 32
+layers (full width), after phase 12, which runs at full depth beside phase
+8; phase 27 builds it again at that depth.
+Each phase's seconds are printed as it ends, then those of phases 1-29.
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Without a CUDA device it exits non-zero and
 prints no result.
@@ -916,6 +943,8 @@ NMT_SCORE_ATOL, NMT_TIE_ATOL = 1e-4, 1e-4
 # 1,193.0 s on a slow host (phases 1-27 1,030.2 s there), so the depth is
 # 8, which keeps the script well below its 1,200 s limit
 SERVING_DEPTH = 8
+# phase 9's engine numbers, which phase 29 (d) prints its own beside
+PHASE9 = {}
 
 # the card's name and power limit as nvidia-smi gives them (phase 1)
 CARD = "not read"
@@ -1699,11 +1728,12 @@ def graph_matches_eager(eng):
     return same
 
 
-def engine_device_ms(eng):
+def engine_device_ms(eng, layer=None):
     """CUDA-event medians, on the engine of a finished run, of one prefill
-    chunk of 512 tokens and of one decode tile, greedy and sampled, over
-    all 8 lanes at position 1,024 (profile_serving.lane_state), the lane
-    state restored before each replay."""
+    chunk of 512 tokens (its layers as written, or `layer`'s compiled
+    program) and of one decode tile, greedy and sampled, over all 8 lanes
+    at position 1,024 (profile_serving.lane_state), the lane state
+    restored before each replay."""
     d = eng._dev
     reset_greedy = profile_serving.lane_state(eng, eng.embed_w.shape[0])
 
@@ -1720,7 +1750,8 @@ def engine_device_ms(eng):
         reset_greedy()
         table = d["tables"][0].clone()
         chunk_ms = profile_serving.median_ms(
-            lambda: eng._prefill_chunk(ids, 0, 511, table), reset_greedy)
+            lambda: eng._prefill_chunk(ids, 0, 511, table, layer=layer),
+            reset_greedy)
         tile_ms = {}
         for sampled, reset in ((False, reset_greedy), (True, reset_sampled)):
             key = (sampled, eng.decode_steps, 0)
@@ -1798,6 +1829,7 @@ def phase_engine(model):
     eng = a["engine"]
     captures = eng.graph_captures
     chunk_ms, tile_ms = engine_device_ms(eng)
+    PHASE9.update(chunk_ms=chunk_ms, tile_ms=tile_ms, launches=None)
     worst, chunk_logits = chunk_logits_check(eng, model, prompts)
     del eng, a["engine"]
     gc.collect()
@@ -1861,6 +1893,7 @@ def phase_engine(model):
         if run["launches"] != 0:
             sys.exit(f"chip_smoke: engine {name} launched K1-K4 "
                      f"{run['launches']} times")
+    PHASE9["launches"] = a["launches"]
     if a["streams"] != b["streams"]:
         sys.exit("chip_smoke: two engine runs with the same seeds differ")
     if a["streams"] != c["streams"]:
@@ -8246,6 +8279,16 @@ def phase26_ps(parse):
     cpu = ps.TheOnePs(cfgs).start_local()
     cpu_snaps = ctr_run(batches, cpu, "cpu")[-2]
     rows["cpu"] = table_rows(cpu, keys)
+    # the CPU against itself: the same 32 batches on one intra-op thread
+    # (the run above takes torch's default), the gap the card's is read by
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cpu1 = ps.TheOnePs(cfgs).start_local()
+        ctr_run(batches, cpu1, "cpu")
+        rows["cpu1"] = table_rows(cpu1, keys)
+    finally:
+        torch.set_num_threads(threads)
     same = np.array_equal(rows["local"], rows["rpc"])
     card_snaps = runs["local"][-2]
     steps = {(label, i): ps_step_on_cpu(p) for label, r in runs.items()
@@ -8266,6 +8309,7 @@ def phase26_ps(parse):
         rel = rel1 = float("inf")
         new = np.zeros(0, bool)
     end_share, end_rel = agree(rows["local"], rows["cpu"])
+    self_share, self_rel = agree(rows["cpu1"], rows["cpu"])
     with tempfile.TemporaryDirectory() as tmp:
         eng = ps.TheOnePs(cfgs)
         eng.client = local
@@ -8302,7 +8346,9 @@ def phase26_ps(parse):
         f"{int(new.sum())} new rows, {share1:.6f}, relative L2 {rel1:.3e} "
         f"(in all {len(card_snaps[1][0])} rows {whole1:.6f}; printed); "
         f"after all {c['batches']}: {end_share:.6f} within, relative L2 "
-        f"{end_rel:.3e} (printed); the card's pushed gradients against the "
+        f"{end_rel:.3e} (printed), where the CPU on 1 thread against the "
+        f"CPU on {threads}: {self_share:.6f} within, relative L2 "
+        f"{self_rel:.3e} (printed); the card's pushed gradients against the "
         f"same steps redone on the CPU from the card's MLP and inputs, "
         f"relative L2 (tol {PS_GRAD_RTOL:g}; the planted fault, one "
         f"sample's gradients lost): "
@@ -8738,12 +8784,14 @@ def mesh_drill_and_loadgen():
     obs.get_registry().reset()
     rows, problems = chaos_drill.run(device="cuda")
     drilled = [(site, out) for site, out, _ in rows if out != "-"]
+    escapes = sum(out == "ESCAPED" for _, out in drilled)
     log(f"mesh (c) [{CARD}]: chaos drill on cuda, {len(drilled)} sites "
-        f"in {time.perf_counter() - t0:.1f} s: " + ", ".join(
-            f"{site} {out}" for site, out in drilled)
-        + "; not drilled (waits for the sharding passes): "
-        + ", ".join(site for site, out, _ in rows if out == "-"))
-    if problems or len(drilled) != 30:
+        f"in {time.perf_counter() - t0:.1f} s, {escapes} escapes: "
+        + ", ".join(f"{site} {out}" for site, out in drilled)
+        + "; not drilled: " + (", ".join(
+            site for site, out, _ in rows if out == "-") or "none"))
+    if problems or len(drilled) != 31 or escapes or dict(drilled).get(
+            "compile.shard_prop") != "degraded":
         sys.exit("chip_smoke: chaos drill on the card: "
                  + "; ".join(problems or [f"{len(drilled)} sites drilled"]))
     obs.disable()
@@ -9227,6 +9275,377 @@ def ts_phase(name, cfg, device):
             "flash_bwd_dkv": trained["flash_bwd_dkv"]}
 
 
+# --------------------------------------------------------------------------
+# phase 29: the PIR sharding passes (pir/shard_prop.py, shard_search.py,
+# overlap.py, ops/collectives.py) and the engine through pir_jit
+# --------------------------------------------------------------------------
+
+# (c): the overlap program's widths, where the compute in the all-reduce's
+# window can hide it: x [M, K] @ w [K, N] reduced, y [N, N] products beside
+OVERLAP = dict(m=4096, k=8192, n=4096)
+# (d), (e): the greedy requests of phase 9's traffic the engines serve
+SHARD_SERVE = 4
+
+
+def shard_mesh(device):
+    from paddle_tpu_torch.distributed import ProcessMesh
+    return ProcessMesh([[0, 1], [2, 3]], ["dp", "mp"], device=device)
+
+
+def shard_step(model):
+    """The training step's forward as a function of the parameters: what
+    pir_jit compiles and its sharding rules match by path."""
+    def step(params, ids):
+        return torch.func.functional_call(model, params, (ids,),
+                                          {"labels": ids})[0]
+    return step
+
+
+def shard_notes(rep, name):
+    """{key: value} of a pass's report notes ("values=3 rules=1")."""
+    return dict(p.split("=", 1) for p in
+                rep.pass_report[name]["notes"].split() if "=" in p)
+
+
+def phase_sharding(device="cuda", cfg=None):
+    """Phase 29 (a)-(c); returns (a)-(b)'s kernel launches."""
+    from paddle_tpu_torch.pir import shard_prop
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    name, lcfg, *_ = train_llama.llama_ladder()[0]
+    cfg = cfg or lcfg
+    pt.seed(0)
+    model = pt.models.LlamaForCausalLM(cfg, device=device).train()
+    ids = torch.as_tensor(np.random.RandomState(29).randint(
+        0, cfg.vocab_size, (TS_TRAIN["b"], TS_TRAIN["s"])), device=device)
+    mesh = shard_mesh(device)
+    t0 = time.perf_counter()
+    a = shard_train(model, ids, mesh, device, name)
+    log(f"phase 29 (a): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    b = shard_search(model, ids, mesh, device, a)
+    log(f"phase 29 (b): {time.perf_counter() - t0:.1f} s")
+    del model, a
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shard_overlap(device)
+    log(f"phase 29 (c): {time.perf_counter() - t0:.1f} s")
+    assert shard_prop.current_mesh() is None
+    return b
+
+
+def shard_train(model, ids, mesh, device, name):
+    """(a) the training step through pir_jit(sharding_rules=
+    LLAMA_SHARDING_RULES) under the 2x2 logical mesh, against the same
+    step compiled outside the scope: the loss and every gradient bit for
+    bit, the same K1/K3/K4 launches; the call's ms beside (the replay
+    hint's host cost)."""
+    from paddle_tpu_torch.parallel import spmd
+    from paddle_tpu_torch.pir import pir_jit, shard_prop
+    params = dict(model.named_parameters())
+    step = shard_step(model)
+    runs = {}
+    for label, scope in (("unscoped", None), ("scoped", mesh)):
+        fn = pir_jit(step, name="shard_step",
+                     sharding_rules=spmd.LLAMA_SHARDING_RULES)
+        with shard_prop.mesh_scope(scope):
+            sync(device)
+            zero_flash_launches()
+            t0 = time.perf_counter()
+            loss = fn(params, ids)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            sync(device)
+            first = time.perf_counter() - t0
+            counts = ts_counts()
+        runs[label] = dict(fn=fn, loss=loss.detach(), grads=grads,
+                           counts=counts, first=first)
+    u, sc = runs["unscoped"], runs["scoped"]
+    rep = sc["fn"].report
+    notes = shard_notes(rep, "shard_prop")
+    equal = torch.equal(u["loss"], sc["loss"]) and all(
+        torch.equal(x, y) for x, y in zip(u["grads"], sc["grads"]))
+    n_rules = sum("sharding_rule" in op.attrs for op in rep.program.ops)
+    times = {"unscoped": [], "scoped": []}
+    with torch.no_grad():
+        for label in ("unscoped", "scoped", "scoped", "unscoped",
+                      "unscoped", "scoped"):
+            sync(device)
+            t0 = time.perf_counter()
+            runs[label]["fn"](params, ids)
+            sync(device)
+            times[label].append((time.perf_counter() - t0) * 1e3)
+    ms = {k: statistics.median(v) for k, v in times.items()}
+    n = model.config.num_hidden_layers if device != "cpu" else 0
+    expect = {"flash_fwd": n, "flash_fwd_rms_epilogue": 0,
+              "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    log(f"sharding (a) [{CARD}]: {name} (b{TS_TRAIN['b']} s{TS_TRAIN['s']}, "
+        f"{model.config.num_hidden_layers} layers) through "
+        f"pir_jit(sharding_rules=LLAMA_SHARDING_RULES) under the 2x2 "
+        f"logical mesh: {len(rep.program.inputs)} inputs, values annotated "
+        f"{notes.get('values')}, rules stamped {notes.get('rules')} "
+        f"({n_rules} ops carry one), conflicts resolved "
+        f"{notes.get('resolved')}, sweeps {notes.get('sweeps')}, shard_prop "
+        f"{rep.pass_report['shard_prop']['seconds']:.3f} s; loss "
+        f"{sc['loss'].item():.6f}, loss and every gradient equal to the "
+        f"unscoped compile's: {equal}; launches {sc['counts']} (unscoped "
+        f"{u['counts']}); first call with its compile and backward "
+        f"{sc['first']:.2f} s (unscoped {u['first']:.2f}); the call "
+        f"{ms['scoped']:.1f} ms against the unscoped compile's "
+        f"{ms['unscoped']:.1f} ms (medians of 3 interleaved, host clock, "
+        f"printed)")
+    if not equal or sc["counts"] != u["counts"] or sc["counts"] != expect \
+            or rep.fallback is not None or u["fn"].report.fallback \
+            or int(notes.get("values", 0)) == 0:
+        sys.exit(f"chip_smoke: sharded training step: equal {equal}, "
+                 f"launches {sc['counts']} / {u['counts']} (expected "
+                 f"{expect}), fallback {rep.fallback}, notes {notes}")
+    return {"loss": u["loss"], "counts": {k: sc["counts"][k] + u["counts"][k]
+                                          for k in expect}}
+
+
+def shard_search(model, ids, mesh, device, a):
+    """(b) the same step's forward under a search scope of dp, tp and dp+tp
+    built from the rule tables, without input shardings: the decision and
+    every candidate's predicted seconds on the H100 rows; the loss equal
+    to the unscoped step's. Returns (a) and (b)'s launches."""
+    from paddle_tpu_torch.distributed.placement import P
+    from paddle_tpu_torch.parallel import spmd
+    from paddle_tpu_torch.pir import pir_jit, shard_prop
+    params = dict(model.named_parameters())
+    args = (params, ids)
+
+    def space(table, ids_spec):
+        return shard_prop.flat_input_specs(args, [(r"^1$", ids_spec)]
+                                           + table)
+    search = [("dp", space(spmd.DP_ONLY_RULES, P("dp", None))),
+              ("tp", space(spmd.LLAMA_SHARDING_RULES, P())),
+              ("dp+tp", space(spmd.LLAMA_SHARDING_RULES, P("dp", None)))]
+    fn = pir_jit(shard_step(model), name="shard_search_step")
+    with shard_prop.mesh_scope(mesh, search=search), torch.no_grad():
+        zero_flash_launches()
+        loss = fn(params, ids)
+        sync(device)
+        counts = ts_counts()
+    rep = fn.report
+    found = rep.program._shard_search if rep.program is not None else {}
+    cands = found.get("candidates", {})
+    equal = torch.equal(loss, a["loss"])
+    log(f"sharding (b) [{CARD}]: search over {sorted(cands)}: decision "
+        f"{rep.shard_decision}, predicted "
+        + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in
+                    sorted(cands.items(), key=lambda kv: kv[1]))
+        + f" (H100 rows: 989 TFLOP/s, 3.35 TB/s, NVLink 450 GB/s a way, "
+        f"data-sheet figures); the search "
+        f"{rep.pass_report['shard_search']['seconds']:.3f} s; loss "
+        f"equal to the unscoped step's: {equal}; launches {counts}")
+    if rep.fallback is not None or rep.shard_decision is None \
+            or len(cands) != 4 or not equal:
+        sys.exit(f"chip_smoke: sharding search: fallback {rep.fallback}, "
+                 f"decision {rep.shard_decision}, candidates {cands}, "
+                 f"equal {equal}")
+    return {k: a["counts"][k] + counts[k] for k in counts}
+
+
+def shard_overlap(device):
+    """(c) the overlap program over a one-rank NCCL group: the all-reduce
+    of a partial product captured after two independent products is
+    hoisted; prints comm and exposed seconds before and after and the
+    edits, holds the compiled program to eager bit for bit, and prints the
+    device time of the captured and the reordered replay."""
+    import torch.distributed as tdist
+    from paddle_tpu_torch import pir
+    from paddle_tpu_torch.pir.analysis import CostModel
+    from paddle_tpu_torch.pir.overlap import CollectiveOverlap
+    cuda = torch.device(device).type == "cuda"
+    tdist.init_process_group("nccl" if cuda else "gloo",
+                             init_method=f"tcp://127.0.0.1:{free_port()}",
+                             world_size=1, rank=0)
+    try:
+        group = tdist.group.WORLD.group_name
+        F = torch.ops._c10d_functional
+
+        def f(x, w, y):
+            p = x @ w
+            b = torch.tanh(y) @ y.T
+            c = torch.sin(y) @ y
+            a = F.wait_tensor(F.all_reduce(p, "sum", group))
+            return (a * 2.0 + b + c,)
+        m, k, n = OVERLAP["m"], OVERLAP["k"], OVERLAP["n"]
+        g = torch.Generator(device).manual_seed(29)
+        dtype = torch.bfloat16 if cuda else torch.float32
+        x, w, y = (torch.randn(*s, device=device, dtype=dtype, generator=g)
+                   * 0.02 for s in ((m, k), (k, n), (n, n)))
+        captured, _ = pir.capture(f, x, w, y, name="overlap_captured")
+        hoisted, _ = pir.capture(f, x, w, y, name="overlap_hoisted")
+        cm = CostModel()
+        before = cm.exposed_comm_seconds(captured)
+        res = CollectiveOverlap(cm).run(hoisted)
+        after = cm.exposed_comm_seconds(hoisted)
+        fn, rep = pir.compile_flat(f, [x, w, y], name="overlap")
+        out, want = fn(x, w, y)[0], f(x, w, y)[0]
+        sync(device)
+        equal = torch.equal(out, want) and torch.equal(
+            hoisted.bind(x, w, y)[0], want)
+        dev_ms = {}
+        if cuda:
+            for label in ("captured", "hoisted", "hoisted", "captured"):
+                prog = captured if label == "captured" else hoisted
+                dev_ms.setdefault(label, []).append(
+                    profile_serving.median_ms(lambda: prog.bind(x, w, y),
+                                              lambda: None))
+        order = [op.target.overloadpacket.__name__ if op.target is not None
+                 else op.name for op in hoisted.ops]
+        log(f"sharding (c) [{CARD}]: x {m}x{k} @ w {k}x{n} all-reduced "
+            f"over a one-rank NCCL group after tanh(y) @ y.T and sin(y) @ y"
+            f" (y {n}x{n}, {str(dtype).removeprefix('torch.')}): comm "
+            f"{before['comm_seconds'] * 1e3:.4f} ms on the NVLink row, "
+            f"exposed {before['exposed_seconds'] * 1e3:.4f} -> "
+            f"{after['exposed_seconds'] * 1e3:.4f} ms, {res.edits} edit(s) "
+            f"(the pipeline's overlap pass: "
+            f"{rep.pass_report['overlap']['notes']}); order "
+            f"{order}; equal to eager bit for bit: {equal}; device time a "
+            f"replay (CUDA events, medians of 5, twice each in turns, "
+            f"printed): "
+            + ("; ".join(f"{k} {v[0]:.3f} and {v[1]:.3f} ms"
+                         for k, v in dev_ms.items()) if dev_ms else
+               "not measured")
+            + " (one rank moves no bytes, so no overlap can show on one "
+            "card)")
+        if res.edits < 1 or not after["exposed_seconds"] < \
+                before["exposed_seconds"] or not equal \
+                or rep.fallback is not None \
+                or rep.pass_report["overlap"]["edits"] < 1:
+            sys.exit(f"chip_smoke: overlap: edits {res.edits}, exposed "
+                     f"{before} -> {after}, equal {equal}, fallback "
+                     f"{rep.fallback}")
+    finally:
+        tdist.destroy_process_group()
+
+
+def phase_engine_pir(model, streams9):
+    """Phase 29 (d) phase 9's engine (llama_7b at SERVING_DEPTH, phase 9's
+    knobs) serving SHARD_SERVE of its greedy requests through pir_jit on a
+    fresh compile cache, again on the same cache, and with FLAGS_pir off;
+    (e) two-replica ReplicaPools, tp=False and tp=True. Returns the K1
+    launches of (d)'s runs."""
+    from paddle_tpu_torch.framework import flags as _flags
+    cfg = model.config
+    prompts, knobs = engine_traffic(cfg.vocab_size)
+    sel = [i for i in range(ENGINE_REQUESTS) if not knobs[i]][:SHARD_SERVE]
+    runs = {}
+    prev = (_flags.flag_value("compile_cache_dir"), _flags.flag_value("pir"))
+    with tempfile.TemporaryDirectory() as tmp:
+        _flags.set_flags({"compile_cache_dir": os.path.join(tmp, "pirc")})
+        try:
+            for label, on in (("cold", True), ("warm", True),
+                              ("as written", False)):
+                _flags.set_flags({"pir": on})
+                gc.collect()
+                torch.cuda.empty_cache()
+                eng = ContinuousBatchingEngine(model, **ENGINE)
+                rids = [eng.add_request(prompts[i], max_new_tokens=ENGINE_NEW)
+                        for i in sel]
+                torch.cuda.synchronize()
+                zero_flash_launches()
+                t0 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+                out = eng.run()
+                torch.cuda.synchronize()
+                runs[label] = dict(
+                    streams=[out[r] for r in rids], first=first,
+                    wall=time.perf_counter() - t0, launches=flash_launches(),
+                    reports={k: (r.cache, r.seconds.get("capture", 0.0),
+                                 sum(r.seconds.values()))
+                             for k, r in eng.compile_reports.items()})
+                if label == "warm":
+                    width = max(eng._chunk_widths)
+                    prog = eng._compiled(("prefill", width),
+                                         f"serving.prefill.b{width}",
+                                         eng._prefill_layer, donate=False)
+                    chunk_pir, tile_ms = engine_device_ms(eng, layer=prog)
+                    chunk_eager, _ = engine_device_ms(eng)
+                del eng
+        finally:
+            _flags.set_flags({"compile_cache_dir": prev[0], "pir": prev[1]})
+    want = [streams9[i] for i in sel]
+    same = all(r["streams"] == want for r in runs.values())
+    caches = {k: {p: c for p, (c, _, _) in r["reports"].items()}
+              for k, r in runs.items()}
+    log(f"engine pir (d) [{CARD}]: {len(sel)} greedy requests of phase 9's "
+        f"(prompts {[len(prompts[i]) for i in sel]}, {ENGINE_NEW} new) at "
+        f"its knobs: caches " + "; ".join(
+            f"{k}: " + ", ".join(f"{p} {c}" for p, c in sorted(v.items()))
+            for k, v in caches.items())
+        + "; capture / compile seconds (cold) " + ", ".join(
+            f"{p} {cap:.2f} / {tot:.2f}" for p, (_, cap, tot) in
+            sorted(runs["cold"]["reports"].items()))
+        + "; (warm) " + ", ".join(
+            f"{p} {cap:.2f} / {tot:.2f}" for p, (_, cap, tot) in
+            sorted(runs["warm"]["reports"].items()))
+        + f"; first step {runs['cold']['first']:.2f} s cold, "
+        f"{runs['warm']['first']:.2f} s warm, "
+        f"{runs['as written']['first']:.2f} s with FLAGS_pir off; runs "
+        + ", ".join(f"{k} {r['wall']:.2f} s" for k, r in runs.items())
+        + f"; streams equal to phase 9's in all three: {same}")
+    log(f"engine pir (d) [{CARD}]: prefill chunk of 512 tokens "
+        f"{chunk_pir:.3f} ms compiled, {chunk_eager:.3f} ms as written "
+        f"(phase 9: {PHASE9.get('chunk_ms', float('nan')):.3f}); decode "
+        f"tile K={ENGINE.get('decode_steps', 4)} {tile_ms['greedy']:.3f} ms "
+        f"greedy, {tile_ms['sampled']:.3f} sampled (phase 9: "
+        f"{PHASE9.get('tile_ms', {}).get('greedy', float('nan')):.3f}, "
+        f"{PHASE9.get('tile_ms', {}).get('sampled', float('nan')):.3f}; "
+        f"CUDA events, medians of 5); K1-K4 launches "
+        + ", ".join(f"{k} {r['launches']}" for k, r in runs.items())
+        + f" (phase 9 run 1: {PHASE9.get('launches')})")
+    cold = caches["cold"]
+    if not same or cold.get("prefill.b512", cold.get(
+            f"prefill.b{ENGINE['prefill_buckets'][0]}")) is None \
+            or any(c not in ("miss", "bypass:donate")
+                   for c in cold.values()) \
+            or cold.get("decode") != "bypass:donate" \
+            or not any(c == "hit" for c in caches["warm"].values()) \
+            or any(r["launches"] for r in runs.values()):
+        sys.exit(f"chip_smoke: the engine through pir_jit: streams equal "
+                 f"{same}, caches {caches}")
+    shard_replicas(model, prompts, sel)
+    return sum(r["launches"] for r in runs.values())
+
+
+def shard_replicas(model, prompts, sel):
+    """(e) two-replica ReplicaPools over the model, tp=False then tp=True:
+    the same greedy streams; each tp engine's programs compiled with
+    shard_prop declining (the scope closes before the lazy compiles, as
+    in the reference)."""
+    got, notes = {}, set()
+    t0 = time.perf_counter()
+    for tp in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        pool = ReplicaPool(lambda: ContinuousBatchingEngine(
+            model, **dict(ENGINE, num_blocks=256)), n=2, tp=tp, store_port=0)
+        router = MeshRouter(pool)
+        rids = [router.add_request(prompts[i], max_new_tokens=16)
+                for i in sel]
+        out = router.run()
+        got[tp] = [out[r] for r in rids]
+        if tp:
+            notes = {r.pass_report["shard_prop"]["notes"]
+                     for rep in pool.replicas
+                     for r in rep.engine.compile_reports.values()}
+        del pool, router
+    log(f"engine pir (e) [{CARD}]: ReplicaPool(n=2, tp=True) against "
+        f"tp=False over {len(sel)} greedy requests (16 new each): streams "
+        f"equal {got[True] == got[False]}; the tp engines' shard_prop "
+        f"{sorted(notes)}; {time.perf_counter() - t0:.1f} s")
+    if got[True] != got[False] or notes != {"no-annotations"}:
+        sys.exit("chip_smoke: tp replicas serve other tokens than plain ones")
+
+
 def timed(label, fn, *args):
     """fn(*args), logging its seconds as phase `label`'s."""
     t0 = time.perf_counter()
@@ -9268,6 +9687,8 @@ def main():
     timed("9b (engine knobs)", phase_knobs, model, plain9, bf16_logits)
     predictor = timed("13 (predictor)", phase_predictor, model,
                       decisions["prefill"][0])
+    engine29 = timed("29 (d, e) (the engine through pir_jit, TP replicas)",
+                     phase_engine_pir, model, plain9)
     del model
     epilogue = timed("10 (fused epilogue)", phase_epilogue, decisions)
     train = timed("11 (training)", phase_train, decisions["train"][0])
@@ -9290,7 +9711,8 @@ def main():
                       phase_pipeline_ring_moe_ps)
     timed("27 (serving mesh)", phase_mesh)
     ts28 = timed("28 (PIR, to_static)", phase_to_static)
-    log(f"phases 1-28: {time.perf_counter() - t0:.1f} s")
+    sh29 = timed("29 (a-c) (the sharding passes)", phase_sharding)
+    log(f"phases 1-29: {time.perf_counter() - t0:.1f} s")
     src = "paddle_tpu_torch/csrc/flash_attention_"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -9301,7 +9723,7 @@ def main():
     # the 2x2 mesh, the fleet pipeline), phase 26 (the 1F1B, FThenB, ZB
     # and VPP runs over pp 4, the sep ring's calls) and phase 28 (the
     # to_static prefill and training step, the rewritten dense attention)
-    # paths; K2 on phase 10's fused epilogue and phase 28's rewritten one;
+    # and phase 29 (the sharded and the searched llama_1.3b steps) paths; K2 on phase 10's fused epilogue and phase 28's rewritten one;
     # K3 and K4 on the training, BERT, hapi BERT, Transformer-base, ViT,
     # Hessian-vector (its ordinary backward), 2:4-pruned BERT, distributed,
     # phase 26's pipeline and phase 28's to_static training paths (the
@@ -9321,11 +9743,13 @@ def main():
                               + mt["flash_fwd"] + vision["flash_fwd"]
                               + hvp["flash_fwd"] + sparse["flash_fwd"]
                               + plumbing + dist25["flash_fwd"]
-                              + pipe26["flash_fwd"] + ts28["flash_fwd"]),
+                              + pipe26["flash_fwd"] + ts28["flash_fwd"]
+                              + sh29["flash_fwd"] + engine29),
                     **{key: k1["train"][key] for key in keys}),
                dict(name="flash_fwd_rms_epilogue", route="cuda",
                     source=src + "fwd.cu", replaces=ref + "116",
-                    launches=epilogue + ts28["flash_fwd_rms_epilogue"],
+                    launches=(epilogue + ts28["flash_fwd_rms_epilogue"]
+                              + sh29["flash_fwd_rms_epilogue"]),
                     **{key: k2["prefill"][key] for key in keys}),
                dict(name="flash_bwd_dq", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "198",
@@ -9337,7 +9761,8 @@ def main():
                               + sparse["flash_bwd_dq"]
                               + dist25["flash_bwd_dq"]
                               + pipe26["flash_bwd_dq"]
-                              + ts28["flash_bwd_dq"]),
+                              + ts28["flash_bwd_dq"]
+                              + sh29["flash_bwd_dq"]),
                     **k34["train"]["dq"]),
                dict(name="flash_bwd_dkv", route="cuda", source=src + "bwd.cu",
                     replaces=ref + "249",
@@ -9351,7 +9776,8 @@ def main():
                               + sparse["flash_bwd_dkv"]
                               + dist25["flash_bwd_dkv"]
                               + pipe26["flash_bwd_dkv"]
-                              + ts28["flash_bwd_dkv"]),
+                              + ts28["flash_bwd_dkv"]
+                              + sh29["flash_bwd_dkv"]),
                     **k34["train"]["dkv"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

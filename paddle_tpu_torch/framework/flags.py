@@ -110,12 +110,11 @@ define_flag("fault_injection", "", "chaos harness spec (paddle_tpu.resilience.fa
 define_flag("pir", True, "route jit.to_static through the PIR pass pipeline "
             "(capture -> verify -> passes -> cost -> evaluator -> compile "
             "cache); off = the function runs as it is written")
-define_flag("pir_passes", "fold,cse,pattern,fuse,dce",
+define_flag("pir_passes",
+            "fold,cse,pattern,fuse,dce,shard_search,shard_prop,overlap",
             "ordered comma list of PIR passes to run (registered: dce, fold, "
-            "cse, pattern, fuse); each can be left out; an unknown name "
-            "raises. The reference's three sharding passes (shard_search, "
-            "shard_prop, overlap) are not ported yet and join the default "
-            "when they are (ROADMAP Queue 1 item 3.6)")
+            "cse, pattern, fuse, shard_search, shard_prop, overlap); each "
+            "can be left out; an unknown name raises")
 define_flag("pir_verify", "boundary", "structural IR verifier "
             "(pir/verifier.py): off | boundary (after capture and after the "
             "final pass) | on (after capture and after every pass). A "

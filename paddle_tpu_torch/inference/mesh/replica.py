@@ -11,13 +11,11 @@ synchronously each pump (deterministic: no heartbeat threads in tests),
 and killing a replica tombstones its lease so `alive()` drops it the
 same way a lost process drops out of an etcd registry.
 
-Replicas may be TP-sharded in the reference: with `tp=True` each engine
-is built under the auto-parallel `mesh_scope` of its PIR passes. Here,
-with fewer than two CUDA devices (or on the CPU) `tp=True` builds the
-plain engine, as the reference does with fewer than two devices; with
-two or more it raises NotImplementedError, because the sharding
-propagation it needs (`pir.shard_prop`) is not ported (ROADMAP.md Queue
-1 item 3.6).
+With `tp=True` each engine is built under the sharding passes'
+`mesh_scope` over a two-way "mp" mesh, as the reference's is. The port's
+meshes are logical (their process ids lie on the card or cards there
+are: distributed/placement.py), so it does so at any card count, where
+the reference builds the plain engine below two devices.
 
 Port: reference paddle_tpu/inference/mesh/replica.py; everything but
 `_build_sharded` is a copy.
@@ -132,21 +130,25 @@ class Replica:
         }
 
 
-def _device_count():
-    import torch
-    return torch.cuda.device_count() if torch.cuda.is_available() else 0
-
-
 def _build_sharded(build_engine, tp):
-    """Build one engine. `tp=True` with fewer than two devices builds the
-    plain engine, as the reference does; with two or more it raises rather
-    than build an unsharded engine under a sharded name."""
-    if not tp or _device_count() < 2:
+    """Build one engine, with `tp=True` under the sharding passes' mesh
+    scope over ProcessMesh([0, 1], ["mp"]) (reference :130-144).
+
+    As in the reference, this shards nothing: the scope is open only while
+    `build_engine()` runs, and the engine's programs compile lazily, at
+    their first dispatch, after it closed; nor does the engine give its
+    programs sharding rules or input shardings. So a tp engine and a plain
+    one compile the same programs (their shard_prop declines with
+    "no-annotations"), in the reference and in the port."""
+    if not tp:
         return build_engine()
-    raise NotImplementedError(
-        "tensor-parallel mesh replicas (tp=True) need the sharding "
-        "propagation of pir.shard_prop, which is not ported yet "
-        "(ROADMAP.md Queue 1 item 3.6)")
+    import torch
+    from ...distributed.placement import ProcessMesh
+    from ...pir.shard_prop import mesh_scope
+    mesh = ProcessMesh([0, 1], dim_names=["mp"],
+                       device="cuda" if torch.cuda.is_available() else "cpu")
+    with mesh_scope(mesh):
+        return build_engine()
 
 
 class ReplicaPool:

@@ -12,7 +12,7 @@ Three program families serve every request mix:
   - chunked prefill: a prompt is split into fixed-width chunks; each chunk
     forward writes its K/V into the paged pool and attends over every
     earlier position (`generation._llama_layer_prefill_chunk`), so a long
-    prompt interleaves with decode tiles. It runs eagerly.
+    prompt interleaves with decode tiles.
   - fused K-step decode: one program advances every lane `decode_steps`
     tokens: greedy argmax, per-lane sampling for sampled lanes, the paged
     writes and the EOS/length masking all on the device, returning a
@@ -28,11 +28,33 @@ Three program families serve every request mix:
     dtype (the reference verifies all positions in one batched forward,
     which rounds differently in bf16).
 
-On CUDA each decode program, keyed by (sampled, K, draft depth; 0 for the
-plain decode), is captured once as a `torch.cuda.CUDAGraph` over static
-lane-state and pool tensors, and each dispatch is one replay; a capture
-that fails raises and the engine never decodes eagerly on the card. On the
-CPU, which has no graphs, the same functions run eagerly.
+The programs compile through the PIR pipeline (`pir.pir_jit`, reference
+:1384-1399, :1714-1775), keyed by the LoRA store's `program_key`. The
+reference's programs scan one layer body over the layers (and its decode
+scans its step K times); the port compiles that layer body, and a chunk
+or a step replays it once a layer: `serving.prefill.b{width}` once per
+chunk width (`_prefill_layer`), `serving.decode` and `serving.decode.spec`
+once each (`_decode_layer`, `_decode_layer_spec`; greedy and sampled
+steps, and every K, share them), so capture, verification and passes cost
+one layer whatever the depth. The embedding lookup, the head, the
+sampler and the lane-state update around them run as written. A layer's
+arguments are every tensor it reads or writes (its weights, its slice of
+the KV pool, the lane state, its adapter factors), so a capture holds no
+weight as a constant, and a chunk's offset enters as a 0-d tensor, so one
+program serves every chunk of a width. The decode programs donate their
+pool argument (the compile cache reports `bypass:donate`); a prefill
+program is cached like any other, so a second engine over the same
+`FLAGS_compile_cache_dir` loads it (`hit`). `compile_reports[key]` holds
+each key's CompileReport. With `FLAGS_pir` off the layer bodies run as
+written, as the reference's pir_jit does.
+
+On CUDA each decode tile, keyed by (sampled, K, draft depth; 0 for the
+plain decode), is captured once as a `torch.cuda.CUDAGraph` of its steps
+(the compiled layer program's replays and the ops around them) over
+static lane-state and pool tensors, and each dispatch is one graph
+replay; a capture that fails raises and the engine never decodes eagerly
+on the card. On the CPU, which has no graphs, the compiled programs
+replay op by op.
 
 Lane state (block tables, lengths, next tokens, alive mask, sampling
 knobs, token history, adapter slots) is device-resident:
@@ -56,10 +78,11 @@ host), `import_kv` (written in place into the pool, then resumed as a
 preempted lane) and `adopt_identity`.
 
 The cost model (reference :1397-1443, :1765-1767, :1886-1942): each
-program is priced once by `pir.analysis.price` on its first run, which is
-never a timed one: a prefill width on its first chunk, whose time is not
-observed, and a decode program in the eager warm-up run of its capture
-(on the CPU, its first dispatch, not observed either). The measured
+program is priced by the CostModel when it compiles (its CompileReport's
+`.cost`), on its first run, which is never a timed one: a prefill width
+on its first chunk, whose time is not observed, and a decode program in
+the warm-up run of its capture (on the CPU, a dead-lane run before its
+first dispatch). The measured
 dispatches after that calibrate the scale; `predicted_service_seconds` then
 feeds the scheduler's headroom and loadgen's `slo_headroom`. On CUDA a
 dispatch is measured by CUDA events around it, not by the host's wall:
@@ -107,7 +130,7 @@ from ..ops.paged_attention import (KVBlockFormat, kv_rollback_tokens,
                                    kv_write_token, kv_write_tokens,
                                    paged_attention_decode_inner,
                                    paged_attention_verify)
-from ..pir.analysis import price
+from ..pir.pipeline import pir_jit
 from ..profiler.phases import get_phase_accountant as _get_phases
 from ..resilience.faults import FaultInjected, fault_point
 from .adapters import AdapterLoadError
@@ -563,13 +586,17 @@ class ContinuousBatchingEngine:
         # at once, and every output the host reads is copied out right
         # after its replay
         self._graphs: dict[tuple, _DecodeGraph] = {}
+        # ("prefill", width) or ("decode", draft depth) -> the pir_jit
+        # program of its layer body
+        self._programs: dict[tuple, pir_jit] = {}
         self._graph_pool = None
         self._adapters = None
         self.adapters = adapters
         self.graph_captures = 0
         self.program_keys_used: set[tuple] = set()
         # cost-model key ("prefill.b{width}", "decode[.sampled][.spec]")
-        # -> the program's ProgramCost; the first measured dispatches of
+        # -> the program's CompileReport, whose .cost is its ProgramCost
+        # (None with FLAGS_pir off); the first measured dispatches of
         # each kind of program (_cost_kind) set that kind's _cost_scale
         # entry (None: uncalibrated; _cost_samples holds the dispatches)
         self.compile_reports: dict = {}
@@ -669,6 +696,8 @@ class ContinuousBatchingEngine:
                 "attach or detach the AdapterStore before the first "
                 "decode: the captured decode programs are built with or "
                 "without adapter slots")
+        if (store is None) != (self._adapters is None):
+            self._programs.clear()    # their arguments gain or lose slots
         if store is None:
             self._dev.pop("adapter_ids", None)
         else:
@@ -937,7 +966,7 @@ class ContinuousBatchingEngine:
         so its ratio is 1.0); every dispatch updates the per-program
         ratio gauge and the pooled error histogram whose exemplar carries
         the worst-predicted program."""
-        cost = self.compile_reports.get(key)
+        cost = getattr(self.compile_reports.get(key), "cost", None)
         if cost is None or cost.raw_seconds <= 0 or dt <= 0:
             return
         if self._cost_scale is None:
@@ -968,7 +997,10 @@ class ContinuousBatchingEngine:
         derives its slo_headroom capacity signal from this."""
         scales = self._cost_scale or {}
         out = {}
-        for key, cost in self.compile_reports.items():
+        for key, rep in self.compile_reports.items():
+            cost = getattr(rep, "cost", None)
+            if cost is None:
+                continue
             scale = scales.get(self._cost_kind(key))
             out[key] = {"flops": cost.flops, "bytes": cost.bytes,
                         "raw_seconds": cost.raw_seconds,
@@ -1450,27 +1482,66 @@ class ContinuousBatchingEngine:
         self.queue.appendleft(task.req)
         _metric("serving_deferred_total", reason=reason).inc()
 
-    def _prefill_chunk(self, ids, start, last_idx, table_row, adapter_id=0):
-        """The prefill program: one chunk forward over every layer,
-        writing the chunk's K/V (encoded in the pool's format) into the
-        pool, with the lane's adapter delta when a store is attached;
-        returns the f32 logits of the chunk's position `last_idx`. ids
-        (1, W)."""
-        cfg, pool = self.cfg, self.pool
-        quant = pool.fmt.quantized
-        ad = self.adapters
+    def _prefill_layer(self, lp, h, kv, table_row, start, lora):
+        """One layer of a prefill chunk (`_llama_layer_prefill_chunk`):
+        the compiled prefill program, which a chunk replays once a layer,
+        as the reference's program scans its layer body. kv is the layer's
+        [k, v] pool (and its scale pools when the format quantizes), start
+        a 0-d tensor, lora the layer's (A_q, B_q, A_v, B_v) of the lane's
+        slot or None. Returns h."""
+        fmt = self.pool.fmt if self.pool.fmt.quantized else None
+        kc, vc, *scales = kv
+        kcs, vcs = scales if scales else (None, None)
+        h, _ = _llama_layer_prefill_chunk(
+            lp, h, kc, vc, table_row, start, self.cfg, fmt=fmt,
+            kc_scale=kcs, vc_scale=vcs, lora=lora)
+        return h
+
+    def _prefill_chunk(self, ids, start, last_idx, table_row, adapter_id=0,
+                       layer=None):
+        """One chunk forward over every layer, writing the chunk's K/V
+        (encoded in the pool's format) into the pool, with the lane's
+        adapter delta when a store is attached; returns the f32 logits of
+        the chunk's position `last_idx`. ids (1, W); start, last_idx and
+        adapter_id ints or 0-d tensors. `layer` is the layer body
+        (`_prefill_layer` as written, or its compiled program)."""
+        layer = layer or self._prefill_layer
+        cfg, ad = self.cfg, self.adapters
+        dev = ids.device
+        start = torch.as_tensor(start, device=dev)
+        last = torch.as_tensor(last_idx, device=dev).reshape(1)
+        aid = torch.as_tensor(adapter_id, device=dev).reshape(1)
         h = self.embed_w[ids]                                   # (1, W, H)
         for li, lp in enumerate(self.layers):
-            lora = (None if ad is None else
-                    (ad.A_q[li, adapter_id], ad.B_q[li, adapter_id],
-                     ad.A_v[li, adapter_id], ad.B_v[li, adapter_id]))
-            h, _ = _llama_layer_prefill_chunk(
-                lp, h, pool.k[li], pool.v[li], table_row, start, cfg,
-                fmt=pool.fmt if quant else None,
-                kc_scale=pool.k_scale[li] if quant else None,
-                vc_scale=pool.v_scale[li] if quant else None, lora=lora)
-        return (_rms(h[0, last_idx], self.norm_w, cfg["eps"])
+            lora = (None if ad is None else tuple(
+                w[li].index_select(0, aid)[0]
+                for w in (ad.A_q, ad.B_q, ad.A_v, ad.B_v)))
+            h = layer(lp, h, self._pool_kv(li), table_row, start, lora)
+        return (_rms(h[0].index_select(0, last)[0], self.norm_w, cfg["eps"])
                 @ self._out_w).float()
+
+    def _pool_kv(self, li):
+        """Layer li's [k, v] pool, and its scale pools when quantized."""
+        pool = self.pool
+        kv = [pool.k[li], pool.v[li]]
+        if pool.fmt.quantized:
+            kv += [pool.k_scale[li], pool.v_scale[li]]
+        return kv
+
+    # --- the compiled programs (pir_jit) ----------------------------------
+    def _compiled(self, key, name, fn, donate):
+        """The pir_jit program of `key` over the layer body `fn`, made on
+        first use (a retrace). A decode body donates its pool argument."""
+        prog = self._programs.get(key)
+        if prog is None:
+            extra = (None if self.adapters is None
+                     else {"lora": self.adapters.program_key})
+            prog = pir_jit(fn, name=name,
+                           donate_argnums=(2,) if donate else None,
+                           extra_key=extra)
+            self._programs[key] = prog
+            _metric("jit_retrace_total").inc()
+        return prog
 
     def _prefill_one_chunk(self, task):
         """Run one chunk forward; on the final chunk, choose the first
@@ -1490,25 +1561,27 @@ class ContinuousBatchingEngine:
         is_final = task.idx == len(task.pieces) - 1
         last_idx = (s - 1 - start) if is_final else 0
         key = f"prefill.b{width}"
-        cold = key not in self.compile_reports
-        args = (torch.from_numpy(ids).to(self.device), int(start),
-                int(last_idx), torch.from_numpy(table).to(self.device),
-                req.adapter_id)
+        fn = self._compiled(("prefill", width), f"serving.{key}",
+                            self._prefill_layer, donate=False)
+        cold = fn._compiled is None
+        dev = self.device
+        start_t, last_t, aid_t = torch.tensor(
+            [start, last_idx, req.adapter_id]).to(dev).unbind()
         timed = not cold and self.device.type == "cuda"
         t0 = time.perf_counter()
+        if timed:
+            span = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            span[0].record()
+        logits = self._prefill_chunk(torch.from_numpy(ids).to(dev), start_t,
+                                     last_t, torch.from_numpy(table).to(dev),
+                                     aid_t, layer=fn)
+        if timed:
+            span[1].record()
+            self._prefill_spans.append((key, *span))
         if cold:
-            # the width's first chunk is priced, and its time not read
-            logits, self.compile_reports[key] = price(
-                self._prefill_chunk, *args, name=f"serving.{key}")
-        else:
-            if timed:
-                span = (torch.cuda.Event(enable_timing=True),
-                        torch.cuda.Event(enable_timing=True))
-                span[0].record()
-            logits = self._prefill_chunk(*args)
-            if timed:
-                span[1].record()
-                self._prefill_spans.append((key, *span))
+            # the width's first chunk compiles, and its time is not read
+            self.compile_reports[key] = fn.report
         host_logits = logits.cpu().numpy() if is_final else None
         dt = time.perf_counter() - t0
         self._m_prefill.observe(dt)
@@ -1703,6 +1776,7 @@ class ContinuousBatchingEngine:
             torch.cuda.current_stream(self.device).synchronize()
         self._graphs.clear()
         self._graph_pool = None
+        self._programs.clear()      # compiled for the quantized pool
         for name, scale in (("k", pool.k_scale), ("v", pool.v_scale)):
             old = getattr(pool, name)
             new = torch.empty(old.shape, dtype=fmt.native_dtype,
@@ -1766,12 +1840,20 @@ class ContinuousBatchingEngine:
         self._mnt_cap = None if cap is None else max(1, int(cap))
 
     def _program(self, sampled, K, D):
-        """The decode program of key (sampled, K, D) as a callable: the
-        plain fused decode for D == 0, else the speculative one at draft
-        depth D."""
+        """The decode tile of key (sampled, K, D) as a callable over the
+        engine's current tensors: K steps (`_decode_step`, or
+        `_decode_step_spec` at draft depth D), each replaying the compiled
+        layer program once a layer, stacked into the [B, K] (or
+        [B, K, D + 2]) tile. One layer program serves every K and both
+        sampling modes; it donates its pool argument."""
+        name = "serving.decode" + (".spec" if D else "")
+        body = self._decode_layer_spec if D else self._decode_layer
+        prog = self._compiled(("decode", D), name, body, donate=True)
         if D == 0:
-            return lambda: self._decode_tile(sampled, K)
-        return lambda: self._decode_tile_spec(sampled, K, D)
+            return lambda: torch.stack([self._decode_step(sampled, prog)
+                                        for _ in range(K)], dim=1)
+        return lambda: torch.stack([self._decode_step_spec(sampled, D, prog)
+                                    for _ in range(K)], dim=1)
 
     def _dispatch(self):
         """Enqueue one decode tile over the uploaded lane state: on CUDA a
@@ -1794,9 +1876,9 @@ class ContinuousBatchingEngine:
         unpriced = cost_key not in self.compile_reports
         if self.device.type != "cuda":
             if unpriced:
-                # priced in a run of its own with every lane dead, as the
-                # card prices it in the capture's warm-up
-                self._dead_run(self._program(*key), cost_key)
+                # compiled and priced in a run of its own with every lane
+                # dead, as the card does in the capture's warm-up
+                self._dead_run(key, cost_key)
                 self._phases.mark("compile")
                 t0 = time.perf_counter()
             tile = self._program(*key)()
@@ -1823,35 +1905,36 @@ class ContinuousBatchingEngine:
         self._phases.mark("compile" if cold else "decode.dispatch")
         return host, event, spec, None if cold else cost_key, t0, span
 
-    def _dead_run(self, fn, cost_key=None):
-        """Run a decode program once with every lane dead: it writes only
-        the scratch block and the history's scratch column, and the lane
-        state is left as it was. With a `cost_key`, the run prices the
-        program into compile_reports. Returns its output."""
+    def _dead_run(self, key, cost_key=None):
+        """Run the decode program of `key` once with every lane dead (its
+        compile, on first use): it writes only the scratch block and the
+        history's scratch column, and the lane state is left as it was.
+        With a `cost_key`, its CompileReport goes into compile_reports.
+        Returns its output."""
         alive = self._dev["alive"]
         saved = alive.clone()
         alive.zero_()
         try:
-            if cost_key is None:
-                return fn()
-            out, self.compile_reports[cost_key] = price(
-                fn, name=f"serving.{cost_key}")
+            out = self._program(*key)()
+            if cost_key is not None:
+                self.compile_reports[cost_key] = \
+                    self._programs[("decode", key[2])].report
             return out
         finally:
             alive.copy_(saved)
 
     def _capture(self, sampled, K, D=0, cost_key=None):
-        """Capture the decode program of key (sampled, K, D) as a CUDA
-        graph. The warm-up run that capture needs is a dead-lane run
-        (`_dead_run`), which also prices the program when a `cost_key` is
-        given. A failure raises: the engine never decodes eagerly on the
-        card."""
+        """Capture the compiled decode program of key (sampled, K, D) as
+        a CUDA graph of its replay. The warm-up run that capture needs is
+        a dead-lane run (`_dead_run`), which compiles the program and, with
+        a `cost_key`, records its CompileReport. A failure raises: the
+        engine never decodes eagerly on the card."""
         fn = self._program(sampled, K, D)
         try:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
-                warm = self._dead_run(fn, cost_key)
+                warm = self._dead_run((sampled, K, D), cost_key)
             torch.cuda.current_stream(self.device).wait_stream(side)
             if self._graph_pool is None:
                 self._graph_pool = torch.cuda.graph_pool_handle()
@@ -1866,21 +1949,27 @@ class ContinuousBatchingEngine:
                 f"draft depth={D}) as a CUDA graph failed: {e}") from e
         return _DecodeGraph(graph, tile)
 
-    def _pool_layer(self, li):
-        """(format or None, k, v, k_scale, v_scale) of one layer's pool."""
-        pool = self.pool
-        if pool.fmt.quantized:
-            return (pool.fmt, pool.k[li], pool.v[li], pool.k_scale[li],
-                    pool.v_scale[li])
-        return None, pool.k[li], pool.v[li], None, None
+    def _pool_layer(self, kv):
+        """(format or None, k, v, k_scale, v_scale) of one layer's pool
+        list (`_pool_kv`)."""
+        if len(kv) > 2:
+            return (self.pool.fmt, *kv)
+        return None, kv[0], kv[1], None, None
 
-    def _qkv(self, li, lp, h, pos, aids):
+    def _lora(self, li):
+        """Layer li's adapter factor pools (A_q, B_q, A_v, B_v), or None
+        without a store."""
+        ad = self.adapters
+        return None if ad is None else (ad.A_q[li], ad.B_q[li], ad.A_v[li],
+                                        ad.B_v[li])
+
+    def _qkv(self, lp, h, pos, aids, lora):
         """One token per lane into attention: h [B, 1, H] at positions pos
         [B, 1] -> rotated q [B, nh, hd], rotated k and v [B, nkv, hd], with
         each lane's LoRA delta on q and v when a store is attached (slot 0
-        adds exactly zero). The plain and the speculative decode both go
-        through here, so each verified position repeats the plain step's
-        operations exactly."""
+        adds exactly zero; lora is the layer's factor pools). The plain and
+        the speculative decode both go through here, so each verified
+        position repeats the plain step's operations exactly."""
         cfg = self.cfg
         nh, nkv, hd = cfg["heads"], cfg["kv_heads"], cfg["head_dim"]
         B = h.shape[0]
@@ -1888,9 +1977,9 @@ class ContinuousBatchingEngine:
         q = x @ lp["self_attn.q_proj.weight"]
         v = x @ lp["self_attn.v_proj.weight"]
         if aids is not None:
-            ad = self.adapters
-            q = q + _lora_delta(x, ad.A_q[li], ad.B_q[li], aids)
-            v = v + _lora_delta(x, ad.A_v[li], ad.B_v[li], aids)
+            a_q, b_q, a_v, b_v = lora
+            q = q + _lora_delta(x, a_q, b_q, aids)
+            v = v + _lora_delta(x, a_v, b_v, aids)
         k = (x @ lp["self_attn.k_proj.weight"]).reshape(B, 1, nkv, hd)
         q = _rope(q.reshape(B, 1, nh, hd), pos, cfg["theta"])[:, 0]
         k = _rope(k, pos, cfg["theta"])[:, 0]
@@ -1918,64 +2007,98 @@ class ContinuousBatchingEngine:
             nxt = torch.where(d["do_sample"], samp, nxt)
         return nxt
 
-    def _decode_tile(self, sampled, K):
-        """The fused decode program: K steps of every lane over the static
-        lane state and the pool, both updated in place. Returns the [B, K]
-        int64 token tile. Dead lanes write their K/V to the scratch block
-        and re-emit their last token (never credited: the host walk stops
-        at the same eos/length boundary)."""
-        d, cfg = self._dev, self.cfg
-        scale = 1.0 / (cfg["head_dim"] ** 0.5)
-        scratch = self.pool.scratch_block
+    def _decode_tile(self, sampled, K, D=0):
+        """A decode tile run eagerly, as written (no program, no graph):
+        what a compiled tile is held against."""
+        step = (lambda: self._decode_step(sampled)) if D == 0 else (
+            lambda: self._decode_step_spec(sampled, D))
+        return torch.stack([step() for _ in range(K)], dim=1)
+
+    def _decode_layer(self, lp, h, kv, pos, tables, lens, alive, aids,
+                      lora):
+        """One layer of one decode step for every lane: the compiled decode
+        program, replayed once a layer and a step, as the reference's
+        program scans its layer body inside its step scan. kv is the
+        layer's pool list (`_pool_kv`), written in place; returns h."""
+        fmt, kc, vc, ksc, vsc = self._pool_layer(kv)
+        q, k, v = self._qkv(lp, h, pos, aids, lora)
+        kv_write_token(fmt, kc, vc, ksc, vsc, k, v, tables, lens,
+                       active=alive, scratch_block=self.pool.scratch_block)
+        attn = paged_attention_decode_inner(
+            q, kc, vc, tables, lens + 1,
+            scale=1.0 / (self.cfg["head_dim"] ** 0.5), fmt=fmt,
+            k_scale_cache=ksc, v_scale_cache=vsc)
+        return self._attn_out(lp, h, attn)
+
+    def _decode_step(self, sampled, layer=None):
+        """One fused decode step of every lane over the static lane state
+        and the pool, both updated in place. Returns the [B] int64 tokens.
+        Dead lanes write their K/V to the scratch block and re-emit their
+        last token (never credited: the host walk stops at the same
+        eos/length boundary). `layer` is the layer body (`_decode_layer`
+        as written, or its compiled program)."""
+        layer = layer or self._decode_layer
+        d = self._dev
         toks, lens, alive, rem = d["toks"], d["lens"], d["alive"], d["rem"]
         tables = d["tables"]
         aids = d.get("adapter_ids")
-        out = []
-        for _ in range(K):
-            h = self.embed_w[toks][:, None]                     # (B, 1, H)
-            pos = lens[:, None]                                 # write pos
-            for li, lp in enumerate(self.layers):
-                fmt, kc, vc, ksc, vsc = self._pool_layer(li)
-                q, k, v = self._qkv(li, lp, h, pos, aids)
-                kv_write_token(fmt, kc, vc, ksc, vsc, k, v, tables, lens,
-                               active=alive, scratch_block=scratch)
-                attn = paged_attention_decode_inner(
-                    q, kc, vc, tables, lens + 1, scale=scale, fmt=fmt,
-                    k_scale_cache=ksc, v_scale_cache=vsc)
-                h = self._attn_out(lp, h, attn)
-            nxt = self._choose(self._logits(h), lens, sampled)
-            nxt = torch.where(alive, nxt, toks)
-            rem = rem - alive.long()
-            lens = lens + alive.long()
-            alive = alive & (nxt != d["eos"]) & (rem > 0)
-            toks = nxt
-            out.append(nxt)
-        d["toks"].copy_(toks)
-        d["lens"].copy_(lens)
-        d["alive"].copy_(alive)
-        d["rem"].copy_(rem)
-        return torch.stack(out, dim=1)
+        h = self.embed_w[toks][:, None]                         # (B, 1, H)
+        pos = lens[:, None]                                     # write pos
+        for li, lp in enumerate(self.layers):
+            h = layer(lp, h, self._pool_kv(li), pos, tables, lens, alive,
+                      aids, self._lora(li))
+        nxt = self._choose(self._logits(h), lens, sampled)
+        nxt = torch.where(alive, nxt, toks)
+        new_rem = rem - alive.long()
+        new_lens = lens + alive.long()
+        new_alive = alive & (nxt != d["eos"]) & (new_rem > 0)
+        d["toks"].copy_(nxt)
+        d["lens"].copy_(new_lens)
+        d["alive"].copy_(new_alive)
+        d["rem"].copy_(new_rem)
+        return nxt
 
-    def _decode_tile_spec(self, sampled, K, D):
-        """The speculative decode program (reference `_make_decode_spec`):
-        each of K steps records the step token into the lane's history,
-        drafts D tokens, writes the K/V of the step token and the drafts
-        (C = D + 1 positions per lane), verifies them, accepts the leading
-        run of drafts that equal what the plain decode would emit, rolls
-        back the rejected positions' writes byte for byte, and commits the
-        accepted run plus one correction token.
+    def _decode_layer_spec(self, lp, hs, kv, pos, tables, lens, alive,
+                           aids, lora):
+        """One layer of one speculative step (the compiled program of the
+        speculative decode): the C = D + 1 positions' K/V written, the
+        positions verified with the plain step's own operations, each
+        position's hidden state on. hs, pos: the C positions' [B, 1, H]
+        states and [B, 1] positions. Returns (hs, the overwritten slots'
+        saved K/V for the rollback)."""
+        C = len(hs)
+        fmt, kc, vc, ksc, vsc = self._pool_layer(kv)
+        qkv = [self._qkv(lp, hs[i], pos[i], aids, lora) for i in range(C)]
+        q, k, v = (torch.stack(t, dim=1) for t in zip(*qkv))
+        *_, sv = kv_write_tokens(fmt, kc, vc, ksc, vsc, k, v, tables, lens,
+                                 active=alive,
+                                 scratch_block=self.pool.scratch_block)
+        attn = paged_attention_verify(
+            q, kc, vc, tables, lens,
+            scale=1.0 / (self.cfg["head_dim"] ** 0.5), fmt=fmt,
+            k_scale_cache=ksc, v_scale_cache=vsc)
+        return [self._attn_out(lp, hs[i], attn[:, i]) for i in range(C)], sv
 
-        Position i of a step goes through the plain decode step's own
-        operations (`_qkv`, paged_attention_verify's per-query decode
-        attention over pages gathered once per layer, `_attn_out`,
-        `_logits`, `_choose` at position lens + i), so the token it yields
-        is the plain decode's bit for bit and the committed stream cannot
-        change. Acceptance, the EOS clip and the rollback mask stay
-        tensors: no host sync. Returns the [B, K, C + 1] int64 tile: each
-        step's C tokens, then its commit count (0 once the lane died)."""
-        d, cfg = self._dev, self.cfg
-        scale = 1.0 / (cfg["head_dim"] ** 0.5)
-        scratch = self.pool.scratch_block
+    def _decode_step_spec(self, sampled, D, layer=None):
+        """The speculative decode (reference `_make_decode_spec`), one
+        step: record the step token into the lane's history, draft D
+        tokens, write the K/V of the step token and the drafts (C = D + 1
+        positions per lane), verify them, accept the leading run of drafts
+        that equal what the plain decode would emit, roll back the
+        rejected positions' writes byte for byte, and commit the accepted
+        run plus one correction token. A tile runs it K times; `layer` is
+        the layer body (`_decode_layer_spec` or its compiled program).
+
+        Position i goes through the plain decode step's own operations
+        (`_qkv`, paged_attention_verify's per-query decode attention over
+        pages gathered once per layer, `_attn_out`, `_logits`, `_choose`
+        at position lens + i), so the token it yields is the plain
+        decode's bit for bit and the committed stream cannot change.
+        Acceptance, the EOS clip and the rollback mask stay tensors: no
+        host sync. Returns the [B, C + 1] int64 row: the step's C tokens,
+        then its commit count (0 once the lane died)."""
+        layer = layer or self._decode_layer_spec
+        d = self._dev
         C = D + 1
         toks, lens, alive, rem = d["toks"], d["lens"], d["alive"], d["rem"]
         tables, hist, eos = d["tables"], d["hist"], d["eos"]
@@ -1984,67 +2107,51 @@ class ContinuousBatchingEngine:
         B = toks.shape[0]
         rows = torch.arange(B, device=toks.device)
         steps = torch.arange(C, device=toks.device)
-        out = []
-        for _ in range(K):
-            # the step token at lens; dead lanes write the scratch column
-            hist[rows, torch.where(alive, lens, hmax)] = toks
-            if self._drafter is not None:
-                drafts = self._drafter(hist[:, :hmax], lens, toks, D).long()
-            else:
-                drafts = _ngram_draft(hist[:, :hmax], lens, toks, D,
-                                      self.draft_ngram)
-            didx = torch.where(alive[:, None], lens[:, None] + 1
-                               + steps[None, :D], hmax).clamp(max=hmax)
-            hist[rows[:, None], didx] = drafts
-            u = torch.cat([toks[:, None], drafts], dim=1)       # (B, C)
-            hs = [self.embed_w[u[:, i]][:, None] for i in range(C)]
-            pos = [(lens + i)[:, None] for i in range(C)]
-            saved = []
-            for li, lp in enumerate(self.layers):
-                fmt, kc, vc, ksc, vsc = self._pool_layer(li)
-                qkv = [self._qkv(li, lp, hs[i], pos[i], aids)
-                       for i in range(C)]
-                q, k, v = (torch.stack(t, dim=1) for t in zip(*qkv))
-                *_, sv = kv_write_tokens(fmt, kc, vc, ksc, vsc, k, v,
-                                         tables, lens, active=alive,
-                                         scratch_block=scratch)
-                saved.append(sv)
-                attn = paged_attention_verify(
-                    q, kc, vc, tables, lens, scale=scale, fmt=fmt,
-                    k_scale_cache=ksc, v_scale_cache=vsc)
-                hs = [self._attn_out(lp, hs[i], attn[:, i])
-                      for i in range(C)]
-            # g[:, i]: the token the plain decode emits at position
-            # lens + i + 1 given that the drafts before i were right
-            g = torch.stack([self._choose(self._logits(hs[i]), lens + i,
-                                          sampled)
-                             for i in range(C)], dim=1)         # (B, C)
-            n_acc = torch.cumprod((drafts == g[:, :D]).long(),
-                                  dim=1).sum(dim=1)
-            commits = torch.minimum(n_acc + 1, rem)
-            iseos = g == eos[:, None]
-            eos_clip = torch.where(iseos.any(dim=1),
-                                   iseos.long().argmax(dim=1) + 1, C)
-            commits = torch.minimum(commits, eos_clip)
-            commits = torch.where(alive, commits, 0)
-            keep = (steps[None, :] < commits[:, None]) & alive[:, None]
-            for li, sv in enumerate(saved):
-                fmt, kc, vc, ksc, vsc = self._pool_layer(li)
-                kv_rollback_tokens(fmt, kc, vc, ksc, vsc, sv, tables, lens,
-                                   keep, active=alive, scratch_block=scratch)
-            last = (commits - 1).clamp(0, C - 1)
-            g_last = g.gather(1, last[:, None])[:, 0]
-            ended_eos = alive & (commits > 0) & (g_last == eos)
-            toks = torch.where(alive, g_last, toks)
-            rem = rem - commits
-            lens = lens + commits
-            alive = alive & ~ended_eos & (rem > 0)
-            out.append(torch.cat([g, commits[:, None]], dim=1))
-        d["toks"].copy_(toks)
-        d["lens"].copy_(lens)
-        d["alive"].copy_(alive)
-        d["rem"].copy_(rem)
-        return torch.stack(out, dim=1)
+        # the step token at lens; dead lanes write the scratch column
+        hist[rows, torch.where(alive, lens, hmax)] = toks
+        if self._drafter is not None:
+            drafts = self._drafter(hist[:, :hmax], lens, toks, D).long()
+        else:
+            drafts = _ngram_draft(hist[:, :hmax], lens, toks, D,
+                                  self.draft_ngram)
+        didx = torch.where(alive[:, None], lens[:, None] + 1
+                           + steps[None, :D], hmax).clamp(max=hmax)
+        hist[rows[:, None], didx] = drafts
+        u = torch.cat([toks[:, None], drafts], dim=1)           # (B, C)
+        hs = [self.embed_w[u[:, i]][:, None] for i in range(C)]
+        pos = [(lens + i)[:, None] for i in range(C)]
+        saved = []
+        for li, lp in enumerate(self.layers):
+            hs, sv = layer(lp, hs, self._pool_kv(li), pos, tables, lens,
+                           alive, aids, self._lora(li))
+            saved.append(sv)
+        # g[:, i]: the token the plain decode emits at position
+        # lens + i + 1 given that the drafts before i were right
+        g = torch.stack([self._choose(self._logits(hs[i]), lens + i,
+                                      sampled)
+                         for i in range(C)], dim=1)             # (B, C)
+        n_acc = torch.cumprod((drafts == g[:, :D]).long(),
+                              dim=1).sum(dim=1)
+        commits = torch.minimum(n_acc + 1, rem)
+        iseos = g == eos[:, None]
+        eos_clip = torch.where(iseos.any(dim=1),
+                               iseos.long().argmax(dim=1) + 1, C)
+        commits = torch.minimum(commits, eos_clip)
+        commits = torch.where(alive, commits, 0)
+        keep = (steps[None, :] < commits[:, None]) & alive[:, None]
+        for li, sv in enumerate(saved):
+            fmt, kc, vc, ksc, vsc = self._pool_layer(self._pool_kv(li))
+            kv_rollback_tokens(fmt, kc, vc, ksc, vsc, sv, tables, lens,
+                               keep, active=alive,
+                               scratch_block=self.pool.scratch_block)
+        last = (commits - 1).clamp(0, C - 1)
+        g_last = g.gather(1, last[:, None])[:, 0]
+        ended_eos = alive & (commits > 0) & (g_last == eos)
+        d["toks"].copy_(torch.where(alive, g_last, toks))
+        d["lens"].copy_(lens + commits)
+        d["alive"].copy_(alive & ~ended_eos & (rem - commits > 0))
+        d["rem"].copy_(rem - commits)
+        return torch.cat([g, commits[:, None]], dim=1)
 
     def _drain_all(self):
         while self._inflight:

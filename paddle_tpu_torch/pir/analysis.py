@@ -58,9 +58,15 @@ value types without running it.
 bf16 and 3.35e12 B/s of HBM, with efficiency 1.0, because the engine's
 calibration (its first measured dispatch sets the scale) absorbs the rest.
 The mode only reads shapes and dtypes, so pricing a CUDA program adds no
-synchronisation. No collective is priced yet: the exposed-communication
-terms stay 0.0 until `ops/collectives.py` is ported (ROADMAP Queue 1 item
-3.6).
+synchronisation.
+
+The communication terms (reference :341-344, :575-634): a collective
+(ops/collectives.py) costs wire_bytes / ici_bps + link_latency_s seconds
+on `DEFAULT_INTERCONNECT`, the H100 SXM's NVLink row; the compute ops
+scheduled between a collective and the first consumer of its result (of
+its `wait_tensor`'s result) earn overlap credit, and what the credit does
+not cover is exposed (`exposed_comm_seconds`, the objective of
+pir/overlap.py). `wait_tensor` costs nothing.
 """
 
 from __future__ import annotations
@@ -73,16 +79,31 @@ import torch
 from torch.utils import _pytree as pytree
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..ops.collectives import (collective_traffic, consumers_through_wait,
+                               is_wait_op)
+
 __all__ = ["Lattice", "FlatLattice", "DataflowAnalysis",
            "ShapeDtypeInference", "Liveness", "ShardingConsistency",
            "DonationHazard", "check_donation_safety", "CONFLICT",
            "CostModel", "OpCost", "ProgramCost", "DEFAULT_ROOFLINE",
-           "price"]
+           "DEFAULT_INTERCONNECT", "price", "aligned_spec",
+           "broadcast_result_shape", "join_broadcast"]
 
 DEFAULT_ROOFLINE = {
     "peak_flops": 989e12,
     "efficiency": 1.0,
     "hbm_bps": 3.35e12,
+}
+
+# The interconnect row, under the reference's keys. ici_bps is NVIDIA's
+# data-sheet figure for the H100 SXM's NVLink, 900 GB/s to the other cards
+# of the host, 4.5e11 B/s each way: a data-sheet number, not a
+# measurement, since one card has no link to measure. No data sheet gives
+# a per-collective latency and one card cannot measure it, so the term is
+# 0.0 until a run across cards does (ROADMAP Queue 1 item 4).
+DEFAULT_INTERCONNECT = {
+    "ici_bps": 4.5e11,
+    "link_latency_s": 0.0,
 }
 
 # the matrix products, and the argument whose last dim is the contraction K
@@ -104,8 +125,9 @@ class ProgramCost:
     """Aggregate static price of one program. ``raw_seconds`` is the
     uncalibrated roofline estimate; callers apply a measured calibration
     scale on top. ``per_op`` is [(aten op name, OpCost summed over its
-    calls)], heaviest first. The communication terms stay 0.0 until the
-    mesh is ported."""
+    calls)], heaviest first. ``comm_seconds`` is the interconnect time of
+    the program's collectives (0.0 for a program without one) and
+    ``exposed_comm_seconds`` what overlap credit did not hide."""
 
     __slots__ = ("name", "flops", "bytes", "raw_seconds", "per_op",
                  "comm_seconds", "exposed_comm_seconds")
@@ -121,10 +143,14 @@ class ProgramCost:
         self.exposed_comm_seconds = float(exposed_comm_seconds)
 
     def summary(self):
-        return {"name": self.name, "flops": self.flops,
-                "bytes": self.bytes, "raw_seconds": self.raw_seconds,
-                "top_ops": [(n, c.flops, c.bytes)
-                            for n, c in self.per_op[:5]]}
+        out = {"name": self.name, "flops": self.flops,
+               "bytes": self.bytes, "raw_seconds": self.raw_seconds,
+               "top_ops": [(n, c.flops, c.bytes)
+                           for n, c in self.per_op[:5]]}
+        if self.comm_seconds:
+            out["comm_seconds"] = self.comm_seconds
+            out["exposed_comm_seconds"] = self.exposed_comm_seconds
+        return out
 
     def __repr__(self):
         return (f"ProgramCost({self.name!r}, {self.flops:.3g} flops, "
@@ -330,13 +356,23 @@ class ShapeDtypeInference(DataflowAnalysis):
                 for v in list(prog.inputs) + list(prog.constants)}
 
     def derived_out_types(self, op, facts: dict):
-        """[(shape, dtype name)] for op's outputs, or None (underived)."""
+        """[(shape, dtype name)] for op's outputs, or None (underived).
+        An op keeps its last derivation (`Operation._types`) for the same
+        operand types, argument template and callable, so the verifier's
+        run after the passes re-derives only the ops they made or
+        rewired."""
         cached = self._cache.get(id(op), False)
         if cached is not False:
             return cached
-        derived = fake_eval_fn(lambda *a: op.evaluate(list(a)), op.inputs,
-                               [facts[id(v)] for v in op.inputs],
-                               mode=self._mode)
+        types = [facts[id(v)] for v in op.inputs]
+        memo = op._types
+        if memo is not None and memo[0] == types and memo[1] is op.spec \
+                and memo[2] is op.fn:
+            derived = memo[3]
+        else:
+            derived = fake_eval_fn(lambda *a: op.evaluate(list(a)),
+                                   op.inputs, types, mode=self._mode)
+            op._types = (types, op.spec, op.fn, derived)
         self._cache[id(op)] = derived
         return derived
 
@@ -482,7 +518,7 @@ def _attention_flops(bh, sq, sk, d, causal):
 def _captured_cost(op):
     """(flops, bytes) of a captured op by the module's rule."""
     t = op.target
-    if t.is_view:
+    if t.is_view or is_wait_op(op):
         return 0.0, 0.0
     nbytes = _value_bytes(op.inputs) + _value_bytes(op.outputs)
     name = t.overloadpacket.__name__
@@ -518,9 +554,9 @@ class CostModel(DataflowAnalysis):
         self.roofline = dict(DEFAULT_ROOFLINE)
         if roofline:
             self.roofline.update(roofline)
-        # the reference prices collectives on it; the port prices none
-        # until ops/collectives.py is ported (ROADMAP Queue 1 item 3.6)
-        self.interconnect = dict(interconnect or {})
+        self.interconnect = dict(DEFAULT_INTERCONNECT)
+        if interconnect:
+            self.interconnect.update(interconnect)
 
     _value_bytes = staticmethod(_value_bytes)
 
@@ -584,12 +620,129 @@ class CostModel(DataflowAnalysis):
             c.bytes += facts[id(op)].bytes
         ranked = sorted(per_op.items(),
                         key=lambda nc: -(nc[1].flops + nc[1].bytes))
-        return ProgramCost(prog.name, flops, nbytes, raw, ranked)
+        comm = exposed = 0.0
+        try:
+            rep = self.exposed_comm_seconds(prog, facts)
+            comm, exposed = rep["comm_seconds"], rep["exposed_seconds"]
+        except Exception:  # noqa: BLE001 — pricing never costs a compile
+            pass
+        return ProgramCost(prog.name, flops, nbytes, raw, ranked,
+                           comm_seconds=comm, exposed_comm_seconds=exposed)
+
+    # -- the exposed-communication term (the interconnect row) --------------
+    def comm_seconds(self, op) -> float:
+        """Interconnect seconds this op spends moving bytes: every
+        collective reachable from it (ops/collectives.py), priced on the
+        interconnect row. 0.0 for an op without one."""
+        hits = collective_traffic(op)
+        if not hits:
+            return 0.0
+        bps = self.interconnect["ici_bps"]
+        lat = self.interconnect["link_latency_s"]
+        return sum(nbytes / bps + lat for _, nbytes in hits if bps > 0)
+
+    def _compute_seconds(self, cost: OpCost) -> float:
+        eff = self.roofline["peak_flops"] * self.roofline["efficiency"]
+        return max(cost.flops / eff if eff > 0 else 0.0,
+                   cost.bytes / self.roofline["hbm_bps"]
+                   if self.roofline["hbm_bps"] > 0 else 0.0)
+
+    def exposed_comm_seconds(self, prog, facts=None) -> dict:
+        """Schedule-aware communication price of the program as ordered:
+        for each collective, the compute ops scheduled between it and the
+        first consumer of any of its results (read through its
+        `wait_tensor`) earn overlap credit; what the credit does not cover
+        is exposed. Windows are credited independently (contention
+        between overlapping windows is ignored, and other collectives
+        never count as credit), as the reference's."""
+        if facts is None:
+            facts = self.run(prog)
+        comm_s = [self.comm_seconds(op) for op in prog.ops]
+        compute_s = [self._compute_seconds(facts[id(op)])
+                     for op in prog.ops]
+        first_use: dict = {}
+        for i, op in enumerate(prog.ops):
+            for v in op.inputs:
+                first_use.setdefault(id(v), i)
+        users = prog.users() if any(c > 0.0 for c in comm_s) else {}
+        total = exposed = 0.0
+        n = 0
+        for i, op in enumerate(prog.ops):
+            if comm_s[i] <= 0.0:
+                continue
+            n += 1
+            total += comm_s[i]
+            j = min((first_use.get(id(o), len(prog.ops))
+                     for o in consumers_through_wait(op, users)),
+                    default=len(prog.ops))
+            credit = sum(compute_s[k] for k in range(i + 1, j)
+                         if comm_s[k] <= 0.0)
+            exposed += max(0.0, comm_s[i] - credit)
+        return {"comm_seconds": total, "exposed_seconds": exposed,
+                "collectives": n}
 
 
 # --------------------------------------------------------------------------
 # sharding-annotation consistency
 # --------------------------------------------------------------------------
+
+def broadcast_result_shape(op):
+    """The result shape of a pointwise aten op (`torch.Tag.pointwise`)
+    whose operands broadcast to it and not all have it, else None. Aten
+    broadcasts inside the op, where the reference's jaxpr spells the
+    broadcast out as an eqn of its own: its operands' specs are joined
+    right-aligned (`join_broadcast`)."""
+    t = op.target
+    if t is None or len(op.outputs) != 1 \
+            or torch.Tag.pointwise not in t.tags:
+        return None
+    out = op.outputs[0].shape
+    if all(v.shape == out for v in op.inputs):
+        return None
+    for v in op.inputs:
+        if len(v.shape) > len(out) or any(
+                a not in (1, b) for a, b in zip(reversed(v.shape),
+                                                reversed(out))):
+            return None
+    return out
+
+
+def aligned_spec(spec, shape, out_shape):
+    """An operand's spec right-aligned to the result's rank, and the mask
+    of the result dims it holds: the dims it broadcasts along (missing,
+    or size 1 against more) are unsharded in the spec and False in the
+    mask. Returns (spec, mask)."""
+    off = len(out_shape) - len(shape)
+    spec = tuple(spec)[:len(shape)] + (None,) * max(0, len(shape)
+                                                     - len(spec))
+    full = [None] * len(out_shape)
+    mask = [False] * len(out_shape)
+    for d, a in enumerate(spec):
+        if shape[d] == out_shape[d + off]:
+            full[d + off] = a
+            mask[d + off] = True
+    return tuple(full), mask
+
+
+def join_broadcast(pairs, out_shape):
+    """Dim by dim join of [(Value, spec)] right-aligned to `out_shape`:
+    a dim an operand broadcasts along constrains nothing. CONFLICT where
+    two operands disagree on a dim they both hold, or an operand's spec
+    is CONFLICT."""
+    res: list = [None] * len(out_shape)
+    held = [False] * len(out_shape)
+    for v, spec in pairs:
+        if spec is CONFLICT:
+            return CONFLICT
+        full, mask = aligned_spec(spec, v.shape, out_shape)
+        for d, keep in enumerate(mask):
+            if not keep:
+                continue
+            if held[d] and res[d] != full[d]:
+                return CONFLICT
+            res[d], held[d] = full[d], True
+    return tuple(res)
+
 
 class ShardingConsistency(DataflowAnalysis):
     """Forward propagation of optional `Value.sharding` annotations over a
@@ -597,6 +750,8 @@ class ShardingConsistency(DataflowAnalysis):
     outputs; disagreeing operands join to CONFLICT, which is reported once
     the op's outputs carry annotations (annotated inputs feeding a
     not-yet-propagated interior are pending constraints, not an error).
+    A pointwise op's operands that broadcast to its result are joined
+    right-aligned (`join_broadcast`).
     An op stamped `attrs["sharding_rule"]` is its own boundary (its
     outputs take exactly their stamped annotations), and a declared rule
     whose outputs are not all annotated is itself flagged. `conflicts`
@@ -635,9 +790,17 @@ class ShardingConsistency(DataflowAnalysis):
                     changed = True
             return changed
         joined = None
+        bshape = broadcast_result_shape(op)
+        pairs = []
         for v in op.inputs:
             fact = self.lattice.join(facts.get(id(v)), self._annot(v))
+            if bshape is not None:
+                if fact is not None:
+                    pairs.append((v, fact))
+                continue
             joined = self.lattice.join(joined, fact)
+        if pairs:
+            joined = join_broadcast(pairs, bshape)
         committed = any(self._annot(o) is not None for o in op.outputs)
         if joined is CONFLICT and committed and id(op) not in self._flagged:
             self._flagged.add(id(op))

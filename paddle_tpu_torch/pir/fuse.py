@@ -20,7 +20,9 @@ Grouping (a dataflow walk over the users map):
   an existing `pt.fused_region` whose users pass the same test may join
   internally, making the group an epilogue region; growth continues
   through the anchor's producers. The anchor is never duplicated and never
-  roots a group.
+  roots a group. While a sharding search scope is active no anchor joins
+  (`_anchors_allowed`): the search prices a sharded contraction off the
+  product ops.
 * Fusible ops are elementwise math, layout plumbing and reductions. Never
   fusible: in-place, random or effect-scoped ops, `pt.*` ops other than
   this pass's own `pt.fused_region` (fusion never crosses a routed-kernel
@@ -209,17 +211,19 @@ class FusionPass(Pass):
         # ops reading or writing a buffer an in-place op writes keep their
         # place in program order: they never join a group
         claimed: set[int] = {id(op) for op in prog.ops if touches(op)}
+        anchors_ok = self._anchors_allowed()
         plans = []
         for root in reversed(prog.ops):
             if id(root) in claimed or not self._fusible(root):
                 continue
-            g = self._grow(prog, root, users, claimed, index)
+            g = self._grow(prog, root, users, claimed, index,
+                           anchors_ok=anchors_ok)
             if g is not None and len(g.outs) > MAX_GROUP_OUTS:
                 # too many promoted results: re-plan this root under the
                 # single-output discipline (never worse than without
                 # promotion)
                 g = self._grow(prog, root, users, claimed, index,
-                               promote=False)
+                               promote=False, anchors_ok=anchors_ok)
             if g is None:
                 continue
             # claim EVERY member — dups included. A dup stays in the
@@ -232,7 +236,20 @@ class FusionPass(Pass):
         plans.reverse()             # program order -> deterministic gids
         return plans
 
-    def _grow(self, prog, root, users, claimed, index, promote=True):
+    @staticmethod
+    def _anchors_allowed() -> bool:
+        """Epilogue absorption is off while a sharding search scope is
+        active (reference :278-292): the search prices the implied
+        all-reduce of a sharded contraction off the matrix-product ops
+        (shard_search.predict_seconds), so a product absorbed into an
+        opaque region would hide that term. The chains around products
+        still fuse."""
+        from . import shard_prop as _sp
+        return not (_sp.current_mesh() is not None
+                    and _sp.current_search())
+
+    def _grow(self, prog, root, users, claimed, index, promote=True,
+              anchors_ok=True):
         internal: dict[int, Operation] = {id(root): root}
         dups: dict[int, Operation] = {}
         anchor: list = [None]       # at most one compute anchor
@@ -284,7 +301,7 @@ class FusionPass(Pass):
                         # downcast's wide input off the fused boundary.
                         dups[id(p)] = p
                         changed = True
-                    elif anchor[0] is None \
+                    elif anchors_ok and anchor[0] is None \
                             and self._anchor_fusible(p) and users_ok(p):
                         # epilogue absorption: the compute anchor joins
                         # internally (never duplicated — users_ok means

@@ -122,6 +122,15 @@ class Value:
         return f"%{self.vid}: {self.type_str}{self.sharding_str}"
 
 
+def _constrained(v, x):
+    """Replay hook for an annotated value (reference ir.py:70-76): the
+    sharding hint of `v.sharding` on `x` under the active mesh scope (no
+    scope, or any failure: x unchanged). On one card it marks the tensors a
+    program returns (shard_prop.apply_constraint)."""
+    from .shard_prop import apply_constraint
+    return apply_constraint(x, v.sharding)
+
+
 def _fill(spec, vals):
     return pytree.tree_map(lambda a: vals[a.i] if isinstance(a, Ref) else a,
                            spec, is_leaf=lambda a: isinstance(a, Ref))
@@ -180,7 +189,8 @@ class Operation:
     rather than a tensor."""
 
     __slots__ = ("name", "inputs", "outputs", "attrs", "target", "spec",
-                 "fn", "in_types", "n_out", "multi", "_canon", "_fill")
+                 "fn", "in_types", "n_out", "multi", "_canon", "_fill",
+                 "_types")
 
     def __init__(self, name: str, inputs: list, outputs: list,
                  attrs: Optional[dict] = None, eqn=None,
@@ -197,6 +207,7 @@ class Operation:
         self.n_out = len(self.outputs)
         self._canon = None
         self._fill = None
+        self._types = None      # the verifier's last type derivation
         for o in self.outputs:
             o.op = self
 
@@ -259,6 +270,9 @@ class Program:
         self.outputs: list[Value] = []
         self.constants: dict[Value, Any] = {}   # Value -> tensor
         self._next_vid = 0
+        # the mesh the sharding pass pinned: the replay hints the
+        # annotated results under it (a region's sub-program has none)
+        self._mesh = None
 
     # -- construction -------------------------------------------------------
     def new_value(self, shape, dtype, op=None, *, device=None) -> Value:
@@ -306,7 +320,8 @@ class Program:
     def bind(self, *args):
         """Evaluate the program on tensors: captured ops replay as their
         torch calls, pt ops through their callables. Differentiable by
-        torch autograd wherever each op is."""
+        torch autograd wherever each op is. A program with a pinned mesh
+        passes its annotated results through the replay hook."""
         if len(args) != len(self.inputs):
             raise TypeError(f"{self.name}: expected {len(self.inputs)} "
                             f"args, got {len(args)}")
@@ -319,7 +334,11 @@ class Program:
             outs = op.evaluate([env[id(v)] for v in op.inputs])
             for v, o in zip(op.outputs, outs):
                 env[id(v)] = o
-        return tuple(env[id(v)] for v in self.outputs)
+        if self._mesh is None:
+            return tuple(env[id(v)] for v in self.outputs)
+        return tuple(env[id(v)] if v.sharding is None
+                     else _constrained(v, env[id(v)])
+                     for v in self.outputs)
 
     # -- printing / hashing -------------------------------------------------
     def to_string(self, include_attrs: bool = True, max_ops: int = 0) -> str:

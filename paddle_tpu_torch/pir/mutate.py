@@ -12,8 +12,7 @@ All corruptions mutate the program in place and are seeded
 (``random.Random(seed)``) so a failure reproduces exactly. ``corrupt``
 raises ``SkipCorruption`` when the program has no viable target (e.g.
 no two differently-typed operands to swap). The two sharding
-corruptions work on hand-set annotations: no pass stamps shardings until
-the sharding passes are ported.
+corruptions work on hand-set annotations, as a pass's stamps would be.
 """
 
 from __future__ import annotations

@@ -6,8 +6,10 @@ DCE / constant-fold / CSE passes under paddle/fluid/pir/transforms/).
 Every pass run is timed into `pir_pass_seconds{pass}`, its edit count lands
 in `pir_pass_edits_total{pass}` through the observability catalog, and the
 pipeline is wrapped in spans. Passes are toggled through `FLAGS_pir_passes`
-(an ordered comma list; default "fold,cse,pattern,fuse,dce": the
-reference's three sharding passes join it when they are ported).
+(an ordered comma list; default
+"fold,cse,pattern,fuse,dce,shard_search,shard_prop,overlap": the three
+sharding passes decline at once without a mesh scope, annotations or
+collectives).
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ __all__ = ["Pass", "PassResult", "PassManager", "DeadCodeElimination",
            "PIPELINE_VERSION", "mutated_storage"]
 
 # bump when pass semantics change in a way that invalidates cached
-# artifacts of rewritten programs
-PIPELINE_VERSION = 1
+# artifacts of rewritten programs (2: the artifacts carry the sharding
+# annotations and rule stamps)
+PIPELINE_VERSION = 2
 
 # The closed pass registry: every name FLAGS_pir_passes may list.
 PASSES = {
@@ -35,6 +38,9 @@ PASSES = {
     "pattern": "DRR pattern rewriter (pt.sdpa, pt.sdpa_rms_epilogue)",
     "fuse": "cost-guided auto-fusion (pt.fused_region groups)",
     "dce": "dead code elimination",
+    "shard_search": "cost-driven sharding search (argmin strategy)",
+    "shard_prop": "GSPMD-style sharding propagation to fixpoint",
+    "overlap": "collective-overlap scheduling (hide comm under compute)",
 }
 
 # results larger than this are not materialized by constant folding (a
@@ -167,8 +173,9 @@ class DeadCodeElimination(Pass):
 
 
 def _foldable(op, lut, touches) -> bool:
-    if op.target is None or _pinned(op) or touches(op):
-        return False
+    if op.target is None or _pinned(op) or touches(op) \
+            or op.target.namespace == "_c10d_functional":
+        return False                # a collective talks to other ranks
     if any(math.prod(o.shape) * o.dtype.itemsize > _FOLD_MAX_BYTES
            for o in op.outputs):
         return False
@@ -259,13 +266,19 @@ class CommonSubexprElimination(Pass):
 
 def _registry():
     from .fuse import FusionPass
+    from .overlap import CollectiveOverlap
     from .patterns import PatternRewriter
+    from .shard_prop import ShardingPropagation
+    from .shard_search import ShardingSearch
     reg = {
         "dce": DeadCodeElimination,
         "fold": ConstantFolding,
         "cse": CommonSubexprElimination,
         "pattern": PatternRewriter,
         "fuse": FusionPass,
+        "shard_search": ShardingSearch,
+        "shard_prop": ShardingPropagation,
+        "overlap": CollectiveOverlap,
     }
     assert set(reg) == set(PASSES), "pass registry drifted from PASSES"
     return reg

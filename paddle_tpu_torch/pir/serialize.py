@@ -8,8 +8,11 @@ card, so its artifact is the rewritten program itself:
 
   payload = u32 header length + header JSON + constant bytes
 
-The header lists the program's values (shape, dtype, device), its ops and
-its outputs. A captured op is stored as its OpOverload's qualified name
+The header lists the program's values (shape, dtype, device and, where
+the sharding passes annotated it, the sharding spec), its ops (with their
+attributes, the `sharding_rule` stamps among them) and its outputs; a
+loaded program carries the annotations the compiled one had, as the
+reference's XLA artifact has its sharding baked in. A captured op is stored as its OpOverload's qualified name
 ("aten.mm.default", "paddle_tpu_torch.flash_fwd.default": the registered
 K1/K2 operators resolve through torch.ops like any aten op) with its
 argument template, encoded as tagged JSON (dtypes, devices, layouts and
@@ -99,9 +102,12 @@ class _Writer:
         return self.ids.setdefault(id(v), len(self.ids))
 
     def value(self, v):
-        return {"id": self.vid(v), "shape": list(v.shape),
-                "dtype": dtype_name(v.dtype),
-                "device": None if v.device is None else str(v.device)}
+        rec = {"id": self.vid(v), "shape": list(v.shape),
+               "dtype": dtype_name(v.dtype),
+               "device": None if v.device is None else str(v.device)}
+        if v.sharding is not None:
+            rec["sharding"] = list(v.sharding)
+        return rec
 
     def const(self, v, t):
         raw = t.detach().contiguous().cpu().reshape(-1).view(
@@ -153,6 +159,8 @@ class _Reader:
     def value(self, prog, rec):
         v = prog.new_value(rec["shape"], getattr(torch, rec["dtype"]),
                            device=rec["device"])
+        if rec.get("sharding") is not None:
+            v.sharding = tuple(rec["sharding"])
         self.values[rec["id"]] = v
         return v
 

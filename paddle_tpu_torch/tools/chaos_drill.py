@@ -24,12 +24,10 @@ the outcome:
              not move — the drill exits nonzero
 
 Every scenario also asserts the matching catalog counters moved, so a
-fault can never be silently swallowed either. The four `compile.*` sites
-of the PIR pipeline (cache read and write, the verifier, the fusion pass)
-are drilled on a two-op program compiled on DEVICE; `compile.shard_prop`
-waits for the sharding passes (ROADMAP.md Queue 1 item 3.6) and is listed
-as not drilled, never counted as recovered. Any other registered site
-without a scenario fails the drill.
+fault can never be silently swallowed either. The five `compile.*` sites
+of the PIR pipeline (cache read and write, the verifier, the fusion pass,
+the sharding propagation) are drilled on a two-op program compiled on
+DEVICE. Any registered site without a scenario fails the drill.
 """
 
 from __future__ import annotations
@@ -54,10 +52,9 @@ from paddle_tpu_torch.resilience import RetryPolicy, TrainSupervisor, faults
 DEVICE = "cuda"
 TINY_KNOBS = dict(num_blocks=64, block_size=8, max_batch=2,
                   prefill_buckets=(16,))
-# the site that waits for the sharding passes (ROADMAP.md Queue 1 item 3.6)
-NOT_DRILLED = ("compile.shard_prop",)
-NOT_DRILLED_WHY = ("not drilled (waits for pir.shard_prop, ROADMAP Queue 1 "
-                   "item 3.6)")
+# registered sites the drill leaves out (none: every site is drilled)
+NOT_DRILLED = ()
+NOT_DRILLED_WHY = "not drilled"
 
 
 class Escape(AssertionError):
@@ -1044,6 +1041,47 @@ def drill_compile_fuse(tmp):
                         "written; every leg bit-identical to fusion-off")
 
 
+def drill_compile_shard_prop(tmp):
+    """The sharding propagation's entry fault (reference
+    tests/test_pir_sharding.py:305-339): the two-op program compiled under
+    a 2x2 mesh scope with input shardings runs as written, counted
+    pir_fallback_total{stage=passes}; a clean retry is sharded and equal."""
+    from paddle_tpu_torch.distributed.placement import ProcessMesh
+    from paddle_tpu_torch.pir.shard_prop import mesh_scope
+    from paddle_tpu_torch.framework import flags as _flags
+    pir, fn, args, want, prev = _pir_compile_setup(tmp)
+    mesh = ProcessMesh([[0, 1], [2, 3]], ["dp", "mp"], device=DEVICE)
+    specs = [("dp", None), (None, "mp")]
+    try:
+        base = _counter("pir_fallback_total", stage="passes")
+        with faults.injected_faults("compile.shard_prop:1:RuntimeError"):
+            with mesh_scope(mesh):
+                plain, rep = pir.compile_flat(fn, args, name="drill_shard",
+                                              input_shardings=specs)
+                out = float(plain(*args)[0])
+            inj = faults.injected_counts().get("compile.shard_prop", 0)
+        _expect(inj == 1, "fault never reached the shard_prop entry")
+        _expect(rep.fallback == "passes",
+                f"shard_prop fault not degraded: fallback={rep.fallback}")
+        _expect(abs(out - want) < 1e-5, f"fallback result wrong: {out}")
+        _expect(_counter("pir_fallback_total", stage="passes") == base + 1,
+                "passes fallback not counted")
+        with mesh_scope(mesh):
+            clean, rep2 = pir.compile_flat(fn, args, name="drill_shard",
+                                           input_shardings=specs)
+            out2 = float(clean(*args)[0])
+        _expect(rep2.fallback is None,
+                f"still degraded after fault cleared: {rep2.fallback}")
+        _expect(rep2.pass_report["shard_prop"]["edits"] > 0,
+                "clean retry was not sharded")
+        _expect(abs(out2 - want) < 1e-5, f"clean recompile wrong: {out2}")
+    finally:
+        _flags.set_flags({"compile_cache_dir": prev})
+    return "degraded", ("shard_prop fault ran that function as written "
+                        "(correct numerics, stage=passes counted); the "
+                        "clean retry propagated the shardings")
+
+
 SCENARIOS = {
     "ckpt.chunk_write": drill_ckpt_chunk_write,
     "ckpt.metadata_replace": drill_ckpt_metadata_replace,
@@ -1075,15 +1113,15 @@ SCENARIOS = {
     "compile.cache_write": drill_compile_cache_write,
     "compile.verify": drill_compile_verify,
     "compile.fuse": drill_compile_fuse,
+    "compile.shard_prop": drill_compile_shard_prop,
 }
 
 
 def run(sites=None, device="cuda", verbose=False):
     """Drill `sites` (every scenario when None) with the tiny engines on
     `device`. Returns (rows, problems): rows of (site, outcome, note) in
-    site order, with the site that waits for the sharding passes as
-    NOT_DRILLED_WHY, and
-    the list of what fails the drill."""
+    site order (a site in NOT_DRILLED as NOT_DRILLED_WHY), and the list of
+    what fails the drill."""
     global DEVICE
     DEVICE = device
     problems = []

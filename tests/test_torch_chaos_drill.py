@@ -1,11 +1,10 @@
 """The port's chaos drill (paddle_tpu_torch/tools/chaos_drill.py), the
 loadgen CLI's mesh flags and the autoscale report, on the CPU.
 
-The drill arms every registered fault site the port fires (30 of the
-reference's 31) and drives the subsystem that owns it: every site must
-come out recovered or degraded, with its fault_injected_total moved and
-a readable flight dump; compile.shard_prop, which waits for the sharding
-passes, is listed as not drilled and never counted. loadgen's --replicas,
+The drill arms every registered fault site (the reference's 31) and
+drives the subsystem that owns it: every site must come out recovered or
+degraded, with its fault_injected_total moved and a readable flight dump,
+compile.shard_prop among them. loadgen's --replicas,
 --disaggregate, --processes and --slow-replica drive the serving mesh
 and report its mesh section, whose autoscale verdict the report tool
 reads and replays."""
@@ -45,14 +44,12 @@ def test_drill_recovers_or_degrades_every_site_it_fires(plane_off):
     outcome = {site: out for site, out, _note in rows}
     assert sorted(outcome) == sorted(faults.FAULT_SITES)
     drilled = sorted(s for s, o in outcome.items() if o != "-")
-    assert len(drilled) == 30 and len(faults.FAULT_SITES) == 31
+    assert len(drilled) == 31 and len(faults.FAULT_SITES) == 31
     assert {outcome[s] for s in drilled} == {"recovered", "degraded"}
-    assert chaos_drill.NOT_DRILLED == ("compile.shard_prop",)
-    assert sorted(s for s in drilled if s.startswith("compile.")) == [
-        s for s in COMPILE_SITES if s != "compile.shard_prop"]
-    for site, out, note in rows:
-        if site in chaos_drill.NOT_DRILLED:
-            assert (out, note) == ("-", chaos_drill.NOT_DRILLED_WHY)
+    assert chaos_drill.NOT_DRILLED == ()
+    assert sorted(s for s in drilled if s.startswith("compile.")) == \
+        COMPILE_SITES
+    assert outcome["compile.shard_prop"] == "degraded"
     mesh = [s for s in drilled if s.startswith("mesh.")]
     assert len(mesh) == 7
     fam = obs.get_registry().get("fault_injected_total")
@@ -67,7 +64,7 @@ def test_drill_fails_on_an_undrilled_site(monkeypatch, capsys, plane_off):
     assert rc == 1
     assert "no drill scenario: ['store.get']" in err
     assert chaos_drill.main(["--device", "cpu", "--site",
-                             "compile.shard_prop"]) == 2
+                             "compile.no_such_site"]) == 2
 
 
 def test_loadgen_disaggregated_mesh_and_autoscale_report(

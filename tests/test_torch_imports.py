@@ -88,7 +88,8 @@ SUBPACKAGES = [
     "distributed.ps", "distributed.dataset", "inference.mesh",
     "inference.mesh.worker", "tools.chaos_drill", "tools.autoscale_report",
     "pir.capture", "pir.pipeline", "pir.serialize", "framework.staging",
-    "tools.ir_dump", "tools.pipeline_tax"]
+    "tools.ir_dump", "tools.pipeline_tax", "ops.collectives",
+    "pir.shard_prop", "pir.shard_search", "pir.overlap"]
 
 
 @pytest.fixture(scope="module")

@@ -26,8 +26,8 @@ from paddle_tpu.resilience import faults as jfaults
 from paddle_tpu_torch.inference.adapters import AdapterStore
 from paddle_tpu_torch.inference.mesh import (KVHandoffError, MeshRouter,
                                              ReplicaPool, hand_off,
-                                             pack_record, replica,
-                                             unpack_record, wire_size)
+                                             pack_record, unpack_record,
+                                             wire_size)
 from paddle_tpu_torch.resilience import faults
 from torch_mesh_parity import (dense, no_new_series, pair,  # noqa: F401
                                port_factory, prompts, ref_factory, serve)
@@ -333,14 +333,23 @@ def test_mesh_adapters_match_reference():
     assert got == want
 
 
-def test_tp_replicas_build_plain_below_two_cards(monkeypatch):
-    """tp=True builds the plain engine below two devices, as the
-    reference's does; with two or more it refuses (shard_prop is not
-    ported) instead of building an unsharded engine quietly."""
-    pool = ReplicaPool(port_factory(), n=1, tp=True, store_port=0)
+def test_tp_replicas_build_plain_below_two_cards():
+    """tp=True builds each engine under a logical two-way "mp" mesh scope
+    at any card count (the port's meshes lie on the cards there are). As
+    in the reference, the scope closes before the engine's programs
+    compile, so the replica serves exactly what the plain engine serves."""
+    from paddle_tpu_torch.pir import shard_prop
+    scopes = []
+
+    def build():
+        scopes.append(shard_prop.current_mesh())
+        return port_factory()()
+    pool = ReplicaPool(build, n=1, tp=True, store_port=0)
+    assert scopes[0] is not None and scopes[0].dim_names == ["mp"]
+    assert scopes[0].shape == [2]
+    assert shard_prop.current_mesh() is None
     assert serve(MeshRouter(pool), prompts(1), n=4) \
         == [dense(pair()[1], prompts(1)[0], 4)]
-    monkeypatch.setattr(replica, "_device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3.6"):
-        ReplicaPool(port_factory(), n=1, tp=True, store_port=0)
-    ReplicaPool(port_factory(), n=1, tp=False, store_port=0)
+    scopes.clear()
+    ReplicaPool(build, n=1, tp=False, store_port=0)
+    assert scopes == [None]

@@ -102,11 +102,14 @@ def test_passes_flag_toggles_and_unknown_pass_raises():
         assert [p.name for p in pir.PassManager.default().passes] == \
             ["dce", "cse"]
         _flags.set_flags({"pir_passes": "fold,shard_prop"})
+        assert [p.name for p in pir.PassManager.default().passes] == \
+            ["fold", "shard_prop"]
+        _flags.set_flags({"pir_passes": "fold,shard_propagation"})
         with pytest.raises(ValueError, match="unknown PIR pass"):
             pir.PassManager.default()
     finally:
         _flags.set_flags({"pir_passes": prev})
-    assert prev == "fold,cse,pattern,fuse,dce"
+    assert prev == "fold,cse,pattern,fuse,dce,shard_search,shard_prop,overlap"
 
 
 def test_pass_metrics_flow_through_catalog():
